@@ -1,0 +1,119 @@
+"""Plain PyTorch versions of the port's kernels (the allclose ground truth).
+
+Each mirrors its oracle in ``repro/kernels/ref.py`` or the reference model
+code it stands in for, with the same contracts:
+
+* products accumulate in fp32 (inputs are upcast before ``torch.matmul``,
+  so a bf16 input never meets a bf16-accumulating GEMM);
+* the ``(x @ A)`` intermediate of a low-rank apply is rounded to the input
+  dtype before ``@ B``;
+* fully-masked decode rows give zeros, never NaN.
+
+The CPU tests and the wrappers' CPU path run these; ``chip_smoke.py`` holds
+each CUDA kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "NEG_INF",
+    "sketch_matmul_ref",
+    "lowrank_matmul_ref",
+    "decode_attention_ref",
+    "flash_attention_ref",
+    "chunked_attention_ref",
+]
+
+NEG_INF = -1e30
+
+
+def sketch_matmul_ref(a, b, *, trans_a: bool = False, out_dtype: Optional[torch.dtype] = None):
+    """``op(a) @ b`` with fp32 accumulation, ``op(a) = a.T`` under ``trans_a``.
+
+    a: (M, K), or (K, M) under ``trans_a``; b: (K, N).  The output is in
+    ``out_dtype`` (default a's dtype) — fp32 output keeps the product unrounded.
+    """
+    a32 = a.float()
+    if trans_a:
+        a32 = a32.T
+    return torch.matmul(a32, b.float()).to(out_dtype or a.dtype)
+
+
+def lowrank_matmul_ref(x, A, B):
+    """y = (x @ A) @ B — compressed-linear serving oracle."""
+    t = torch.matmul(x.float(), A.float()).to(x.dtype)
+    return torch.matmul(t.float(), B.float()).to(x.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid):
+    """Dense one-token GQA attention over a cache — flash-decode oracle.
+
+    q: (B, 1, H, hd); k_cache: (B, S, KV, hd); v_cache: (B, S, KV, vd);
+    valid: (B, S) bool strict per-slot mask.  q is scaled in fp32 and cast to
+    the cache dtype; probabilities are re-masked after the exp, so a
+    fully-masked row produces zeros.
+    """
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qh = (q.reshape(B, KV, G, hd).float() * hd**-0.5).to(k_cache.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qh.float(), k_cache.float())
+    live = valid[:, None, None, :]
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain softmax attention oracle.  q/k/v: (B, S, H, hd) (same H); the
+    scale is applied to the fp32 scores, after the dot."""
+    B, S, H, hd = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd**-0.5)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o.to(q.dtype)
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window: Optional[int], q_offset: int, device):
+    """(Sq, Skv) bool mask of ``repro/models/attention.py::_mask_for``."""
+    q_pos = q_offset + torch.arange(sq, device=device)
+    k_pos = torch.arange(skv, device=device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
+    """Prefill attention with the numerics of ``_flash_fwd_pass`` in one chunk.
+
+    q: (B, Sq, H, hd); k: (B, Skv, KV, hd); v: (B, Skv, KV, vd), GQA by head
+    grouping (H = KV * G, K/V never repeated).  q is scaled in fp32 and cast
+    back to q's dtype before the dot; p = exp(s - m) is cast to v's dtype
+    before PV; the result is ``acc / max(l, 1e-30)``.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qs = (q.float() * hd**-0.5).to(q.dtype).reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qs.float(), k.float())
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset, device=q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqc,bckv->bkgqv", p.to(v.dtype).float(), v.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)

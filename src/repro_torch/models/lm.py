@@ -1,0 +1,158 @@
+"""Decoder-only LM, dense family: init, forward, prefill and decode.
+
+The port's counterpart of the dense family of ``repro/models/lm.py``.  The
+params tree mirrors the reference's: ``embed``, ``final_norm`` and a
+``layers`` subtree whose leaves are stacked over layers, shape (L, ...).
+The reference scans over that axis; here a Python loop takes each layer's
+slice (a view).
+
+The decode cache is ``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}`` and
+``lm_decode_step`` updates it IN PLACE: each layer writes its new K/V row
+into its slice of the stacked tensors.  This replaces the reference's
+scan-carry cache (``lm.py:795-822``), whose point was the same in-place
+aliasing.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import modules as nn
+from repro_torch.models import moe as moe_mod
+from repro_torch.runtime import dispatch
+
+__all__ = ["lm_init", "lm_forward", "lm_init_cache", "lm_prefill", "lm_decode_step"]
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"model family {cfg.family!r} is not yet ported (only 'dense')")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("sliding-window attention is not yet ported")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("an untied lm_head is not yet ported (only tied embeddings)")
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _layer(stack, i: int):
+    """Layer ``i``'s slice of a stacked params (or cache) subtree."""
+    if isinstance(stack, dict):
+        return {k: _layer(v, i) for k, v in stack.items()}
+    return stack[i]
+
+
+def _block_init(generator, cfg, dtype, device) -> dict:
+    return {
+        "attn_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attn.gqa_init(generator, cfg, dtype, device),
+        "mlp_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": moe_mod.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def lm_init(generator: torch.Generator, cfg, device) -> dict:
+    """Random params (seeded by ``generator``) in the reference's tree layout."""
+    _check_family(cfg)
+    dtype = _dtype(cfg)
+    p = {
+        "embed": nn.embed_init(generator, cfg.vocab_padded, cfg.d_model, dtype, device),
+        "final_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
+    }
+    p["layers"] = _stack([_block_init(generator, cfg, dtype, device) for _ in range(cfg.n_layers)])
+    return p
+
+
+def _logits(p, x, cfg) -> torch.Tensor:
+    """fp32 logits against the tied embedding, with fp32 accumulation and
+    never rounded to the model dtype."""
+    return dispatch.logits_apply(x, p["embed"])
+
+
+def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
+    h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions, return_cache=return_cache)
+    kv = None
+    if return_cache:
+        a, kv = a
+    x = x + a
+    h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + moe_mod.ffn_forward(lp["mlp"], h), kv
+
+
+def lm_forward(p, batch, cfg):
+    """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss 0.0)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = nn.embed_lookup(p["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        x, _ = _self_block(_layer(p["layers"], i), x, cfg, positions)
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return _logits(p, x, cfg), 0.0
+
+
+def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
+    _check_family(cfg)
+    one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
+    return {"layers": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype, device=device)
+                       for k, v in one.items()}}
+
+
+def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor] = None):
+    """Run the prompt through the model, building the decode cache.
+
+    Returns (last_token_logits (B, Vp) fp32, cache).  ``last_index``:
+    optional (B,) index of each sequence's last valid prompt token (for
+    right-padded micro-batches); by default the last column.
+    """
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt length {S} > max_len {max_len}")
+    cache = lm_init_cache(cfg, B, max_len, tokens.device)
+    x = nn.embed_lookup(p["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _self_block(_layer(p["layers"], i), x, cfg, positions, return_cache=True)
+        cache["layers"]["k"][i, :, :S] = k
+        cache["layers"]["v"][i, :, :S] = v
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    if last_index is None:
+        last = x[:, -1:, :]
+    else:
+        idx = torch.as_tensor(last_index, dtype=torch.int64, device=x.device)
+        last = x[torch.arange(B, device=x.device), idx][:, None, :]
+    return _logits(p, last, cfg)[:, 0], cache
+
+
+def lm_decode_step(p, cache, tokens, pos, cfg):
+    """tokens: (B, 1); pos: scalar or (B,) per-slot positions.
+
+    Returns (logits (B, Vp) fp32, cache); the cache is updated in place."""
+    _check_family(cfg)
+    x = nn.embed_lookup(p["embed"], tokens)
+    pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
+    for i in range(cfg.n_layers):
+        lp = _layer(p["layers"], i)
+        c = _layer(cache["layers"], i)  # views into the stacked cache
+        h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg)
+        x = x + a
+        h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + moe_mod.ffn_forward(lp["mlp"], h)
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    return _logits(p, x, cfg)[:, 0], cache

@@ -1,0 +1,275 @@
+"""Kernel dispatch: one policy layer between the model code and the kernels.
+
+The port's counterpart of ``repro/runtime/dispatch.py``.  Model code calls
+shape-only entry points (``lowrank_apply``, ``dense_apply``,
+``flash_attention``, ``decode_attention``, ``sketch_matmul``,
+``logits_apply``); the backend is chosen here, in one place:
+
+* ``backend="auto"`` (the default): on a CUDA tensor the hand-written
+  kernel, always — the reference's TPU-only thresholds (``DECODE_MIN_SEQ``
+  and the 14 MiB VMEM fit test) are not carried over, so no shape quietly
+  runs the plain version on the card.  On a CPU tensor the plain PyTorch
+  version (``repro_torch.kernels.ref``).
+* ``backend="reference"``: the plain version everywhere.  Only chosen
+  explicitly (tests, ``chip_smoke.py``'s comparison phase).
+
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    with use_dispatch(backend="reference"):
+        logits, cache = model.prefill(params, batch, max_len)
+
+PyTorch runs eagerly, so the hit counters count CALLS per (op, path, shape)
+— the reference's count traced call sites.  ``format_counters`` prints them
+the way the JAX launcher does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from collections import Counter
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+from repro_torch.kernels.lowrank_matmul import lowrank_matmul as _lowrank_kernel
+from repro_torch.kernels.sketch_matmul import sketch_matmul as _sketch_kernel
+
+__all__ = [
+    "BACKENDS",
+    "PATH_TWO_GEMM",
+    "PATH_FUSED",
+    "DispatchConfig",
+    "active_dispatch",
+    "use_dispatch",
+    "choose_lowrank_path",
+    "lowrank_apply",
+    "dense_apply",
+    "sketch_matmul",
+    "logits_apply",
+    "flash_attention",
+    "decode_attention",
+    "counters",
+    "counters_by_path",
+    "reset_counters",
+    "format_counters",
+]
+
+BACKENDS = ("auto", "reference")
+
+# low-rank execution paths (what the auto table chooses between)
+PATH_TWO_GEMM = "two_gemm"  # the plain (x @ A) @ B
+PATH_FUSED = "fused"  # the lowrank_matmul CUDA kernel
+PATH_KERNEL = "kernel"  # the other ops' CUDA kernels
+PATH_REFERENCE = "reference"  # the other ops' plain versions
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """backend: "auto" (kernels on the card) or "reference" (plain versions)."""
+
+    backend: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+
+    @classmethod
+    def from_arch(cls, cfg, **kw) -> "DispatchConfig":
+        return cls(backend=getattr(cfg, "kernels", "auto"), **kw)
+
+    def replace(self, **kw) -> "DispatchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_state = threading.local()
+_DEFAULT = DispatchConfig()
+
+
+def active_dispatch() -> DispatchConfig:
+    return getattr(_state, "dispatch", None) or _DEFAULT
+
+
+@contextlib.contextmanager
+def use_dispatch(config: Optional[DispatchConfig] = None, **kw):
+    """Install a DispatchConfig for the dynamic extent (this thread only)."""
+    if config is None:
+        config = DispatchConfig(**kw)
+    elif kw:
+        config = config.replace(**kw)
+    prev = getattr(_state, "dispatch", None)
+    _state.dispatch = config
+    try:
+        yield config
+    finally:
+        _state.dispatch = prev
+
+
+# --------------------------------------------------------------------------- #
+# hit counters: (op, path, shape-signature) -> calls
+# --------------------------------------------------------------------------- #
+_COUNTS: Counter = Counter()  # guarded by: _COUNTS_LOCK
+_COUNTS_LOCK = threading.Lock()
+
+
+def _record(op: str, path: str, sig: tuple):
+    with _COUNTS_LOCK:
+        _COUNTS[(op, path, sig)] += 1
+
+
+def counters() -> dict:
+    """{(op, path, shape_sig): calls}."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def counters_by_path() -> dict:
+    """{(op, path): calls} aggregated over shapes."""
+    agg: Counter = Counter()
+    for (op, path, _sig), n in counters().items():
+        agg[(op, path)] += n
+    return dict(agg)
+
+
+def reset_counters():
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
+
+
+def format_counters() -> str:
+    rows = sorted(counters().items(), key=lambda kv: (kv[0][0], kv[0][1], str(kv[0][2])))
+    if not rows:
+        return "(no dispatched ops recorded)"
+    return "\n".join(f"{op:16s} {path:14s} {str(sig):32s} x{n}" for (op, path, sig), n in rows)
+
+
+# --------------------------------------------------------------------------- #
+# selection
+# --------------------------------------------------------------------------- #
+def _use_kernel(device: torch.device, config: DispatchConfig) -> bool:
+    return config.backend == "auto" and device.type == "cuda"
+
+
+def choose_lowrank_path(
+    x_shape,
+    a_shape,
+    b_shape,
+    *,
+    device_type: str,
+    config: Optional[DispatchConfig] = None,
+) -> str:
+    """The auto table: on ``cuda`` under ``auto`` the fused kernel, for
+    every rank; otherwise (``reference``, or the CPU) the plain two-GEMM
+    form.  The reference's dense-rematerialization path is not carried
+    over: no rank that ``compress_tree`` emits reaches break-even."""
+    config = config or active_dispatch()
+    if len(a_shape) != 2 or len(b_shape) != 2:
+        raise NotImplementedError(
+            f"stacked low-rank factors (A {tuple(a_shape)}) need the batched kernel, not yet ported"
+        )
+    K, r = a_shape
+    if tuple(b_shape)[0] != r or x_shape[-1] != K:
+        raise ValueError(f"lowrank apply: x {tuple(x_shape)}, A {tuple(a_shape)}, B {tuple(b_shape)}")
+    if config.backend == "auto" and device_type == "cuda":
+        return PATH_FUSED
+    return PATH_TWO_GEMM
+
+
+# --------------------------------------------------------------------------- #
+# execution entry points
+# --------------------------------------------------------------------------- #
+def dense_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y = x @ W with fp32 accumulation, in x's dtype.
+
+    The reference leaves dense products to XLA, and the port leaves them to
+    ``torch.matmul``: on the card a bf16 GEMM accumulates in fp32; on the
+    CPU the operands are upcast first so that holds there too.
+    """
+    _record("dense", "torch", (x.shape[-1], w.shape[-1]))
+    if x.device.type == "cuda":
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """y = (x @ A) @ B via whichever path the dispatch table selects.
+
+    x (..., K), A (K, r), B (r, N); leading x dims are flattened.
+    """
+    config = active_dispatch()
+    path = choose_lowrank_path(x.shape, A.shape, B.shape, device_type=x.device.type, config=config)
+    K, r = A.shape
+    N = B.shape[1]
+    x2 = x.reshape(-1, K)
+    _record("lowrank_matmul", path, (x2.shape[0], K, r, N))
+    if path == PATH_FUSED:
+        y = _lowrank_kernel(x2, A, B)
+    else:
+        y = _ref.lowrank_matmul_ref(x2, A, B)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """op(a) @ b with fp32 accumulation — RSI's sketch GEMMs."""
+    config = active_dispatch()
+    if _use_kernel(a.device, config):
+        _record("sketch_matmul", PATH_KERNEL, (tuple(a.shape), tuple(b.shape), trans_a))
+        return _sketch_kernel(a, b, trans_a=trans_a, out_dtype=out_dtype)
+    _record("sketch_matmul", PATH_REFERENCE, (tuple(a.shape), tuple(b.shape), trans_a))
+    return _ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=out_dtype)
+
+
+def logits_apply(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """fp32 logits ``x @ embed.T`` against the tied (V, d) embedding table,
+    with fp32 accumulation and no rounding.
+
+    On the card this is the sketch GEMM with an fp32 output, computed
+    transposed (table rows stream once; x is the skinny operand) — a bf16
+    GEMM rounded to bf16 and then upcast could flip greedy argmaxes, and
+    upcasting the table each step would move 1 GB.
+    """
+    config = active_dispatch()
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    V = embed.shape[0]
+    sig = (x2.shape[0], d, V)
+    if _use_kernel(x.device, config):
+        _record("logits", PATH_KERNEL, sig)
+        out_t = _sketch_kernel(embed, x2.T.contiguous(), out_dtype=torch.float32)
+    else:
+        _record("logits", PATH_REFERENCE, sig)
+        out_t = _ref.sketch_matmul_ref(embed, x2.T, out_dtype=torch.float32)
+    return out_t.T.reshape(x.shape[:-1] + (V,))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
+    """Prefill attention: q (B,Sq,H,hd), k/v (B,Skv,KV,hd), GQA by grouping."""
+    config = active_dispatch()
+    sig = (tuple(q.shape), k.shape[2], causal, window)
+    if _use_kernel(q.device, config):
+        _record("flash_attention", PATH_KERNEL, sig)
+        return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    _record("flash_attention", PATH_REFERENCE, sig)
+    return _ref.chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, valid):
+    """One-token GQA attention over a cache (the serving decode hot path).
+
+    q: (B, 1, H, hd); k_cache: (B, S, KV, hd); v_cache: (B, S, KV, vd);
+    valid: (B, S) bool strict per-slot mask.  Fully-masked rows give zeros.
+    """
+    config = active_dispatch()
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    sig = (B, S, KV, H // KV, hd)
+    if _use_kernel(q.device, config):
+        _record("decode_attention", PATH_KERNEL, sig)
+        return _decode_kernel(q, k_cache, v_cache, valid)
+    _record("decode_attention", PATH_REFERENCE, sig)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, valid)
