@@ -7,22 +7,48 @@ Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
 Phases, in order; any failure exits non-zero before the last line:
 
-1. Device: the card's name and power limit; build the four kernels from
+1. Device: the card's name and power limit; build the five kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
    beside each check; times of the kernel, the plain version and one
-   PyTorch library call for the same function, and the card's bound.
+   PyTorch library call for the same function, and the card's bound.  The
+   paged decode kernel also runs on a ragged n_valid with a fully-masked
+   row and permuted pages at pages 64, 16 and 128, and at page 64 must
+   return the flat kernel's bits.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
    32 tokens for 4 prompts of 256 tokens with the dense and both compressed
    models.  Gate: q = 4's normalized error <= q = 1's on one w_gate layer.
-4. Launches: every kernel ran during phase 3 (counts reset just before).
+4. Launches: every kernel of the static path ran during phase 3 (counts
+   reset just before).
 5. Reference comparison: the q = 4 model's prefill and first decode step
    under backend "auto" (kernels) and "reference" (plain versions).
 6. Profile (informational): device time by kernel over a few q = 4 decode
    steps, against the host clock.
+7. Serving engine at full width: the q = 4 model behind the
+   continuous-batching engine (paged, page 64, 8 slots, max_len 640, 40
+   pages = half of flat capacity, prefill chunk 256, decode block 8,
+   greedy; the decode block a captured CUDA graph) serving 16 SyntheticLM
+   prompts of 32-512 tokens with 16-64 new tokens each, all submitted at
+   once.  Gates: every request finishes with its requested token count;
+   the graph's tokens equal an eager (``cuda_graph=False``) run's; a paged
+   engine's tokens equal a flat engine's (no chunking); a chunked long
+   prompt's first-token logits lie within phase 5's tolerance of the
+   monolithic prefill's; every kernel of the engine's path launched, and
+   decode_attention in the flat run.  Counts are reset just before each
+   engine run and read just after it; launches recorded into the graph
+   count once per replay.
+8. Profiles: host and device time of one captured decode block with all
+   8 slots decoding (gate: all 8 active throughout), and the device's idle
+   share; the profiler's trace of one block (one replay) must name the
+   paged kernel.  Then one (1, 256) prefill chunk: host time, and device
+   time split between the hand-written kernels and torch's own.
+
+The line before the card line lists every kernel with its time, launches
+on the engine's main run (beside them, on the static path and on the flat
+engine's run), bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -31,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,7 +77,12 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:92",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "sketch_matmul": "src/repro/kernels/sketch_matmul.py:57",
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:153",
 }
+
+# the serving engine's main path (phase 7)
+ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
+N_REQUESTS, PROMPT_RANGE, GEN_RANGE = 16, (32, 512), (16, 64)
 
 
 def fail(msg: str) -> None:
@@ -239,6 +271,8 @@ def phase_kernels() -> dict:
                   bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
                   ops=4 * Bq * H * pairs * hd, records=records)
 
+    phase_paged_kernel(rnd, gen, attn_tol, records)
+
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded
     E, xT = rnd((128256, 2048), torch.bfloat16), rnd((2048, BATCH), torch.bfloat16)
     rel, why = 1e-4, "fp32 output of bf16 products; only the summation order differs"
@@ -252,6 +286,57 @@ def phase_kernels() -> dict:
     del E, xT
     torch.cuda.empty_cache()
     return records
+
+
+def phase_paged_kernel(rnd, gen, attn_tol, records):
+    """The paged decode kernel against its plain version, and bitwise against
+    the flat kernel at page 64."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+
+    dev = torch.device("cuda")
+    Bq, H, KV, hd = ENGINE["n_slots"], 32, 8, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        for page, n_tbl in ((64, 10), (16, 40), (128, 5)):
+            S = n_tbl * page
+            P = Bq * n_tbl + 1
+            q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((P, page, KV, hd), dtype), rnd((P, page, KV, hd), dtype)
+            k[-1], v[-1] = 1e4, -1e4  # the trash page: finite poison, never attended
+            perm = torch.randperm(P - 1, generator=gen, device=dev)[: Bq * n_tbl]
+            bt = perm.reshape(Bq, n_tbl).to(torch.int32).contiguous()
+            # ragged, crossing page boundaries; row 2 fully masked; row 5 past n_valid on trash
+            n_valid = torch.tensor([S, 1, 0, page + 1, 3 * page - 1, 100, S // 2, 7], dtype=torch.int32,
+                                   device=dev)
+            bt[5, -1] = P - 1
+            got = paged_decode_attention(q, k, v, bt, n_valid)
+            if not bool((got[2] == 0).all()):
+                fail("paged_decode_attention: the fully-masked row is not zero")
+            flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
+            valid = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
+            if page == 64:
+                flat = decode_attention(q, flat_k, flat_v, valid)
+                same = bool(torch.equal(got, flat))
+                say(f"[paged] page 64 {dtype}: paged == flat kernel bit for bit: {same}")
+                if not same:
+                    fail(f"paged_decode_attention at page 64 ({dtype}) differs from the flat kernel")
+            qs, ks, vs = q.transpose(1, 2), flat_k.transpose(1, 2), flat_v.transpose(1, 2)
+            mask = valid[:, None, None, :]
+            n_rows = int(n_valid.sum())  # the K/V rows n_valid keeps: the rest need not be read
+            check("paged_decode_attention", [Bq, page, n_tbl, H, KV, hd, "ragged n_valid"], dtype, got,
+                  ref.paged_decode_attention_ref(q, k, v, bt, n_valid), rel, why,
+                  kernel_fn=lambda: paged_decode_attention(q, k, v, bt, n_valid),
+                  plain_fn=lambda: ref.paged_decode_attention_ref(q, k, v, bt, n_valid),
+                  # SDPA on the pre-gathered cache: the gather is not timed
+                  library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                  bytes_moved=nbytes(q, bt, n_valid) + n_rows * KV * 2 * hd * k.element_size()
+                  + Bq * H * hd * q.element_size(),
+                  ops=4 * H * hd * n_rows, records=records)
+            del q, k, v, flat_k, flat_v, qs, ks, vs
 
 
 # --------------------------------------------------------------------------- #
@@ -384,9 +469,32 @@ def phase_reference(model, params, batch):
 # --------------------------------------------------------------------------- #
 # where a decode step's time goes (after the gated phases; informational)
 # --------------------------------------------------------------------------- #
+def device_rows(prof, per: int = 1) -> list:
+    """(device us, count, kernel name) of every device-side event of a
+    ``torch.profiler`` trace, divided by ``per`` runs, largest first.  Only
+    device events: a CPU op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / per, e.count // per, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+# the hand-written kernels' symbols, as the profiler names them
+OWN_KERNELS = re.compile(r"\b(gemm_bf16_kernel|gemm_f32_kernel|gemm_skinny_partial_kernel|gemm_skinny_reduce_kernel|"
+                         r"flash_attention_kernel|decode::partial_kernel|decode::combine_kernel)\b")
+
+
 def phase_profile(model, params, batch, steps: int = 4):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     logits, cache = model.prefill(params, batch, PROMPT + GEN)
@@ -405,16 +513,7 @@ def phase_profile(model, params, batch, steps: int = 4):
     wall = run(PROMPT)  # profiler off: the idle share is taken against this clock
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_prof = run(PROMPT + steps)
-    rows = []  # device-side events only: a CPU op's row repeats its kernels' time
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / steps, e.count // steps, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     device_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         say(f"[profile] q=4 decode step: wall {wall * 1e3:.3f} ms; device time not measured (no CUDA events)")
@@ -424,6 +523,207 @@ def phase_profile(model, params, batch, steps: int = 4):
         f"idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f} of the profiler-off wall")
     for us, n, key in rows[:10]:
         say(f"[profile]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the serving engine's main path at full width
+# --------------------------------------------------------------------------- #
+def engine_requests(cfg):
+    """16 SyntheticLM prompts (seed 0) of 32-512 tokens, 16-64 new tokens each."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
+    lens[:2] = (PROMPT_RANGE[1], PROMPT_RANGE[0])  # the longest chunks, the shortest does not
+    gens = rng.integers(GEN_RANGE[0], GEN_RANGE[1] + 1, size=N_REQUESTS)
+    toks = SyntheticLM(cfg, batch=N_REQUESTS, seq=PROMPT_RANGE[1], kind="serve", seed=0).at_step(0)["tokens"]
+    return [Request(prompt=toks[i, : lens[i]], max_new_tokens=int(gens[i])) for i in range(N_REQUESTS)]
+
+
+def serve(model, params, label, *, libs, **kw):
+    """One engine run over the 16 requests, counts reset just before and read
+    just after; returns (tokens per request, engine, launches, tok/s)."""
+    import torch
+
+    from repro_torch.runtime import dispatch
+    from repro_torch.serving import Engine
+
+    opts = dict(ENGINE)
+    opts.update(kw)
+    eng = Engine(model, params, **opts)
+    reqs = engine_requests(model.cfg)
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    dispatch.reset_counters()
+    t = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {n: lib.launches for n, lib in libs.items()}
+    n_tok = sum(len(r.tokens) for r in reqs)
+    bad = [r.uid for r in reqs if r.status != "ok" or len(r.tokens) != r.max_new_tokens
+           or min(r.tokens) < 0 or max(r.tokens) >= model.cfg.vocab_padded]
+    say(f"[engine] {label}: {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s; "
+        f"steps {eng.steps}, host syncs {eng.host_syncs}, graph replays {eng.graph_replays}, "
+        f"prefill chunks {eng.prefill_chunks}, peak active {eng.peak_active}, "
+        f"peak pages {eng.peak_pages_in_use}/{eng.kv_pages}, kv bytes peak {eng.kv_bytes_peak} "
+        f"of {eng.kv_bytes_capacity}; launches {launches}")
+    if bad:
+        fail(f"engine {label}: requests {bad} did not finish with their requested token counts")
+    return [r.tokens for r in reqs], eng, launches, n_tok / dt
+
+
+def phase_engine(model, params):
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention, lowrank_matmul, paged_decode_attention
+    from repro_torch.kernels import sketch_matmul
+    from repro_torch.runtime import dispatch
+
+    libs = {"lowrank_matmul": lowrank_matmul.KERNEL, "sketch_matmul": sketch_matmul.KERNEL,
+            "decode_attention": decode_attention.KERNEL, "flash_attention": flash_attention.KERNEL,
+            "paged_decode_attention": paged_decode_attention.KERNEL}
+    main_tok, eng, launches, tps = serve(model, params, "paged + chunked, CUDA graph (main path)", libs=libs)
+    say("[engine] dispatch table of the main run (calls that ran; graph calls counted per replay):")
+    for line in dispatch.format_counters().splitlines():
+        say(f"[engine]   {line}")
+    on_path = ("lowrank_matmul", "sketch_matmul", "flash_attention", "paged_decode_attention")
+    missing = [n for n in on_path if launches[n] <= 0]
+    if missing:
+        fail(f"kernels never launched on the engine's main path: {missing}")
+    if eng.graph_replays <= 0:
+        fail("the engine's main path never replayed its decode graph")
+    eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, cuda_graph=False)
+    if eager_tok != main_tok:
+        fail("CUDA-graph tokens differ from the eager run's")
+    say("[engine] CUDA-graph tokens == eager tokens: True")
+    paged_tok, *_ = serve(model, params, "paged, no chunking", libs=libs, prefill_chunk=None)
+    flat_tok, _, flat_launches, _ = serve(model, params, "flat, no chunking", libs=libs, page_size=None,
+                                          kv_pages=None, prefill_chunk=None)  # counts reset again inside
+    if paged_tok != flat_tok:
+        fail("paged-engine tokens differ from the flat engine's")
+    say("[engine] paged tokens == flat tokens: True")
+    if flat_launches["decode_attention"] <= 0:
+        fail("the flat engine never launched decode_attention")
+
+    # a chunked long prompt's first-token logits against the monolithic prefill's
+    req = engine_requests(model.cfg)[0]
+    L, C, page = int(req.prompt.size), ENGINE["prefill_chunk"], ENGINE["page_size"]
+    dev = model.device
+    toks = torch.as_tensor(req.prompt[None], dtype=torch.int64, device=dev)
+    mono, _ = model.prefill(params, {"tokens": toks}, ENGINE["max_len"])
+    cache, _ = model.init_cache_paged(1, ENGINE["max_len"], page, ENGINE["kv_pages"])
+    row = torch.arange(cache["block_table"].shape[1], dtype=torch.int32, device=dev)
+    for start in range(0, L, C):
+        n = min(C, L - start)
+        chunk = torch.zeros((1, C), dtype=torch.int64, device=dev)
+        chunk[0, :n] = toks[0, start:start + n]
+        chunked, _ = model.prefill_chunk(params, cache, chunk, row, start, n)
+    rel = 5e-2  # phase 5's tolerance: bf16 activations through 16 layers, one ulp apart at most places
+    err, tol = float((chunked - mono).abs().max()), rel * float(mono.abs().max())
+    say(f"[engine] chunked ({-(-L // C)} chunks of {C}) vs monolithic prefill of a {L}-token prompt: "
+        f"first-token logits max abs err {err:.4e} (tol {tol:.4e}); argmax {int(chunked.argmax())} vs "
+        f"{int(mono.argmax())}")
+    if not (err <= tol and bool(torch.isfinite(chunked).all())):
+        fail(f"chunked prefill logits {err:.4e} > {tol:.4e} from the monolithic prefill's")
+    return {"tok_s": tps, "launches": launches, "launches_flat_engine": flat_launches}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: one captured decode block and one prefill chunk, profiled
+# --------------------------------------------------------------------------- #
+def phase_block_profile(model, params, blocks: int = 6):
+    """Host and device time of one captured decode block with every slot
+    decoding; the trace of one block (one replay) must name the paged kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Engine, Request
+
+    eng = Engine(model, params, **ENGINE)
+    rng = np.random.default_rng(1)
+    # 64 + 256 tokens = 5 pages each, so all 8 requests fit the 40 pages at
+    # once, and none finishes within the 2 + blocks + 1 blocks run here
+    for _ in range(ENGINE["n_slots"]):
+        eng.submit(Request(prompt=rng.integers(0, model.cfg.vocab, size=64), max_new_tokens=256))
+    eng.step()  # admission, prefill, capture, the first block
+    eng.step()
+    if eng.n_active != ENGINE["n_slots"]:
+        fail(f"the decode-block profile runs {eng.n_active} of {ENGINE['n_slots']} slots, not a full batch")
+    torch.cuda.synchronize()
+    tok0 = eng.decoded_tokens
+    t = time.perf_counter()
+    for _ in range(blocks):
+        eng.step()
+    wall = (time.perf_counter() - t) / blocks  # profiler off; each step ends in the block's drain
+    tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
+    replays = eng.graph_replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()  # one block: the state copied in, one replay, the drain
+    if eng.graph_replays != replays + 1:
+        fail("the profiled engine step did not replay the decode graph exactly once")
+    if eng.n_active != ENGINE["n_slots"]:
+        fail(f"a slot finished inside the decode-block profile ({eng.n_active} of {ENGINE['n_slots']} active)")
+    rows = device_rows(prof)
+    names = " ".join(r[2] for r in rows)
+    if "PagedRows" not in names:
+        fail(f"the trace of one decode-block replay does not name the paged kernel: {names[:400]}")
+    device_ms = sum(r[0] for r in rows) / 1e3
+    say(f"[block] one captured decode block ({ENGINE['decode_block']} steps x {eng.n_active} active slots): "
+        f"host {wall * 1e3:.3f} ms per block (profiler off, copy in + replay + drain), device busy "
+        f"{device_ms:.3f} ms (profiler, one block); idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}; "
+        f"{eng.decoded_tokens - tok0} tokens decoded in the {blocks} timed blocks = {tok_s:.1f} tok/s")
+    for us, n, key in rows[:12]:
+        say(f"[block]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+    return {"block_host_ms": wall * 1e3, "block_device_ms": device_ms,
+            "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s}
+
+
+def phase_chunk_profile(model, params, calls: int = 5):
+    """Host and device time of one chunked-prefill call at the main path's
+    shape: the second (1, 256) chunk of a 512-token prompt, so its attention
+    covers 512 positions.  Device time is split between the hand-written
+    kernels and every other (torch) kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    C, page, dev = ENGINE["prefill_chunk"], ENGINE["page_size"], model.device
+    cache, _ = model.init_cache_paged(ENGINE["n_slots"], ENGINE["max_len"], page, ENGINE["kv_pages"])
+    row = torch.arange(cache["block_table"].shape[1], dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(2)
+    chunks = [torch.as_tensor(rng.integers(0, model.cfg.vocab, size=(1, C)), device=dev) for _ in range(2)]
+
+    def run(n):  # host-clock seconds per chunk call, each as the engine makes it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            model.prefill_chunk(params, cache, chunks[1], row, C, C)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n
+
+    model.prefill_chunk(params, cache, chunks[0], row, 0, C)  # the prompt's first chunk
+    run(1)  # warm-up
+    wall = run(calls)  # profiler off
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(1)
+    rows = device_rows(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
+    n_launch = sum(r[1] for r in rows)
+    cpu_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    say(f"[chunk] one prefill chunk (1, {C}) at position {C} of a {2 * C}-token prompt: host {wall * 1e3:.3f} ms "
+        f"(profiler off, mean of {calls}); device busy {device_ms:.3f} ms (profiler): hand-written kernels "
+        f"{own_ms:.3f} ms, other torch kernels {device_ms - own_ms:.3f} ms; {n_launch} device kernels, "
+        f"{cpu_ops} aten ops; idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
+    for us, n, key in rows[:10]:
+        say(f"[chunk]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+    return {"chunk_host_ms": wall * 1e3, "chunk_device_ms": device_ms, "chunk_own_kernels_ms": own_ms}
 
 
 def main() -> int:
@@ -458,12 +758,19 @@ def main() -> int:
     model, params_q4, batch, launches = phase_main()
     phase_reference(model, params_q4, batch)
     phase_profile(model, params_q4, batch)
+    engine = phase_engine(model, params_q4)
+    block = phase_block_profile(model, params_q4)
+    chunk = phase_chunk_profile(model, params_q4)
+    say("[engine] " + json.dumps({"tok_s": engine["tok_s"], **block, **chunk}))
 
     line = []
     for name in KERNELS:
         r = records[name]
+        # launches: the serving engine's main run; the static path's and the flat engine's beside it
         line.append({"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                     "replaces": REPLACES[name], "launches": engine["launches"][name],
+                     "launches_static_path": launches.get(name, 0),
+                     "launches_flat_engine": engine["launches_flat_engine"][name], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
                      "dtype": r["dtype"]})

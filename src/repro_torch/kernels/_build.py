@@ -29,6 +29,7 @@ __all__ = [
     "KERNELS",
     "BUILD_DIR",
     "KernelLib",
+    "kernel_libs",
     "Query",
     "CSRC",
     "nvcc_path",
@@ -44,7 +45,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attention")
+KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attention", "paged_decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +53,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}  # guarded by: _LOCK
+_REGISTRY: list = []  # guarded by: _LOCK -- every KernelLib, in creation order
 
 
 def nvcc_path() -> str:
@@ -145,6 +147,11 @@ class KernelLib:
     launching entry takes the stream last and returns a CUDA error code.
     The count goes up by one for each successful call of :meth:`launch` and
     nowhere else, so a run can show that it went through the kernel.
+
+    A call made while the current stream is capturing a CUDA graph only
+    records the launch into the graph, so it counts in :attr:`captured`
+    instead; whoever replays the graph adds the launches each replay makes
+    (:meth:`replayed`).
     """
 
     def __init__(self, name: str, entries: Dict[str, list]):
@@ -152,7 +159,10 @@ class KernelLib:
         self._entries = entries
         self._lock = threading.Lock()
         self._launches = 0  # guarded by: _lock
+        self._captured = 0  # guarded by: _lock
         self._fns = None  # guarded by: _lock
+        with _LOCK:
+            _REGISTRY.append(self)
 
     def _bound(self):
         """(library, {entry: ctypes function}) with signatures set, resolved once."""
@@ -173,8 +183,12 @@ class KernelLib:
         lib, fns = self._bound()
         check_launch(lib, "repro_set_device", fns["repro_set_device"](device.index or 0))
         check_launch(lib, entry, fns[entry](*args, stream_ptr(device)))
+        capturing = torch.cuda.is_current_stream_capturing()
         with self._lock:
-            self._launches += 1
+            if capturing:
+                self._captured += 1
+            else:
+                self._launches += 1
 
     def query(self, entry: str, *args):
         """Call a host-only C entry (a workspace size, say); not a launch."""
@@ -185,9 +199,26 @@ class KernelLib:
         with self._lock:
             return self._launches
 
+    @property
+    def captured(self) -> int:
+        """Launches recorded into CUDA graphs (not yet run by themselves)."""
+        with self._lock:
+            return self._captured
+
+    def replayed(self, n: int) -> None:
+        """Count ``n`` launches made by replaying a captured graph."""
+        with self._lock:
+            self._launches += n
+
     def reset(self) -> None:
         with self._lock:
             self._launches = 0
+
+
+def kernel_libs() -> list:
+    """Every :class:`KernelLib` created so far (one per kernel wrapper module)."""
+    with _LOCK:
+        return list(_REGISTRY)
 
 
 class Query(list):

@@ -24,6 +24,8 @@ __all__ = [
     "sketch_matmul_ref",
     "lowrank_matmul_ref",
     "decode_attention_ref",
+    "gather_pages",
+    "paged_decode_attention_ref",
     "flash_attention_ref",
     "chunked_attention_ref",
 ]
@@ -69,6 +71,38 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def gather_pages(pool, block_table):
+    """Reassemble a slot-contiguous cache view from a paged pool.
+
+    pool: (P, page, ...) physical pages; block_table: (B, n_tbl) page ids
+    (entries may point at the pool's trash page — callers mask by
+    ``n_valid``).  Returns (B, n_tbl * page, ...): logical position ``t`` of
+    slot ``b`` is ``pool[block_table[b, t // page], t % page]``.  A pure
+    gather, so the view is bit-identical to a flat cache holding the same
+    writes.
+    """
+    B, n_tbl = block_table.shape
+    page = pool.shape[1]
+    g = pool[block_table.long()]  # (B, n_tbl, page, ...)
+    return g.reshape((B, n_tbl * page) + tuple(pool.shape[2:]))
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_table, n_valid):
+    """Gather-then-attend oracle of the paged flash-decode kernel.
+
+    q: (B, 1, H, hd); pools: (P, page, KV, hd/vd); block_table: (B, n_tbl)
+    int32; n_valid: (B,) int32 valid logical positions per slot.  Gathers
+    the per-slot cache the kernel never materializes, then defers to
+    :func:`decode_attention_ref`, so the paged and flat paths share one
+    masking and zero-row contract.
+    """
+    k = gather_pages(k_pool, block_table)
+    v = gather_pages(v_pool, block_table)
+    S = k.shape[1]
+    valid = torch.arange(S, device=q.device)[None, :] < n_valid.to(q.device)[:, None]
+    return decode_attention_ref(q, k, v, valid)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):

@@ -10,7 +10,11 @@ The decode cache is ``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}`` and
 ``lm_decode_step`` updates it IN PLACE: each layer writes its new K/V row
 into its slice of the stacked tensors.  This replaces the reference's
 scan-carry cache (``lm.py:795-822``), whose point was the same in-place
-aliasing.
+aliasing.  The paged cache (``lm_init_cache_paged``) holds
+``{"layers": {"k": (L, P + 1, page, KV, hd), ...}, "block_table": (B, n_tbl)}``
+instead; its ``block_table`` routes ``lm_decode_step`` through the paged
+decode, and ``lm_prefill_chunk`` writes one chunk of one slot's prompt into
+its pages.
 """
 
 from __future__ import annotations
@@ -24,7 +28,15 @@ from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.runtime import dispatch
 
-__all__ = ["lm_init", "lm_forward", "lm_init_cache", "lm_prefill", "lm_decode_step"]
+__all__ = [
+    "lm_init",
+    "lm_forward",
+    "lm_init_cache",
+    "lm_init_cache_paged",
+    "lm_prefill",
+    "lm_prefill_chunk",
+    "lm_decode_step",
+]
 
 
 def _check_family(cfg) -> None:
@@ -111,6 +123,29 @@ def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
                        for k, v in one.items()}}
 
 
+def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n_pages: int, device):
+    """Paged decode cache: physical page pools plus a per-slot block table.
+
+    The per-token K/V leaves trade their (B, S) slot reservation for
+    (n_pages + 1, page_size) pools shared by every slot (the +1 is the
+    trailing trash page, ``attention.trash_page``).  The (batch, max_pages)
+    int32 ``block_table`` starts on the trash id; the engine rewrites a
+    slot's row at admission; every layer shares it.
+
+    Returns ``(cache, paged_mask)``: the mask mirrors the cache (without the
+    block table) with one bool per leaf, telling the engine which prefill
+    scatter each leaf takes — pages, for every leaf of the dense family.
+    """
+    _check_family(cfg)
+    one, paged = attn.gqa_init_cache_paged(cfg, page_size, n_pages + 1, _dtype(cfg), device)
+    layers = {k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype, device=device)
+              for k, v in one.items()}
+    max_pages = -(-max_len // page_size)
+    cache = {"layers": layers,
+             "block_table": torch.full((batch_size, max_pages), n_pages, dtype=torch.int32, device=device)}
+    return cache, {"layers": {k: paged for k in layers}}
+
+
 def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor] = None):
     """Run the prompt through the model, building the decode cache.
 
@@ -139,18 +174,58 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     return _logits(p, last, cfg)[:, 0], cache
 
 
+def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
+    """One page-aligned chunk of one slot's prompt prefill (paged cache only).
+
+    tokens: (1, C) — the chunk at absolute positions ``start + [0, C)``,
+    right-padded when fewer than C real tokens remain (``n_real`` are
+    real; padded rows write to the trash page).  ``bt_row``: the slot's
+    (n_tbl,) page ids, passed EXPLICITLY rather than read from
+    ``cache["block_table"]``: the engine keeps the slot's table row on
+    trash until the last chunk lands, so the decode block's frozen-slot
+    re-feeds cannot write into a half-prefilled slot's pages.
+
+    Each layer writes the chunk's K/V into the slot's pages, then attends
+    over the gathered logical cache with an absolute-position causal mask,
+    so chunk after chunk computes what the monolithic prefill computes.
+    Returns ``(last_logits (1, Vp) fp32, cache)``, the logits taken at the
+    chunk's last REAL token; the pools are updated in place.
+    """
+    _check_family(cfg)
+    B, C = tokens.shape
+    bt_row = bt_row.reshape(-1)
+    x = nn.embed_lookup(p["embed"], tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(p["layers"], i)
+        c = _layer(cache["layers"], i)  # views into the stacked pools
+        h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        a, _ = attn.gqa_prefill_chunk(lp["attn"], h, c, cfg, bt_row, start, n_real)
+        x = x + a
+        h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + moe_mod.ffn_forward(lp["mlp"], h)
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    last = x[:, min(max(n_real - 1, 0), C - 1)][:, None, :]
+    return _logits(p, last, cfg)[:, 0], cache
+
+
 def lm_decode_step(p, cache, tokens, pos, cfg):
     """tokens: (B, 1); pos: scalar or (B,) per-slot positions.
 
-    Returns (logits (B, Vp) fp32, cache); the cache is updated in place."""
+    Returns (logits (B, Vp) fp32, cache); the cache is updated in place.  A
+    cache with a ``block_table`` (``lm_init_cache_paged``) takes the paged
+    decode in every layer."""
     _check_family(cfg)
     x = nn.embed_lookup(p["embed"], tokens)
     pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
+    bt = cache.get("block_table")
     for i in range(cfg.n_layers):
         lp = _layer(p["layers"], i)
         c = _layer(cache["layers"], i)  # views into the stacked cache
         h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg)
+        if bt is not None:
+            a, _ = attn.gqa_decode_paged(lp["attn"], h, c, pos_v, cfg, bt)
+        else:
+            a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + moe_mod.ffn_forward(lp["mlp"], h)

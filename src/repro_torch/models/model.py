@@ -30,14 +30,23 @@ class ModelApi:
     init_cache: Callable[[int, int], Any]  # (batch, max_len) -> cache
     # (params, batch, max_len, *, last_index=None) -> (last logits, cache)
     prefill: Callable[..., tuple]
-    # (params, cache, tokens, pos) -> (logits, cache); the cache is updated in place
+    # (params, cache, tokens, pos) -> (logits, cache); the cache is updated in place.
+    # A cache from init_cache_paged (block_table leaf) takes the paged decode.
     decode_step: Callable[[Any, Any, torch.Tensor, Any], tuple]
+    # (batch, max_len, page_size, n_pages) -> (paged cache, paged_mask): page
+    # pools plus a block table, for the paged serving engine
+    init_cache_paged: Any = None
+    # (params, cache, tokens (1, C), bt_row, start, n_real) -> (logits, cache):
+    # one page-aligned prefill chunk through the slot's block-table row; None
+    # where prefill carries state across chunks (a sliding window, ssm)
+    prefill_chunk: Any = None
 
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
     lm_mod._check_family(cfg)  # dense, tied, no sliding window: raises for what is not yet ported
     dev = resolve_device(device)
+    chunkable = cfg.family == "dense" and cfg.sliding_window is None
     return ModelApi(
         cfg=cfg,
         device=dev,
@@ -46,6 +55,13 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
         init_cache=lambda bs, ml: lm_mod.lm_init_cache(cfg, bs, ml, dev),
         prefill=lambda p, b, ml, **kw: lm_mod.lm_prefill(p, b, cfg, ml, **kw),
         decode_step=lambda p, c, t, pos: lm_mod.lm_decode_step(p, c, t, pos, cfg),
+        init_cache_paged=lambda bs, ml, ps, npg: lm_mod.lm_init_cache_paged(
+            cfg, bs, ml, page_size=ps, n_pages=npg, device=dev),
+        prefill_chunk=(
+            (lambda p, c, t, bt_row, start, n_real: lm_mod.lm_prefill_chunk(
+                p, c, t, cfg, bt_row=bt_row, start=start, n_real=n_real))
+            if chunkable else None
+        ),
     )
 
 

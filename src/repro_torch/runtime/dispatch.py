@@ -2,8 +2,8 @@
 
 The port's counterpart of ``repro/runtime/dispatch.py``.  Model code calls
 shape-only entry points (``lowrank_apply``, ``dense_apply``,
-``flash_attention``, ``decode_attention``, ``sketch_matmul``,
-``logits_apply``); the backend is chosen here, in one place:
+``flash_attention``, ``decode_attention``, ``paged_decode_attention``,
+``sketch_matmul``, ``logits_apply``); the backend is chosen here, in one place:
 
 * ``backend="auto"`` (the default): on a CUDA tensor the hand-written
   kernel, always — the reference's TPU-only thresholds (``DECODE_MIN_SEQ``
@@ -19,8 +19,11 @@ shape-only entry points (``lowrank_apply``, ``dense_apply``,
         logits, cache = model.prefill(params, batch, max_len)
 
 PyTorch runs eagerly, so the hit counters count CALLS per (op, path, shape)
-— the reference's count traced call sites.  ``format_counters`` prints them
-the way the JAX launcher does.
+— the reference's count traced call sites.  A call made while a CUDA graph
+is being captured (inside :func:`recording_capture`) is recorded for that
+graph instead, and whoever replays the graph adds its calls once per replay
+(:func:`add_replays`), so the counts stay calls that ran.
+``format_counters`` prints them the way the JAX launcher does.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul as _lowrank_kernel
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.sketch_matmul import sketch_matmul as _sketch_kernel
 
 __all__ = [
@@ -53,10 +57,14 @@ __all__ = [
     "logits_apply",
     "flash_attention",
     "decode_attention",
+    "choose_paged_decode_path",
+    "paged_decode_attention",
     "counters",
     "counters_by_path",
     "reset_counters",
     "format_counters",
+    "recording_capture",
+    "add_replays",
 ]
 
 BACKENDS = ("auto", "reference")
@@ -117,8 +125,32 @@ _COUNTS_LOCK = threading.Lock()
 
 
 def _record(op: str, path: str, sig: tuple):
+    capture = getattr(_state, "capture", None)
+    if capture is not None:  # recorded into a CUDA graph, not run
+        capture[(op, path, sig)] += 1
+        return
     with _COUNTS_LOCK:
         _COUNTS[(op, path, sig)] += 1
+
+
+@contextlib.contextmanager
+def recording_capture():
+    """Collect the calls made in this extent (this thread) into the yielded
+    Counter instead of the hit counters: the extent captures a CUDA graph,
+    whose calls run only when it is replayed."""
+    prev = getattr(_state, "capture", None)
+    _state.capture = Counter()
+    try:
+        yield _state.capture
+    finally:
+        _state.capture = prev
+
+
+def add_replays(calls: Counter, n: int = 1):
+    """Count ``n`` replays of a graph whose capture recorded ``calls``."""
+    with _COUNTS_LOCK:
+        for key, c in calls.items():
+            _COUNTS[key] += c * n
 
 
 def counters() -> dict:
@@ -273,3 +305,31 @@ def decode_attention(q, k_cache, v_cache, valid):
         return _decode_kernel(q, k_cache, v_cache, valid)
     _record("decode_attention", PATH_REFERENCE, sig)
     return _ref.decode_attention_ref(q, k_cache, v_cache, valid)
+
+
+def choose_paged_decode_path(*, device_type: str, config: Optional[DispatchConfig] = None) -> str:
+    """The auto table of block-table decode attention: on ``cuda`` under
+    ``auto`` the kernel, for every depth (the reference's TPU-only
+    ``DECODE_MIN_SEQ`` threshold is not carried over); otherwise the plain
+    gather-then-attend version."""
+    config = config or active_dispatch()
+    if config.backend == "auto" and device_type == "cuda":
+        return PATH_KERNEL
+    return PATH_REFERENCE
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
+    """One-token GQA attention through a paged KV pool (continuous batching).
+
+    q: (B, 1, H, hd); pools: (P, page, KV, hd/vd) physical pages shared by
+    every slot; block_table: (B, n_tbl) int32 page ids; n_valid: (B,) int32
+    valid logical positions.  Fully-masked rows give zeros on both paths.
+    """
+    path = choose_paged_decode_path(device_type=q.device.type)
+    B, _, H, hd = q.shape
+    P, page, KV = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    n_tbl = block_table.shape[1]
+    _record("paged_decode_attention", path, (B, P, page, n_tbl, KV, H // KV, hd))
+    if path == PATH_KERNEL:
+        return _paged_decode_kernel(q, k_pool, v_pool, block_table, n_valid)
+    return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_table, n_valid)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the serving engine's captured decode block against the same block run
+eagerly.
 
 Marked ``gpu``: they need a CUDA device and nvcc (the kernels build for
 sm_90a at first use) and skip anywhere else.  No JAX here — the machine
@@ -22,6 +24,7 @@ from repro_torch.kernels._build import aligned_rows
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.sketch_matmul import sketch_matmul
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -97,3 +100,73 @@ def test_gpu_flash_attention(cuda, S, window, q_offset, dtype):
     got = flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
     want = ref.chunked_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset)
     _close(got, want, ATTN_TOL[dtype])
+
+
+def _paged_case(page, n_tbl, G, dtype, device, *, seed=12):
+    """A pool with pages at permuted physical ids, a finite-poison trash page,
+    ragged n_valid (crossing page boundaries) and one fully-masked row."""
+    B, KV, hd = 4, 2, 64
+    rng = np.random.default_rng(seed)
+    P = B * n_tbl + 1
+    q = _rand((B, 1, KV * G, hd), seed, dtype, device)
+    k, v = _rand((P, page, KV, hd), seed + 1, dtype, device), _rand((P, page, KV, hd), seed + 2, dtype, device)
+    k[-1], v[-1] = 1e4, -1e4  # the trash page: finite poison, never attended
+    bt = torch.from_numpy(rng.permutation(P - 1)[: B * n_tbl].reshape(B, n_tbl).astype(np.int32)).to(device)
+    S = n_tbl * page
+    n_valid = torch.tensor([S, max(1, S // 3 + 1), 0, page + 1 if page < S else S], dtype=torch.int32,
+                           device=device)
+    bt[1, -1] = P - 1  # a table entry past n_valid on the trash page
+    return q, k, v, bt, n_valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page,n_tbl,G", [(1, 37, 4), (4, 9, 1), (16, 5, 4), (64, 3, 4), (128, 2, 8), (48, 3, 4)])
+def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, dtype):
+    q, k, v, bt, n_valid = _paged_case(page, n_tbl, G, dtype, cuda)
+    got = paged_decode_attention(q, k, v, bt, n_valid)
+    _close(got, ref.paged_decode_attention_ref(q, k, v, bt, n_valid), ATTN_TOL[dtype])
+    assert bool((got[2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype):
+    """At page 64 the paged kernel's splits, tiles and arithmetic are the
+    flat kernel's: on the same logical cache the outputs are equal bit for bit."""
+    q, k, v, bt, n_valid = _paged_case(64, 10, 4, dtype, cuda)
+    flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
+    valid = torch.arange(flat_k.shape[1], device=cuda)[None, :] < n_valid[:, None]
+    got = paged_decode_attention(q, k, v, bt, n_valid)
+    assert torch.equal(got, decode_attention(q, flat_k, flat_v, valid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page_size,chunk", [(None, None), (4, 5)])
+def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk):
+    """The captured decode block (greedy and sampled variants, one request of
+    each kind per engine) emits what the same body run eagerly emits."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import paged_decode_attention as paged_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Engine, Request, SamplingParams
+
+    model = build_model(get_arch("llama3.2-1b", reduced=True), device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=n) for n in (9, 4, 12)]
+    sampling = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20, seed=5), SamplingParams(seed=1)]
+    out = {}
+    for graph in (True, False):
+        eng = Engine(model, params, n_slots=2, max_len=24, page_size=page_size, prefill_chunk=chunk,
+                     decode_block=4, cuda_graph=graph)
+        before = paged_mod.KERNEL.launches
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=10, sampling=s)) for p, s in zip(prompts, sampling)]
+        while eng.has_work:
+            eng.step()
+        assert all(r.status == "ok" and len(r.tokens) == 10 for r in reqs)
+        assert (eng.graph_replays > 0) == graph
+        if page_size is not None:
+            assert paged_mod.KERNEL.launches > before
+        out[graph] = [r.tokens for r in reqs]
+    assert out[True] == out[False]

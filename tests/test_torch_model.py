@@ -197,8 +197,8 @@ def test_port_imports_no_jax_and_no_reference():
 def test_serve_launcher_static_cpu(capsys):
     from repro_torch.launch import serve
 
-    out = serve.main(["--arch", "llama3.2-1b", "--reduced", "--batch", "2", "--prompt-len", "6", "--gen", "3",
-                      "--compress-alpha", "0.3", "--q", "2", "--device", "cpu"])
+    out = serve.main(["--arch", "llama3.2-1b", "--reduced", "--engine", "static", "--batch", "2", "--prompt-len",
+                      "6", "--gen", "3", "--compress-alpha", "0.3", "--q", "2", "--device", "cpu"])
     assert tuple(out.shape) == (2, 3)
     text = capsys.readouterr().out
     assert "[compress]" in text and "lowrank_matmul" in text and "decode_attention" in text
