@@ -7,7 +7,7 @@ Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
 Phases, in order; any failure exits non-zero before the last line:
 
-1. Device: the card's name and power limit; build the five kernels from
+1. Device: the card's name and power limit; build the six kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero before the last line:
    PyTorch library call for the same function, and the card's bound.  The
    paged decode kernel also runs on a ragged n_valid with a fully-masked
    row and permuted pages at pages 64, 16 and 128, and at page 64 must
-   return the flat kernel's bits.
+   return the flat kernel's bits.  At phi3.5-moe's shapes: the batched
+   low-rank kernel on one layer's expert stacks (decode w_gate and w_down,
+   one prefill), and the three attention kernels at head_dim 128.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
@@ -45,10 +47,26 @@ Phases, in order; any failure exits non-zero before the last line:
    share; the profiler's trace of one block (one replay) must name the
    paged kernel.  Then one (1, 256) prefill chunk: host time, and device
    time split between the hand-written kernels and torch's own.
+9. The MoE main path at full width: phi3.5-moe (d 4096, 32/8 heads,
+   head_dim 128, 16 experts top-2, expert d_ff 6400, vocab 32064, untied
+   head, bf16) with n_layers cut 32 -> 4, the only cut (the dense model
+   must fit the card before compression); random weights from seed 0,
+   spectralized (seed 9), compressed at alpha 0.3, q = 4.  Gate: on layer 0
+   expert 0's w_gate, q = 4's normalized error <= q = 1's (the q = 1 run
+   factorizes that one matrix).  Ratio, ranks, seconds, peak memory.
+10. Phase 5 on the MoE model (the reference replaying the kernel run's
+   routing decisions; how many it makes otherwise is printed).
+11. Phase 7 on the MoE model, with the batched kernel on its path; its
+   paged-vs-flat runs form the same micro-batches, and its chunked-vs-
+   monolithic check replays the monolithic routing under a capacity that
+   drops nothing.  Gate also: no linear of the main run left the kernels.
+12. Phase 8's decode-block profile on the MoE model, with the batched
+   kernel's share of the device time.
 
 The line before the card line lists every kernel with its time, launches
-on the engine's main run (beside them, on the static path and on the flat
-engine's run), bound and library time.
+on the llama engine's main run (beside them, on the static path, on the
+flat engine's run and on the MoE engine's runs), bound and library time,
+and the attention kernels' times at head_dim 128.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -74,13 +92,17 @@ ALPHA = 0.3
 
 REPLACES = {
     "lowrank_matmul": "src/repro/kernels/lowrank_matmul.py:148",
+    "lowrank_matmul_batched": "src/repro/kernels/lowrank_matmul.py:193",
     "decode_attention": "src/repro/kernels/decode_attention.py:92",
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "sketch_matmul": "src/repro/kernels/sketch_matmul.py:57",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:153",
 }
 
-# the serving engine's main path (phase 7)
+# the MoE main path (phases 9-12): phi3.5-moe at full width, depth cut 32 -> 4
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 4
+
+# the serving engine's main path (phases 7 and 11)
 ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
 N_REQUESTS, PROMPT_RANGE, GEN_RANGE = 16, (32, 512), (16, 64)
 
@@ -272,6 +294,7 @@ def phase_kernels() -> dict:
                   ops=4 * Bq * H * pairs * hd, records=records)
 
     phase_paged_kernel(rnd, gen, attn_tol, records)
+    phi = phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records)
 
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded
     E, xT = rnd((128256, 2048), torch.bfloat16), rnd((2048, BATCH), torch.bfloat16)
@@ -285,7 +308,101 @@ def phase_kernels() -> dict:
           bytes_moved=nbytes(E, xT) + 128256 * BATCH * 4, ops=2 * 128256 * 2048 * BATCH, records={})
     del E, xT
     torch.cuda.empty_cache()
-    return records
+    return records, phi
+
+
+def phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records):
+    """The MoE path's kernels at phi3.5-moe's shapes: the batched low-rank
+    kernel on one layer's expert stacks (16 experts, rank 1229, factors as a
+    view of a row-padded (L, E, K, r) leaf), and the three attention kernels
+    at 32/8 heads, head_dim 128.  Returns {kernel: bf16 record} of the
+    attention kernels at head_dim 128."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+
+    dev = torch.device("cuda")
+    E, r = 16, 1229  # ceil(0.3 * 4096)
+    shapes = [(128, 4096, 6400), (128, 6400, 4096), (640, 4096, 6400)]  # decode w_gate, decode w_down, prefill
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = gemm_tol[dtype]
+        for C, K, N in shapes:
+            x = rnd((E, C, K), dtype)
+            # one layer's slice of an (L, E, K, r) factor leaf, stored as compress_tree stores it
+            A = aligned_rows(rnd((1, E, K, r), dtype))[0]
+            B = aligned_rows(rnd((1, E, r, N), dtype))[0]
+            got = lowrank_matmul_batched(x, A, B)
+            check("lowrank_matmul_batched", [E, C, K, r, N], dtype, got, ref.lowrank_matmul_ref(x, A, B), rel, why,
+                  kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
+                  plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+                  library_fn=lambda: torch.bmm(torch.bmm(x, A), B),  # bmm rounds t to x's dtype, as the kernel
+                  bytes_moved=nbytes(x, A, B) + E * C * N * x.element_size(),
+                  ops=2 * E * C * (K * r + r * N), records=records)
+            del x, A, B, got
+    torch.cuda.empty_cache()
+
+    phi: dict = {}
+    H, KV, hd = 32, 8, 128
+    Bq = ENGINE["n_slots"]
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        # prefill: phase 10's (4, 256)
+        q, k, v = rnd((BATCH, PROMPT, H, hd), dtype), rnd((BATCH, PROMPT, KV, hd), dtype), rnd((BATCH, PROMPT, KV, hd), dtype)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = flash_attention(q, k, v, causal=True)
+        pairs = PROMPT * (PROMPT + 1) // 2
+        check("flash_attention", [BATCH, PROMPT, H, KV, hd, None], dtype, got,
+              ref.chunked_attention_ref(q, k, v, causal=True), rel, why,
+              kernel_fn=lambda: flash_attention(q, k, v, causal=True),
+              plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True),
+              bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(), ops=4 * BATCH * H * pairs * hd,
+              records=phi)
+        # decode over the flat engine's cache: 8 slots, max_len 640, ragged fill, one empty slot
+        S = ENGINE["max_len"]
+        q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((Bq, S, KV, hd), dtype), rnd((Bq, S, KV, hd), dtype)
+        n_valid = torch.tensor([S, 1, 0, 65, 191, 100, S // 2, 7], device=dev)
+        valid = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
+        got = decode_attention(q, k, v, valid)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = valid[:, None, None, :]
+        n_rows = int(valid.sum())
+        check("decode_attention", [Bq, S, H, KV, hd, "ragged mask"], dtype, got,
+              ref.decode_attention_ref(q, k, v, valid), rel, why,
+              kernel_fn=lambda: decode_attention(q, k, v, valid),
+              plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
+              ops=4 * H * hd * n_rows, records=phi)
+        # paged decode through the engine's block table: page 64, 10 pages a slot
+        page, n_tbl = ENGINE["page_size"], -(-ENGINE["max_len"] // ENGINE["page_size"])
+        P = Bq * n_tbl + 1
+        kp, vp = rnd((P, page, KV, hd), dtype), rnd((P, page, KV, hd), dtype)
+        kp[-1], vp[-1] = 1e4, -1e4
+        bt = torch.randperm(P - 1, generator=gen, device=dev)[: Bq * n_tbl].reshape(Bq, n_tbl).to(torch.int32)
+        nv = n_valid.to(torch.int32)
+        got = paged_decode_attention(q, kp, vp, bt, nv)
+        flat = decode_attention(q, ref.gather_pages(kp, bt), ref.gather_pages(vp, bt), valid)
+        if not bool(torch.equal(got, flat)):
+            fail(f"paged_decode_attention at page 64, head_dim 128 ({dtype}) differs from the flat kernel")
+        ks, vs = ref.gather_pages(kp, bt).transpose(1, 2), ref.gather_pages(vp, bt).transpose(1, 2)
+        check("paged_decode_attention", [Bq, page, n_tbl, H, KV, hd, "ragged n_valid"], dtype, got,
+              ref.paged_decode_attention_ref(q, kp, vp, bt, nv), rel, why,
+              kernel_fn=lambda: paged_decode_attention(q, kp, vp, bt, nv),
+              plain_fn=lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, nv),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+              bytes_moved=nbytes(q, bt, nv) + n_rows * KV * 2 * hd * kp.element_size() + Bq * H * hd * q.element_size(),
+              ops=4 * H * hd * n_rows, records=phi)
+        say(f"[phi kernels] paged == flat kernel bit for bit at page 64, head_dim 128, {dtype}: True")
+        del q, k, v, kp, vp, qs, ks, vs, got, flat
+    torch.cuda.empty_cache()
+    return phi
 
 
 def phase_paged_kernel(rnd, gen, attn_tol, records):
@@ -433,25 +550,116 @@ def phase_main():
 # --------------------------------------------------------------------------- #
 # phase 5: kernels vs plain versions end to end
 # --------------------------------------------------------------------------- #
-def phase_reference(model, params, batch):
+def routed(fn, replay=None):
+    """Run ``fn()`` with every moe layer's routing recorded, through the
+    port's own ``_route``.  Returns (fn's result, [(expert ids the call used
+    (T, K), its own top-k ids (T, K), its fp32 router logits (T, E)) per
+    routed call]); no calls for a dense model.  With ``replay`` (expert ids
+    per routed call of an earlier run), each call takes the replayed ids in
+    place of its own top-k (for its first rows, where the replayed ids cover
+    fewer rows than the call routes), and as gates the renormalized
+    probabilities of those experts, as ``_route`` computes gates."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    seen = []
+    route = moe_mod._route
+
+    def hook(xf, gate_w, cfg):
+        own, gates, probs = route(xf, gate_w, cfg)
+        ids = own
+        if replay is not None:
+            head = replay[len(seen)]
+            ids = torch.cat([head, own[head.shape[0]:]])
+            gates = probs.gather(1, ids)
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        seen.append((ids, own, torch.matmul(xf.float(), gate_w.float())))
+        return ids, gates, probs
+
+    moe_mod._route = hook
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._route = route
+
+
+def routing_gate(tag: str, what: str, pairs, rel: float) -> None:
+    """Gate a run that replayed another run's routing.  ``pairs``: per
+    routed call, (the ids it replayed, its own top-k ids, its own router
+    logits, the replayed run's router logits), rows aligned.  The replay
+    hides only decisions that are rounding away from a tie, so: the two
+    runs' router logits agree within ``rel`` of the replayed run's max
+    |logit| (the tolerance the model's logits are held to), and a token
+    whose own expert set differs from the replayed one does so by a logit
+    margin (its largest own-only expert logit less its smallest
+    replayed-only one) within that same tolerance."""
+    import torch
+
+    flips = total = 0
+    worst_err, worst_margin = (0.0, 1.0), (0.0, 1.0)  # (value, its call's tol), the largest value / tol
+    for used, own, z, z_src in pairs:
+        tol = rel * float(z_src.abs().max())
+        err = float((z - z_src).abs().max())
+        if err / tol >= worst_err[0] / worst_err[1]:
+            worst_err = (err, tol)
+        own_m = torch.zeros_like(z, dtype=torch.bool).scatter_(1, own, True)
+        used_m = torch.zeros_like(z, dtype=torch.bool).scatter_(1, used, True)
+        differ = (own_m != used_m).any(dim=1)
+        flips += int(differ.sum())
+        total += z.shape[0]
+        if bool(differ.any()):
+            zz = z[differ]
+            margin = float((zz.masked_fill(~(own_m & ~used_m)[differ], float("-inf")).amax(dim=1)
+                            - zz.masked_fill(~(used_m & ~own_m)[differ], float("inf")).amin(dim=1)).max())
+            if margin / tol >= worst_margin[0] / worst_margin[1]:
+                worst_margin = (margin, tol)
+    say(f"[{tag}] {what} routing: router logits max abs err {worst_err[0]:.4e} (tol {worst_err[1]:.4e} = {rel} x "
+        f"max |replayed run's router logits|); tokens whose own expert set differs from the replayed one "
+        f"{flips}/{total}" + (f", largest logit margin {worst_margin[0]:.4e} (tol {worst_margin[1]:.4e})"
+                              if flips else ""))
+    if worst_err[0] > worst_err[1] or worst_margin[0] > worst_margin[1]:
+        fail(f"{tag}: {what} routing is not within rounding of the replayed run's")
+
+
+def phase_reference(model, params, batch, tag: str = "reference"):
+    """The model under backend "auto" (kernels) against "reference" (plain
+    versions): prefill logits and the first decode step's.  A moe layer's
+    top-k is discontinuous: two runs that differ by a bf16 ulp can send a
+    near-tied token to another expert, and that token's hidden state then
+    differs by far more than rounding.  So for a moe model the reference
+    runs with the kernel run's routing decisions replayed (every other
+    operation its own), and ``routing_gate`` holds each replayed decision
+    to a near tie in the reference's own router logits.  Routing is the
+    same torch code under both backends: no kernel of its own is hidden by
+    the replay."""
     import torch
 
     from repro_torch.runtime.dispatch import use_dispatch
 
-    rel = 5e-2  # of the reference logits' max |value|: bf16 activations through 16 layers, each
+    rel = 5e-2  # of the reference logits' max |value|: bf16 activations through every layer, each
     # side rounding the same intermediates but possibly landing one ulp apart
-    results = {}
+    results, recorded = {}, {}
     for backend in ("auto", "reference"):
+        replay = [None, None] if backend == "auto" or not recorded["auto"][0] else \
+            [[used for used, _, _ in rec] for rec in recorded["auto"]]
         with use_dispatch(backend=backend):
-            logits, cache = model.prefill(params, batch, PROMPT + GEN)
+            (logits, cache), rec_p = routed(lambda: model.prefill(params, batch, PROMPT + GEN), replay[0])
             tok = torch.argmax(logits, dim=-1)[:, None]
-            step_logits, _ = model.decode_step(params, cache, results.get("tok", tok), PROMPT)
+            (step_logits, _), rec_d = routed(
+                lambda: model.decode_step(params, cache, results.get("tok", tok), PROMPT), replay[1])
         results.setdefault("tok", tok)
         results[backend] = (logits.float(), tok, step_logits.float())
+        recorded[backend] = (rec_p, rec_d)
+    moe = bool(recorded["auto"][0])
+    for i, what in enumerate(("prefill", "first decode step") if moe else ()):
+        routing_gate(tag, what, [(used, own, z, src[2]) for (used, own, z), src
+                                 in zip(recorded["reference"][i], recorded["auto"][i])], rel)
+    label = " (the reference replaying auto's routing)" if moe else ""
     for i, what in ((0, "prefill logits"), (2, "first decode-step logits")):
         got, want = results["auto"][i], results["reference"][i]
         err, tol = float((got - want).abs().max()), rel * float(want.abs().max())
-        say(f"[reference] {what}: max abs err {err:.4e} (tol {tol:.4e} = {rel} x max |reference|)")
+        say(f"[{tag}] {what}{label}: max abs err {err:.4e} (tol {tol:.4e} = {rel} x max |reference|)")
         if not (err <= tol and bool(torch.isfinite(got).all())):
             fail(f"{what}: auto vs reference {err:.4e} > {tol:.4e}")
     # first generated tokens: equal, or the reference's top-2 margin is within the tolerance
@@ -460,7 +668,7 @@ def phase_reference(model, params, batch):
     tol = rel * float(ref_logits.abs().max())
     margin = ref_logits.gather(1, t_ref[:, None]) - ref_logits.gather(1, t_auto[:, None])
     same = int((t_auto == t_ref).sum())
-    say(f"[reference] first generated tokens agree {same}/{BATCH} (auto {t_auto.tolist()}, "
+    say(f"[{tag}] first generated tokens agree {same}/{BATCH} (auto {t_auto.tolist()}, "
         f"reference {t_ref.tolist()})")
     if bool((margin[:, 0] > tol).any()):
         fail("first generated tokens differ by more than the logits tolerance")
@@ -543,7 +751,7 @@ def engine_requests(cfg):
     return [Request(prompt=toks[i, : lens[i]], max_new_tokens=int(gens[i])) for i in range(N_REQUESTS)]
 
 
-def serve(model, params, label, *, libs, **kw):
+def serve(model, params, label, *, libs, tag: str = "engine", **kw):
     """One engine run over the 16 requests, counts reset just before and read
     just after; returns (tokens per request, engine, launches, tok/s)."""
     import torch
@@ -567,7 +775,7 @@ def serve(model, params, label, *, libs, **kw):
     n_tok = sum(len(r.tokens) for r in reqs)
     bad = [r.uid for r in reqs if r.status != "ok" or len(r.tokens) != r.max_new_tokens
            or min(r.tokens) < 0 or max(r.tokens) >= model.cfg.vocab_padded]
-    say(f"[engine] {label}: {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s; "
+    say(f"[{tag}] {label}: {len(reqs)} requests, {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s; "
         f"steps {eng.steps}, host syncs {eng.host_syncs}, graph replays {eng.graph_replays}, "
         f"prefill chunks {eng.prefill_chunks}, peak active {eng.peak_active}, "
         f"peak pages {eng.peak_pages_in_use}/{eng.kv_pages}, kv bytes peak {eng.kv_bytes_peak} "
@@ -577,68 +785,132 @@ def serve(model, params, label, *, libs, **kw):
     return [r.tokens for r in reqs], eng, launches, n_tok / dt
 
 
-def phase_engine(model, params):
+def engine_libs() -> dict:
+    from repro_torch.kernels import decode_attention, flash_attention, lowrank_matmul, lowrank_matmul_batched
+    from repro_torch.kernels import paged_decode_attention, sketch_matmul
+
+    return {"lowrank_matmul": lowrank_matmul.KERNEL, "sketch_matmul": sketch_matmul.KERNEL,
+            "decode_attention": decode_attention.KERNEL, "flash_attention": flash_attention.KERNEL,
+            "paged_decode_attention": paged_decode_attention.KERNEL,
+            "lowrank_matmul_batched": lowrank_matmul_batched.KERNEL}
+
+
+def count_drops(model, seen) -> int:
+    """Expert assignments that the routed calls ``seen`` (as ``routed``
+    records them) drop past capacity, with the port's own moe_capacity."""
     import torch
 
-    from repro_torch.kernels import decode_attention, flash_attention, lowrank_matmul, paged_decode_attention
-    from repro_torch.kernels import sketch_matmul
+    from repro_torch.models import moe as moe_mod
+
+    E = model.cfg.n_experts
+    return sum(int(torch.clamp(torch.bincount(ids.reshape(-1), minlength=E)
+                               - moe_mod.moe_capacity(ids.shape[0], model.cfg), min=0).sum()) for ids, _, _ in seen)
+
+
+def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul", "sketch_matmul",
+                                                                    "flash_attention", "paged_decode_attention")):
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
     from repro_torch.runtime import dispatch
 
-    libs = {"lowrank_matmul": lowrank_matmul.KERNEL, "sketch_matmul": sketch_matmul.KERNEL,
-            "decode_attention": decode_attention.KERNEL, "flash_attention": flash_attention.KERNEL,
-            "paged_decode_attention": paged_decode_attention.KERNEL}
-    main_tok, eng, launches, tps = serve(model, params, "paged + chunked, CUDA graph (main path)", libs=libs)
-    say("[engine] dispatch table of the main run (calls that ran; graph calls counted per replay):")
+    libs = engine_libs()
+    main_tok, eng, launches, tps = serve(model, params, "paged + chunked, CUDA graph (main path)", libs=libs,
+                                         tag=tag)
+    say(f"[{tag}] dispatch table of the main run (calls that ran; graph calls counted per replay):")
     for line in dispatch.format_counters().splitlines():
-        say(f"[engine]   {line}")
-    on_path = ("lowrank_matmul", "sketch_matmul", "flash_attention", "paged_decode_attention")
+        say(f"[{tag}]   {line}")
     missing = [n for n in on_path if launches[n] <= 0]
     if missing:
-        fail(f"kernels never launched on the engine's main path: {missing}")
+        fail(f"kernels never launched on the {tag} main path: {missing}")
+    # every low-rank apply of the main run went through a kernel: no plain version, no dense product
+    plain = {k: n for k, n in dispatch.counters_by_path().items()
+             if k[0] == "dense" or (k[0] == "lowrank_matmul" and k[1] not in ("fused", "fused_batched"))}
+    if plain:
+        fail(f"the {tag} main path ran linears outside the kernels: {plain}")
     if eng.graph_replays <= 0:
-        fail("the engine's main path never replayed its decode graph")
-    eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, cuda_graph=False)
+        fail(f"the {tag} main path never replayed its decode graph")
+    eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, tag=tag, cuda_graph=False)
     if eager_tok != main_tok:
-        fail("CUDA-graph tokens differ from the eager run's")
-    say("[engine] CUDA-graph tokens == eager tokens: True")
-    paged_tok, *_ = serve(model, params, "paged, no chunking", libs=libs, prefill_chunk=None)
-    flat_tok, _, flat_launches, _ = serve(model, params, "flat, no chunking", libs=libs, page_size=None,
+        fail(f"{tag}: CUDA-graph tokens differ from the eager run's")
+    say(f"[{tag}] CUDA-graph tokens == eager tokens: True")
+    # A dense model's rows never meet, so its paged run may admit on half the
+    # flat pool's pages (other micro-batches, other decode batches) and still
+    # emit the flat run's tokens.  A moe layer's capacity drops depend on
+    # which rows share a call, so there the paged pool gets the flat pool's
+    # capacity, the two runs form the same micro-batches, and what differs
+    # is only where the bytes live.
+    moe = model.cfg.family == "moe"
+    paged_tok, *_ = serve(model, params, "paged, no chunking" + (", flat-equal pool" if moe else ""), libs=libs,
+                          tag=tag, prefill_chunk=None, **({"kv_pages": None} if moe else {}))
+    flat_tok, _, flat_launches, _ = serve(model, params, "flat, no chunking", libs=libs, tag=tag, page_size=None,
                                           kv_pages=None, prefill_chunk=None)  # counts reset again inside
     if paged_tok != flat_tok:
-        fail("paged-engine tokens differ from the flat engine's")
-    say("[engine] paged tokens == flat tokens: True")
+        fail(f"{tag}: paged-engine tokens differ from the flat engine's")
+    say(f"[{tag}] paged tokens == flat tokens: True")
     if flat_launches["decode_attention"] <= 0:
-        fail("the flat engine never launched decode_attention")
+        fail(f"the {tag} flat run never launched decode_attention")
 
-    # a chunked long prompt's first-token logits against the monolithic prefill's
-    req = engine_requests(model.cfg)[0]
-    L, C, page = int(req.prompt.size), ENGINE["prefill_chunk"], ENGINE["page_size"]
-    dev = model.device
+    # A chunked long prompt's first-token logits against the monolithic
+    # prefill's.  Capacity changes results where it binds, and a monolithic
+    # prefill sees more rows than a chunk, so the two compute the same
+    # function only where no assignment drops.  A moe model's comparison
+    # therefore runs the same params under a capacity that holds every token
+    # (C >= T: capacity_factor = n_experts / top_k; at 1.25 the synthetic
+    # router, which sends most tokens to a few experts, drops assignments
+    # in every long prompt), so that it checks what it is for, the chunks'
+    # attention through the pages.  The chunks attend with the plain
+    # gather-and-einsum path and the monolithic prefill with the flash
+    # kernel, so near-tied tokens may route apart (phase 10): the chunks
+    # replay the monolithic prefill's routing, held to near ties by
+    # ``routing_gate``.
+    C, page, dev = ENGINE["prefill_chunk"], ENGINE["page_size"], model.device
+    req = next(r for r in engine_requests(model.cfg) if r.prompt.size > C)
+    L = int(req.prompt.size)
     toks = torch.as_tensor(req.prompt[None], dtype=torch.int64, device=dev)
-    mono, _ = model.prefill(params, {"tokens": toks}, ENGINE["max_len"])
+    if moe:
+        model = build_model(dataclasses.replace(model.cfg, capacity_factor=model.cfg.n_experts / model.cfg.top_k),
+                            device=dev)
+    (mono, _), mono_seen = routed(lambda: model.prefill(params, {"tokens": toks}, ENGINE["max_len"]))
+    rel = 5e-2  # phase 5's tolerance: bf16 activations through every layer, one ulp apart at most places
     cache, _ = model.init_cache_paged(1, ENGINE["max_len"], page, ENGINE["kv_pages"])
     row = torch.arange(cache["block_table"].shape[1], dtype=torch.int32, device=dev)
+    drops, pairs = count_drops(model, mono_seen), []
     for start in range(0, L, C):
         n = min(C, L - start)
         chunk = torch.zeros((1, C), dtype=torch.int64, device=dev)
         chunk[0, :n] = toks[0, start:start + n]
-        chunked, _ = model.prefill_chunk(params, cache, chunk, row, start, n)
-    rel = 5e-2  # phase 5's tolerance: bf16 activations through 16 layers, one ulp apart at most places
+        replay = [used[start:start + n] for used, _, _ in mono_seen] if moe else None
+        (chunked, _), seen = routed(lambda: model.prefill_chunk(params, cache, chunk, row, start, n), replay)
+        drops += count_drops(model, seen)
+        pairs += [(used[:n], own[:n], z[:n], src[2][start:start + n])
+                  for (used, own, z), src in zip(seen, mono_seen)]
+    label = ""
+    if moe:
+        say(f"[{tag}] chunked vs monolithic at capacity factor {model.cfg.capacity_factor} (C >= T): "
+            f"{drops} expert assignments dropped in the monolithic prefill and the chunks")
+        if drops:
+            fail(f"{tag}: {drops} assignments dropped at capacity factor {model.cfg.capacity_factor}")
+        routing_gate(tag, "chunked prefill (the monolithic prefill's routing replayed)", pairs, rel)
+        label = ", the monolithic prefill's routing replayed"
     err, tol = float((chunked - mono).abs().max()), rel * float(mono.abs().max())
-    say(f"[engine] chunked ({-(-L // C)} chunks of {C}) vs monolithic prefill of a {L}-token prompt: "
-        f"first-token logits max abs err {err:.4e} (tol {tol:.4e}); argmax {int(chunked.argmax())} vs "
-        f"{int(mono.argmax())}")
+    say(f"[{tag}] chunked ({-(-L // C)} chunks of {C}{label}) vs monolithic "
+        f"prefill of a {L}-token prompt: first-token logits max abs err {err:.4e} (tol {tol:.4e}); argmax "
+        f"{int(chunked.argmax())} vs {int(mono.argmax())}")
     if not (err <= tol and bool(torch.isfinite(chunked).all())):
-        fail(f"chunked prefill logits {err:.4e} > {tol:.4e} from the monolithic prefill's")
+        fail(f"{tag}: chunked prefill logits {err:.4e} > {tol:.4e} from the monolithic prefill's")
     return {"tok_s": tps, "launches": launches, "launches_flat_engine": flat_launches}
 
 
 # --------------------------------------------------------------------------- #
 # phase 8: one captured decode block and one prefill chunk, profiled
 # --------------------------------------------------------------------------- #
-def phase_block_profile(model, params, blocks: int = 6):
+def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     """Host and device time of one captured decode block with every slot
-    decoding; the trace of one block (one replay) must name the paged kernel."""
+    decoding; the trace of one block (one replay) must name the paged kernel.
+    For a moe model, also the device time of the batched kernel's tiles."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -674,14 +946,24 @@ def phase_block_profile(model, params, blocks: int = 6):
     if "PagedRows" not in names:
         fail(f"the trace of one decode-block replay does not name the paged kernel: {names[:400]}")
     device_ms = sum(r[0] for r in rows) / 1e3
-    say(f"[block] one captured decode block ({ENGINE['decode_block']} steps x {eng.n_active} active slots): "
+    say(f"[{tag}] one captured decode block ({ENGINE['decode_block']} steps x {eng.n_active} active slots): "
         f"host {wall * 1e3:.3f} ms per block (profiler off, copy in + replay + drain), device busy "
         f"{device_ms:.3f} ms (profiler, one block); idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}; "
         f"{eng.decoded_tokens - tok0} tokens decoded in the {blocks} timed blocks = {tok_s:.1f} tok/s")
     for us, n, key in rows[:12]:
-        say(f"[block]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
-    return {"block_host_ms": wall * 1e3, "block_device_ms": device_ms,
-            "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s}
+        say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+    out = {"block_host_ms": wall * 1e3, "block_device_ms": device_ms,
+           "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s}
+    if model.cfg.family == "moe":
+        # In a moe decode block the 64x64 tiles (gemm_bf16_kernel) are the batched
+        # kernel's alone: the 2-D low-rank applies (attention, the compressed
+        # head) run at M = 8 slots, on the split-K skinny path.
+        tiles = [r for r in rows if "gemm_bf16_kernel" in r[2]]
+        out["batched_ms"] = sum(r[0] for r in tiles) / 1e3
+        out["batched_launches"] = sum(r[1] for r in tiles)
+        say(f"[{tag}] the batched kernel's tiles: {out['batched_ms']:.3f} ms of {device_ms:.3f} ms device "
+            f"({out['batched_ms'] / device_ms:.3f}), {out['batched_launches']} launches (two per call)")
+    return out
 
 
 def phase_chunk_profile(model, params, calls: int = 5):
@@ -726,13 +1008,91 @@ def phase_chunk_profile(model, params, calls: int = 5):
     return {"chunk_host_ms": wall * 1e3, "chunk_device_ms": device_ms, "chunk_own_kernels_ms": own_ms}
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the MoE main path at full width
+# --------------------------------------------------------------------------- #
+def phase_moe_main():
+    """phi3.5-moe at every published width and 4 of its 32 layers: random
+    weights, spectralized, RSI-compressed at alpha 0.3 with q = 4; the q = 1
+    run factorizes one expert matrix only, for the error gate."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
+    from repro_torch.core.rsi import rsi_factors
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import analytic_param_count, build_model
+
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    dev = model.device
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = spectralize_params(model.init(gen(0)), gen(9))  # the random init tree is freed here
+    torch.cuda.synchronize()
+    say(f"[moe] {MOE_ARCH} full width: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k}, expert d_ff {cfg.moe_d_ff}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}), untied lm_head, {cfg.dtype}; reduced: n_layers {full.n_layers} -> "
+        f"{cfg.n_layers} (depth only: the dense model of all {full.n_layers} layers, "
+        f"{analytic_param_count(full) * 2 / 1e9:.1f} GB in bf16, does not fit the card before compression); "
+        f"{analytic_param_count(cfg) / 1e9:.3f}B params; init + spectralize {time.perf_counter() - t0:.1f}s")
+    W = dense["layers"]["moe"]["experts"]["w_gate"][0, 0].clone()
+    t = time.perf_counter()
+    params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t
+    del dense
+    torch.cuda.empty_cache()
+    ranks = sorted({l.rank for l in rep.layers if l.compressed})
+    by_path = {l.path: l.compressed for l in rep.layers}
+    want = {"layers/moe/experts/w_gate": True, "layers/moe/experts/w_up": True, "layers/moe/experts/w_down": True,
+            "layers/attn/wq": True, "layers/attn/wk": True, "lm_head": True, "layers/moe/router/gate_w": False,
+            "embed": False}
+    wrong = {p: by_path.get(p) for p, c in want.items() if by_path.get(p) != c}
+    if wrong:
+        fail(f"moe compression decisions differ from the reference's: {wrong}")
+    say(f"[moe] compress q=4: {rep.summary()} ranks {ranks} in {comp_s:.1f}s")
+
+    gate = params["layers"]["moe"]["experts"]["w_gate"]
+    k = gate["a"].shape[-1]
+    sv = torch.linalg.svdvals(W.float())
+    errs = {4: float(normalized_error_factored(W, gate["a"][0, 0], gate["b"][0, 0], sv[k], gen(2), iters=64))}
+    t = time.perf_counter()
+    A1, B1 = rsi_factors(W, k, 1, generator=gen(3))
+    torch.cuda.synchronize()
+    q1_s = time.perf_counter() - t
+    errs[1] = float(normalized_error_factored(W, A1, B1, sv[k], gen(2), iters=64))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[moe] layer 0 expert 0 w_gate (4096x6400, k={k}) normalized error ||W-AB||_2/s_(k+1): q=4 {errs[4]:.4f}, "
+        f"q=1 {errs[1]:.4f} (that one matrix in {q1_s:.2f}s)")
+    say(f"[moe] peak device memory {peak / 2**30:.2f} GiB (max_memory_allocated, init to compressed model) on "
+        f"{card_line()}")
+    if not errs[4] <= errs[1]:
+        fail(f"moe: q=4 normalized error {errs[4]:.4f} > q=1's {errs[1]:.4f}")
+    toks = SyntheticLM(cfg, batch=BATCH, seq=PROMPT, kind="serve", seed=0).at_step(0)["tokens"]
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    summary = {"n_layers": cfg.n_layers, "ratio": rep.ratio, "ranks": ranks, "compress_s": comp_s,
+               "normalized_error": errs, "peak_gib": peak / 2**30}
+    return model, params, batch, summary
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    import gc
+
     from repro_torch.kernels._build import KERNELS, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions stay full fp32
@@ -753,7 +1113,7 @@ def main() -> int:
     time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     t = time.perf_counter()
-    records = phase_kernels()
+    records, phi = phase_kernels()
     say(f"[kernels] all checks within tolerance in {time.perf_counter() - t:.1f}s")
     model, params_q4, batch, launches = phase_main()
     phase_reference(model, params_q4, batch)
@@ -762,18 +1122,38 @@ def main() -> int:
     block = phase_block_profile(model, params_q4)
     chunk = phase_chunk_profile(model, params_q4)
     say("[engine] " + json.dumps({"tok_s": engine["tok_s"], **block, **chunk}))
+    del model, params_q4, batch  # the llama phases' model, before the MoE phases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    moe_model, moe_params, moe_batch, moe = phase_moe_main()
+    phase_reference(moe_model, moe_params, moe_batch, tag="moe reference")
+    moe_engine = phase_engine(moe_model, moe_params, tag="moe engine",
+                              on_path=("lowrank_matmul_batched", "lowrank_matmul", "flash_attention",
+                                       "paged_decode_attention"))
+    moe_block = phase_block_profile(moe_model, moe_params, tag="moe block")
+    say("[moe engine] " + json.dumps({"tok_s": moe_engine["tok_s"], **moe_block, **moe,
+                                      "moe_phases_s": time.perf_counter() - t}))
 
     line = []
     for name in KERNELS:
         r = records[name]
-        # launches: the serving engine's main run; the static path's and the flat engine's beside it
-        line.append({"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "launches": engine["launches"][name],
-                     "launches_static_path": launches.get(name, 0),
-                     "launches_flat_engine": engine["launches_flat_engine"][name], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-                     "dtype": r["dtype"]})
+        # launches: the llama engine's main run; the static path's, the flat engine's
+        # and the MoE engine's main run beside it
+        entry = {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                 "replaces": REPLACES[name], "launches": engine["launches"][name],
+                 "launches_static_path": launches.get(name, 0),
+                 "launches_flat_engine": engine["launches_flat_engine"][name],
+                 "launches_moe_engine": moe_engine["launches"][name],
+                 "launches_moe_flat_engine": moe_engine["launches_flat_engine"][name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"], "dtype": r["dtype"]}
+        if name in phi:  # the attention kernels at phi3.5-moe's head_dim 128
+            entry["hd128"] = {k: phi[name][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")}
+        line.append(entry)
+    say(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": line}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
 }
 
 # every arch the reference registry resolves (repro/configs/registry.py)

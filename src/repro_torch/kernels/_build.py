@@ -38,14 +38,17 @@ __all__ = [
     "check_launch",
     "stream_ptr",
     "padded_rows",
+    "padded_stack",
     "aligned_rows",
     "row_stride",
+    "stack_strides",
     "check_vector_layout",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attention", "paged_decode_attention")
+KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attention", "paged_decode_attention",
+           "lowrank_matmul_batched")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -136,7 +139,7 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 class KernelLib:
@@ -243,6 +246,22 @@ def row_stride(t: torch.Tensor, what: str) -> int:
     return s0
 
 
+def stack_strides(t: torch.Tensor, what: str) -> tuple:
+    """(row stride, stack stride) of a 3-D (L, rows, cols) operand whose
+    rows are contiguous and whose L matrices do not overlap: any row stride
+    >= cols and stack stride >= rows * row stride passes uncopied (one
+    layer's slice of a stacked, row-padded factor leaf, for one).  The
+    stride of a size-1 dim is never used and is not checked."""
+    if t.dim() != 3:
+        raise ValueError(f"{what}: need a 3-D tensor, got shape {tuple(t.shape)}")
+    L, rows, cols = t.shape
+    ld = row_stride(t[0], what) if L else cols
+    s = t.stride(0) if L > 1 else rows * ld
+    if s < rows * ld:
+        raise ValueError(f"{what}: stacked matrices overlap, shape {tuple(t.shape)} strides {t.stride()}")
+    return ld, s
+
+
 def check_vector_layout(what: str, *ts: torch.Tensor) -> None:
     """The attention kernels read their tiles in 16-byte vectors: each
     operand must start 16-byte aligned with a last dim of whole vectors."""
@@ -258,6 +277,13 @@ def padded_rows(rows: int, cols: int, dtype, device) -> torch.Tensor:
     vectors when it is read back as an operand."""
     ld = -(-cols // 8) * 8
     return torch.empty((rows, ld), dtype=dtype, device=device)[:, :cols]
+
+
+def padded_stack(L: int, rows: int, cols: int, dtype, device) -> torch.Tensor:
+    """Uninitialized (L, rows, cols) tensor, each matrix stored as by
+    :func:`padded_rows` (row stride a multiple of 8 elements), back to back."""
+    ld = -(-cols // 8) * 8
+    return torch.empty((L, rows, ld), dtype=dtype, device=device)[..., :cols]
 
 
 def aligned_rows(t: torch.Tensor) -> torch.Tensor:

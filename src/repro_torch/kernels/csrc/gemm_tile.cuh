@@ -18,6 +18,11 @@
 // 8 elements where they allocate), and element loads otherwise; ragged
 // edges are zero-filled, so any M, N, K is accepted.
 //
+// Batched: blockIdx.z indexes a stack of independent products (A, B and C
+// each offset by its own stack stride sa / sb / sc, in elements), so one
+// launch covers a whole (L, M, K) @ (L, K, N) stack; a plain GEMM is the
+// stack of one (gridDim.z = 1, strides unused).
+//
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (four
 // warps, 32x32 each); fp32 runs on the FMA units (each thread 8x4 outputs),
 // which keeps fp32 products in full fp32 (no TF32).
@@ -63,7 +68,7 @@ template <bool TRANS_A, typename OutT>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
                  OutT* __restrict__ C, int M, int N, int K, int lda, int ldb, int ldc,
-                 bool a_vec, bool b_vec) {
+                 long long sa, long long sb, long long sc, bool a_vec, bool b_vec) {
     using namespace nvcuda;
     using T = __nv_bfloat16;
     constexpr int VEC = 8;
@@ -84,6 +89,9 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __res
     const int wm = warp / 2, wn = warp % 2;
     const int m0 = blockIdx.y * GEMM_BM;
     const int n0 = blockIdx.x * GEMM_BN;
+    A += blockIdx.z * sa;
+    B += blockIdx.z * sb;
+    C += blockIdx.z * sc;
 
     // stored-matrix extents of A (rows x cols as laid out in memory)
     const int a_rows = TRANS_A ? K : M;
@@ -174,7 +182,8 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __res
 template <bool TRANS_A>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-                int M, int N, int K, int lda, int ldb, int ldc, bool a_vec, bool b_vec) {
+                int M, int N, int K, int lda, int ldb, int ldc, long long sa, long long sb, long long sc,
+                bool a_vec, bool b_vec) {
     constexpr int VEC = 4;
     constexpr int A_ROWS = TRANS_A ? GEMM_BK : GEMM_BM;
     constexpr int A_COLS = TRANS_A ? GEMM_BM : GEMM_BK;
@@ -189,6 +198,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float*
     const int tx = tid % 16, ty = tid / 16;
     const int m0 = blockIdx.y * GEMM_BM;
     const int n0 = blockIdx.x * GEMM_BN;
+    A += blockIdx.z * sa;
+    B += blockIdx.z * sb;
+    C += blockIdx.z * sc;
     const int a_rows = TRANS_A ? K : M;
     const int a_cols = TRANS_A ? M : K;
 
@@ -409,38 +421,48 @@ inline cudaError_t launch_gemm_skinny(const void* A, const void* B, void* C, voi
     return cudaGetLastError();
 }
 
-inline bool vec_ok(const void* p, int ld, int elem_bytes) {
-    return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ((size_t)ld * elem_bytes) % 16 == 0;
+// 16-byte vector loads need the base, the row stride and (for a stack) the
+// stack stride all on 16-byte boundaries.
+inline bool vec_ok(const void* p, int ld, int elem_bytes, long long stack_stride = 0) {
+    return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ((size_t)ld * elem_bytes) % 16 == 0 &&
+           ((size_t)stack_stride * elem_bytes) % 16 == 0;
 }
 
+// C[z] = op(A[z]) @ B[z] for z < batch (the strides are ignored when batch == 1).
 template <typename OutT>
 inline cudaError_t launch_gemm_bf16(const void* A, const void* B, void* C, int M, int N, int K, int lda, int ldb,
-                                    int ldc, bool trans_a, cudaStream_t stream) {
-    if (M <= 0 || N <= 0) return cudaSuccess;
-    dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-    bool av = vec_ok(A, lda, 2), bv = vec_ok(B, ldb, 2);
+                                    int ldc, bool trans_a, cudaStream_t stream, int batch = 1, long long sa = 0,
+                                    long long sb = 0, long long sc = 0) {
+    if (M <= 0 || N <= 0 || batch <= 0) return cudaSuccess;
+    if (batch > 65535) return cudaErrorInvalidValue;
+    dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, batch);
+    bool av = vec_ok(A, lda, 2, sa), bv = vec_ok(B, ldb, 2, sb);
     auto* a = static_cast<const __nv_bfloat16*>(A);
     auto* b = static_cast<const __nv_bfloat16*>(B);
     auto* c = static_cast<OutT*>(C);
     if (trans_a)
-        gemm_bf16_kernel<true, OutT><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, av, bv);
+        gemm_bf16_kernel<true, OutT><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, sa, sb, sc,
+                                                                         av, bv);
     else
-        gemm_bf16_kernel<false, OutT><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, av, bv);
+        gemm_bf16_kernel<false, OutT><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, sa, sb, sc,
+                                                                          av, bv);
     return cudaGetLastError();
 }
 
 inline cudaError_t launch_gemm_f32(const void* A, const void* B, void* C, int M, int N, int K, int lda, int ldb,
-                                   int ldc, bool trans_a, cudaStream_t stream) {
-    if (M <= 0 || N <= 0) return cudaSuccess;
-    dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-    bool av = vec_ok(A, lda, 4), bv = vec_ok(B, ldb, 4);
+                                   int ldc, bool trans_a, cudaStream_t stream, int batch = 1, long long sa = 0,
+                                   long long sb = 0, long long sc = 0) {
+    if (M <= 0 || N <= 0 || batch <= 0) return cudaSuccess;
+    if (batch > 65535) return cudaErrorInvalidValue;
+    dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, batch);
+    bool av = vec_ok(A, lda, 4, sa), bv = vec_ok(B, ldb, 4, sb);
     auto* a = static_cast<const float*>(A);
     auto* b = static_cast<const float*>(B);
     auto* c = static_cast<float*>(C);
     if (trans_a)
-        gemm_f32_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, av, bv);
+        gemm_f32_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, sa, sb, sc, av, bv);
     else
-        gemm_f32_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, av, bv);
+        gemm_f32_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(a, b, c, M, N, K, lda, ldb, ldc, sa, sb, sc, av, bv);
     return cudaGetLastError();
 }
 

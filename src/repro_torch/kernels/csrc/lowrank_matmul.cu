@@ -35,9 +35,10 @@ int lowrank(TileLaunch tiles, const void* x, const void* A, const void* B, void*
         if (e != cudaSuccess) return e;
         return repro::launch_gemm_skinny<T, T>(t, B, y, ws, M, N, r, ldt, ldb, ldy, s);
     }
-    e = tiles(x, A, t, M, r, K, ldx, lda, ldt, false, s);
+    // a function pointer carries no default arguments: a stack of one
+    e = tiles(x, A, t, M, r, K, ldx, lda, ldt, false, s, 1, 0, 0, 0);
     if (e != cudaSuccess) return e;
-    return tiles(t, B, y, M, N, r, ldt, ldb, ldy, false, s);
+    return tiles(t, B, y, M, N, r, ldt, ldb, ldy, false, s, 1, 0, 0, 0);
 }
 
 template <typename T>

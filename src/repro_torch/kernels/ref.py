@@ -46,7 +46,11 @@ def sketch_matmul_ref(a, b, *, trans_a: bool = False, out_dtype: Optional[torch.
 
 
 def lowrank_matmul_ref(x, A, B):
-    """y = (x @ A) @ B — compressed-linear serving oracle."""
+    """y = (x @ A) @ B — compressed-linear serving oracle.
+
+    2-D factors, or stacked ones: x (L, M, K), A (L, K, r), B (L, r, N) give
+    y[l] = (x[l] @ A[l]) @ B[l] (``torch.matmul`` batches over L), the plain
+    version of both the 2-D and the batched kernel."""
     t = torch.matmul(x.float(), A.float()).to(x.dtype)
     return torch.matmul(t.float(), B.float()).to(x.dtype)
 

@@ -1,10 +1,12 @@
-"""Decoder-only LM, dense family: init, forward, prefill and decode.
+"""Decoder-only LM, dense and moe families: init, forward, prefill and decode.
 
-The port's counterpart of the dense family of ``repro/models/lm.py``.  The
-params tree mirrors the reference's: ``embed``, ``final_norm`` and a
-``layers`` subtree whose leaves are stacked over layers, shape (L, ...).
-The reference scans over that axis; here a Python loop takes each layer's
-slice (a view).
+The port's counterpart of the dense and moe (GQA attention, routed experts)
+families of ``repro/models/lm.py``.  The params tree mirrors the
+reference's: ``embed``, ``final_norm``, ``lm_head`` where the head is not
+tied, and a ``layers`` subtree whose leaves are stacked over layers, shape
+(L, ...); a moe layer holds ``moe`` (router, (L, E, ...) expert stacks)
+where a dense one holds ``mlp``.  The reference scans over the layer axis;
+here a Python loop takes each layer's slice (a view).
 
 The decode cache is ``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}`` and
 ``lm_decode_step`` updates it IN PLACE: each layer writes its new K/V row
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import lowrank
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_mod
@@ -39,13 +42,23 @@ __all__ = [
 ]
 
 
+# what the port does not carry yet, and the slice that brings it
+_LATER_MOE = {
+    "kv_lora_rank": "MLA attention comes with the deepseek-v2 slice",
+    "first_dense_layers": "dense first layers come with the deepseek-v2 slice",
+    "n_shared_experts": "shared experts in a served model come with the deepseek-v2 slice",
+}
+
+
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"model family {cfg.family!r} is not yet ported (only 'dense')")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"model family {cfg.family!r} is not yet ported (only 'dense' and 'moe')")
     if cfg.sliding_window is not None:
         raise NotImplementedError("sliding-window attention is not yet ported")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("an untied lm_head is not yet ported (only tied embeddings)")
+    if cfg.family == "moe":
+        for field, later in _LATER_MOE.items():
+            if getattr(cfg, field):
+                raise NotImplementedError(f"moe with {field}={getattr(cfg, field)} is not yet ported: {later}")
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -60,12 +73,16 @@ def _layer(stack, i: int):
 
 
 def _block_init(generator, cfg, dtype, device) -> dict:
-    return {
+    p = {
         "attn_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": attn.gqa_init(generator, cfg, dtype, device),
         "mlp_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": moe_mod.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = moe_mod.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 def _stack(trees):
@@ -82,14 +99,36 @@ def lm_init(generator: torch.Generator, cfg, device) -> dict:
         "embed": nn.embed_init(generator, cfg.vocab_padded, cfg.d_model, dtype, device),
         "final_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = nn.dense_init(generator, cfg.d_model, cfg.vocab_padded, dtype, device)
     p["layers"] = _stack([_block_init(generator, cfg, dtype, device) for _ in range(cfg.n_layers)])
     return p
 
 
 def _logits(p, x, cfg) -> torch.Tensor:
-    """fp32 logits against the tied embedding, with fp32 accumulation and
-    never rounded to the model dtype."""
-    return dispatch.logits_apply(x, p["embed"])
+    """fp32 logits (``repro/models/lm.py::_logits``).  The tied embedding and
+    a dense untied head give fp32-accumulated logits never rounded to the
+    model dtype; a compressed head goes through ``nn.dense`` like any
+    factored linear, so its logits ARE rounded to the model dtype first and
+    then cast to fp32, as the reference's are."""
+    if cfg.tie_embeddings:
+        return dispatch.logits_apply(x, p["embed"])
+    head = p["lm_head"]
+    if lowrank.is_lowrank(head):
+        return nn.dense(head, x).float()
+    return dispatch.logits_apply(x, head, tied=False)
+
+
+def _mlp(lp, h, cfg, *, with_aux: bool = False):
+    """The block's feed-forward half: routed experts or the dense FFN.
+    Returns (out, aux loss).  The aux loss is computed only ``with_aux``
+    (lm_forward reads it; the serving paths skip its kernels) and is 0.0
+    otherwise and for a dense model."""
+    if "moe" not in lp:
+        return moe_mod.ffn_forward(lp["mlp"], h), 0.0
+    if with_aux:
+        return moe_mod.moe_forward(lp["moe"], h, cfg)
+    return moe_mod.moe_apply(lp["moe"], h, cfg), 0.0
 
 
 def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
@@ -100,20 +139,24 @@ def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
         a, kv = a
     x = x + a
     h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-    return x + moe_mod.ffn_forward(lp["mlp"], h), kv
+    m, aux = _mlp(lp, h, cfg, with_aux=not return_cache)  # return_cache: the serving prefill
+    return x + m, kv, aux
 
 
 def lm_forward(p, batch, cfg):
-    """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss 0.0)."""
+    """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss): the
+    sum of the moe layers' load-balance losses (0.0 for a dense model)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = nn.embed_lookup(p["embed"], tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = 0.0
     for i in range(cfg.n_layers):
-        x, _ = _self_block(_layer(p["layers"], i), x, cfg, positions)
+        x, _, a = _self_block(_layer(p["layers"], i), x, cfg, positions)
+        aux = aux + a
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return _logits(p, x, cfg), 0.0
+    return _logits(p, x, cfg), aux
 
 
 def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
@@ -134,7 +177,8 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
 
     Returns ``(cache, paged_mask)``: the mask mirrors the cache (without the
     block table) with one bool per leaf, telling the engine which prefill
-    scatter each leaf takes — pages, for every leaf of the dense family.
+    scatter each leaf takes — pages, for every leaf of the dense and moe
+    families.
     """
     _check_family(cfg)
     one, paged = attn.gqa_init_cache_paged(cfg, page_size, n_pages + 1, _dtype(cfg), device)
@@ -162,7 +206,7 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     x = nn.embed_lookup(p["embed"], tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     for i in range(cfg.n_layers):
-        x, (k, v) = _self_block(_layer(p["layers"], i), x, cfg, positions, return_cache=True)
+        x, (k, v), _ = _self_block(_layer(p["layers"], i), x, cfg, positions, return_cache=True)
         cache["layers"]["k"][i, :, :S] = k
         cache["layers"]["v"][i, :, :S] = v
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
@@ -202,7 +246,7 @@ def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
         a, _ = attn.gqa_prefill_chunk(lp["attn"], h, c, cfg, bt_row, start, n_real)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + moe_mod.ffn_forward(lp["mlp"], h)
+        x = x + _mlp(lp, h, cfg)[0]
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     last = x[:, min(max(n_real - 1, 0), C - 1)][:, None, :]
     return _logits(p, last, cfg)[:, 0], cache
@@ -228,6 +272,6 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
             a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + moe_mod.ffn_forward(lp["mlp"], h)
+        x = x + _mlp(lp, h, cfg)[0]
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, x, cfg)[:, 0], cache

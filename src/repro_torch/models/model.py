@@ -3,8 +3,8 @@
 The port's counterpart of ``repro/models/model.py``.  ``build_model(cfg)``
 returns a :class:`ModelApi` of functions over a params tree (nested dicts
 mirroring the reference's pytree); :class:`LMModule` is the ``nn.Module``
-that owns such a tree's tensors.  Only ``family="dense"`` is ported; any
-other family raises.
+that owns such a tree's tensors.  The ``dense`` family and the ``moe``
+family with GQA attention are ported; any other family raises.
 """
 
 from __future__ import annotations
@@ -44,9 +44,9 @@ class ModelApi:
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
-    lm_mod._check_family(cfg)  # dense, tied, no sliding window: raises for what is not yet ported
+    lm_mod._check_family(cfg)  # dense or GQA moe, no sliding window: raises for what is not yet ported
     dev = resolve_device(device)
-    chunkable = cfg.family == "dense" and cfg.sliding_window is None
+    chunkable = cfg.family in ("dense", "moe") and cfg.sliding_window is None
     return ModelApi(
         cfg=cfg,
         device=dev,
@@ -108,11 +108,14 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def analytic_param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count N of a dense decoder (the reference's formula)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"param count of family {cfg.family!r} is not yet ported")
+    """Analytic parameter count N of a dense or GQA moe decoder (the
+    reference's formula)."""
+    if cfg.family not in ("dense", "moe") or cfg.kv_lora_rank or cfg.first_dense_layers or cfg.n_shared_experts:
+        raise NotImplementedError(f"param count of {cfg.name!r} is not yet ported")
     d, V = cfg.d_model, cfg.vocab_padded
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = d * H * hd + 2 * d * KV * hd + H * hd * d
-    ffn = 3 * d * cfg.d_ff
-    return (V * d if cfg.tie_embeddings else 2 * V * d) + cfg.n_layers * (attn + ffn)
+    n = (V * d if cfg.tie_embeddings else 2 * V * d) + cfg.n_layers * attn
+    if cfg.family == "dense":
+        return n + cfg.n_layers * 3 * d * cfg.d_ff
+    return n + cfg.n_layers * (cfg.n_experts * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from collections import Counter
 from typing import Optional
@@ -40,6 +41,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul as _lowrank_kernel
+from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched as _lowrank_batched_kernel
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.sketch_matmul import sketch_matmul as _sketch_kernel
 
@@ -47,6 +49,7 @@ __all__ = [
     "BACKENDS",
     "PATH_TWO_GEMM",
     "PATH_FUSED",
+    "PATH_FUSED_BATCHED",
     "DispatchConfig",
     "active_dispatch",
     "use_dispatch",
@@ -72,6 +75,7 @@ BACKENDS = ("auto", "reference")
 # low-rank execution paths (what the auto table chooses between)
 PATH_TWO_GEMM = "two_gemm"  # the plain (x @ A) @ B
 PATH_FUSED = "fused"  # the lowrank_matmul CUDA kernel
+PATH_FUSED_BATCHED = "fused_batched"  # the lowrank_matmul_batched CUDA kernel (stacked factors)
 PATH_KERNEL = "kernel"  # the other ops' CUDA kernels
 PATH_REFERENCE = "reference"  # the other ops' plain versions
 
@@ -186,6 +190,24 @@ def _use_kernel(device: torch.device, config: DispatchConfig) -> bool:
     return config.backend == "auto" and device.type == "cuda"
 
 
+def _lowrank_dims(x_shape, a_shape, b_shape):
+    """(n_stack_dims, L, M, K, r, N) for a possibly-stacked factored apply
+    (``repro/runtime/dispatch.py::_lowrank_dims``): A (L..., K, r),
+    B (L..., r, N) and x (L..., M..., K); the leading stack dims flatten to
+    one L and x's remaining leading dims to one M."""
+    nl = len(a_shape) - 2
+    if len(b_shape) != len(a_shape):
+        raise ValueError(f"A/B rank mismatch: A {tuple(a_shape)}, B {tuple(b_shape)}")
+    if nl and (tuple(a_shape[:nl]) != tuple(b_shape[:nl]) or tuple(x_shape[:nl]) != tuple(a_shape[:nl])):
+        raise ValueError(f"stacked lowrank apply: leading dims disagree "
+                         f"(x {tuple(x_shape)}, A {tuple(a_shape)}, B {tuple(b_shape)})")
+    if x_shape[-1] != a_shape[-2] or b_shape[-2] != a_shape[-1]:
+        raise ValueError(f"lowrank apply: x {tuple(x_shape)}, A {tuple(a_shape)}, B {tuple(b_shape)}")
+    L = math.prod(a_shape[:nl]) if nl else 1
+    M = math.prod(x_shape[nl:-1]) if len(x_shape) - nl > 1 else 1
+    return nl, L, M, a_shape[-2], a_shape[-1], b_shape[-1]
+
+
 def choose_lowrank_path(
     x_shape,
     a_shape,
@@ -194,20 +216,18 @@ def choose_lowrank_path(
     device_type: str,
     config: Optional[DispatchConfig] = None,
 ) -> str:
-    """The auto table: on ``cuda`` under ``auto`` the fused kernel, for
-    every rank; otherwise (``reference``, or the CPU) the plain two-GEMM
-    form.  The reference's dense-rematerialization path is not carried
-    over: no rank that ``compress_tree`` emits reaches break-even."""
+    """The auto table: on ``cuda`` under ``auto`` the fused kernel (the
+    batched one for stacked factors), for every rank; otherwise
+    (``reference``, or the CPU) the plain two-GEMM form.  The reference's
+    dense-rematerialization path is not carried over: no rank that
+    ``compress_tree`` emits reaches break-even.  Nor is its VMEM fit test:
+    at phi3.5-moe's expert ranks (``fused_vmem_bytes(1229, 6400, bf16)``,
+    ~28 MB > 14 MiB) the reference falls back to two GEMMs, the port runs
+    its kernel."""
     config = config or active_dispatch()
-    if len(a_shape) != 2 or len(b_shape) != 2:
-        raise NotImplementedError(
-            f"stacked low-rank factors (A {tuple(a_shape)}) need the batched kernel, not yet ported"
-        )
-    K, r = a_shape
-    if tuple(b_shape)[0] != r or x_shape[-1] != K:
-        raise ValueError(f"lowrank apply: x {tuple(x_shape)}, A {tuple(a_shape)}, B {tuple(b_shape)}")
+    nl = _lowrank_dims(x_shape, a_shape, b_shape)[0]
     if config.backend == "auto" and device_type == "cuda":
-        return PATH_FUSED
+        return PATH_FUSED_BATCHED if nl else PATH_FUSED
     return PATH_TWO_GEMM
 
 
@@ -230,19 +250,30 @@ def dense_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """y = (x @ A) @ B via whichever path the dispatch table selects.
 
-    x (..., K), A (K, r), B (r, N); leading x dims are flattened.
+    2-D factors: x (..., K), A (K, r), B (r, N); leading x dims flatten.
+    Stacked factors: A (L..., K, r), B (L..., r, N) with x (L..., M..., K)
+    (the expert-stacked case).  Every path canonicalizes the stacked case
+    to (L, M, K) @ (L, K, r) @ (L, r, N) first, as the reference does; the
+    reshapes are views of row-padded factor leaves, never copies.
     """
     config = active_dispatch()
     path = choose_lowrank_path(x.shape, A.shape, B.shape, device_type=x.device.type, config=config)
-    K, r = A.shape
-    N = B.shape[1]
-    x2 = x.reshape(-1, K)
-    _record("lowrank_matmul", path, (x2.shape[0], K, r, N))
+    nl, L, M, K, r, N = _lowrank_dims(x.shape, A.shape, B.shape)
+    _record("lowrank_matmul", path, (L, M, K, r, N))
+    out_shape = x.shape[:-1] + (N,)
+    if nl:
+        xc, Ac, Bc = x.reshape(L, M, K), A.reshape(L, K, r), B.reshape(L, r, N)
+        if path == PATH_FUSED_BATCHED:
+            y = _lowrank_batched_kernel(xc, Ac, Bc)
+        else:
+            y = _ref.lowrank_matmul_ref(xc, Ac, Bc)
+        return y.reshape(out_shape)
+    x2 = x.reshape(M, K)
     if path == PATH_FUSED:
         y = _lowrank_kernel(x2, A, B)
     else:
         y = _ref.lowrank_matmul_ref(x2, A, B)
-    return y.reshape(x.shape[:-1] + (N,))
+    return y.reshape(out_shape)
 
 
 def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
@@ -256,27 +287,30 @@ def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     return _ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=out_dtype)
 
 
-def logits_apply(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """fp32 logits ``x @ embed.T`` against the tied (V, d) embedding table,
-    with fp32 accumulation and no rounding.
+def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> torch.Tensor:
+    """fp32 logits with fp32 accumulation and no rounding: ``x @ table.T``
+    against the tied (V, d) embedding table, or ``x @ table`` against an
+    untied dense (d, V) head (``tied=False``; the reference's
+    ``jnp.matmul(x, head, preferred_element_type=f32)``).
 
-    On the card this is the sketch GEMM with an fp32 output, computed
-    transposed (table rows stream once; x is the skinny operand) — a bf16
-    GEMM rounded to bf16 and then upcast could flip greedy argmaxes, and
-    upcasting the table each step would move 1 GB.
+    On the card this is the sketch GEMM with an fp32 output; the tied form
+    is computed transposed (table rows stream once; x is the skinny
+    operand) — a bf16 GEMM rounded to bf16 and then upcast could flip
+    greedy argmaxes, and upcasting the table each step would move 1 GB.
     """
     config = active_dispatch()
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    V = embed.shape[0]
+    V = table.shape[0] if tied else table.shape[1]
     sig = (x2.shape[0], d, V)
-    if _use_kernel(x.device, config):
-        _record("logits", PATH_KERNEL, sig)
-        out_t = _sketch_kernel(embed, x2.T.contiguous(), out_dtype=torch.float32)
+    kernel = _use_kernel(x.device, config)
+    _record("logits", PATH_KERNEL if kernel else PATH_REFERENCE, sig)
+    gemm = _sketch_kernel if kernel else _ref.sketch_matmul_ref
+    if tied:
+        out = gemm(table, x2.T.contiguous() if kernel else x2.T, out_dtype=torch.float32).T
     else:
-        _record("logits", PATH_REFERENCE, sig)
-        out_t = _ref.sketch_matmul_ref(embed, x2.T, out_dtype=torch.float32)
-    return out_t.T.reshape(x.shape[:-1] + (V,))
+        out = gemm(x2, table, out_dtype=torch.float32)
+    return out.reshape(x.shape[:-1] + (V,))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):

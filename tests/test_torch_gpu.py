@@ -24,6 +24,7 @@ from repro_torch.kernels._build import aligned_rows
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.sketch_matmul import sketch_matmul
 
@@ -79,9 +80,49 @@ def test_gpu_lowrank_matmul(cuda, M, K, r, N, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,G", [(45, 4), (200, 1), (300, 8)])
-def test_gpu_decode_attention(cuda, S, G, dtype):
-    B, KV, hd = 3, 2, 64
+@pytest.mark.parametrize("L,M,K,r,N", [(1, 128, 250, 37, 96), (4, 128, 512, 154, 320), (3, 70, 96, 29, 200),
+                                       (16, 9, 64, 16, 64)])
+def test_gpu_lowrank_matmul_batched(cuda, L, M, K, r, N, dtype):
+    """The batched kernel against its plain version: contiguous stacks (ragged
+    row strides), row-padded factors, and each layer's (E, K, r) view of an
+    (L, E, K, r) leaf read in place through its row and stack strides."""
+    x = _rand((L, M, K), 13, dtype, cuda)
+    A, B = _rand((L, K, r), 14, dtype, cuda), _rand((L, r, N), 15, dtype, cuda)
+    _close(lowrank_matmul_batched(x, A, B), ref.lowrank_matmul_ref(x, A, B), GEMM_TOL[dtype])
+    A2, B2 = aligned_rows(A), aligned_rows(B)
+    _close(lowrank_matmul_batched(x, A2, B2), ref.lowrank_matmul_ref(x, A, B), GEMM_TOL[dtype])
+    leaf_a = aligned_rows(_rand((2, L, K, r), 16, dtype, cuda))
+    leaf_b = aligned_rows(_rand((2, L, r, N), 17, dtype, cuda))
+    for layer in range(2):
+        A3, B3 = leaf_a[layer], leaf_b[layer]
+        assert A3.data_ptr() == leaf_a.data_ptr() + layer * leaf_a.stride(0) * leaf_a.element_size()
+        _close(lowrank_matmul_batched(x, A3, B3), ref.lowrank_matmul_ref(x, A3, B3), GEMM_TOL[dtype])
+    # every stack entry is its own 2-D product
+    y = lowrank_matmul_batched(x, A2, B2)
+    for i in range(L):
+        _close(y[i], ref.lowrank_matmul_ref(x[i], A[i], B[i]), GEMM_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_gpu_lowrank_matmul_batched_refuses_bad_operands(cuda):
+    x, A, B = (_rand(s, 18, "bfloat16", cuda) for s in ((2, 8, 16), (2, 16, 4), (2, 4, 8)))
+    with pytest.raises(ValueError, match="operands on"):
+        lowrank_matmul_batched(x, A.cpu(), B)
+    with pytest.raises(TypeError):
+        lowrank_matmul_batched(x, A.float(), B)
+    with pytest.raises(ValueError):
+        lowrank_matmul_batched(x, A[:, :8], B)
+    with pytest.raises(ValueError):
+        lowrank_matmul_batched(x[0], A[0], B[0])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        lowrank_matmul_batched(x, A.transpose(1, 2).contiguous().transpose(1, 2), B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,G,hd", [(45, 4, 64), (200, 1, 64), (300, 8, 64), (260, 4, 128)])
+def test_gpu_decode_attention(cuda, S, G, hd, dtype):
+    B, KV = 3, 2
     q, k, v = (_rand(s, 6 + i, dtype, cuda) for i, s in enumerate([(B, 1, KV * G, hd), (B, S, KV, hd),
                                                                       (B, S, KV, hd)]))
     valid = torch.arange(S, device=cuda)[None, :] < torch.tensor([[S], [S // 3], [0]], device=cuda)
@@ -92,9 +133,10 @@ def test_gpu_decode_attention(cuda, S, G, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,window,q_offset", [(70, None, 0), (128, 32, 0), (40, None, 24)])
-def test_gpu_flash_attention(cuda, S, window, q_offset, dtype):
-    B, H, KV, hd = 2, 8, 2, 64
+@pytest.mark.parametrize("S,window,q_offset,hd", [(70, None, 0, 64), (128, 32, 0, 64), (40, None, 24, 64),
+                                                  (200, None, 0, 128), (70, None, 16, 128)])
+def test_gpu_flash_attention(cuda, S, window, q_offset, hd, dtype):
+    B, H, KV = 2, 8, 2
     q = _rand((B, S, H, hd), 9, dtype, cuda)
     k, v = _rand((B, S + q_offset, KV, hd), 10, dtype, cuda), _rand((B, S + q_offset, KV, hd), 11, dtype, cuda)
     got = flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
@@ -102,10 +144,10 @@ def test_gpu_flash_attention(cuda, S, window, q_offset, dtype):
     _close(got, want, ATTN_TOL[dtype])
 
 
-def _paged_case(page, n_tbl, G, dtype, device, *, seed=12):
+def _paged_case(page, n_tbl, G, dtype, device, *, seed=12, hd=64):
     """A pool with pages at permuted physical ids, a finite-poison trash page,
     ragged n_valid (crossing page boundaries) and one fully-masked row."""
-    B, KV, hd = 4, 2, 64
+    B, KV = 4, 2
     rng = np.random.default_rng(seed)
     P = B * n_tbl + 1
     q = _rand((B, 1, KV * G, hd), seed, dtype, device)
@@ -121,9 +163,10 @@ def _paged_case(page, n_tbl, G, dtype, device, *, seed=12):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("page,n_tbl,G", [(1, 37, 4), (4, 9, 1), (16, 5, 4), (64, 3, 4), (128, 2, 8), (48, 3, 4)])
-def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, dtype):
-    q, k, v, bt, n_valid = _paged_case(page, n_tbl, G, dtype, cuda)
+@pytest.mark.parametrize("page,n_tbl,G,hd", [(1, 37, 4, 64), (4, 9, 1, 64), (16, 5, 4, 64), (64, 3, 4, 64),
+                                             (128, 2, 8, 64), (48, 3, 4, 64), (64, 5, 4, 128), (16, 9, 4, 128)])
+def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, hd, dtype):
+    q, k, v, bt, n_valid = _paged_case(page, n_tbl, G, dtype, cuda, hd=hd)
     got = paged_decode_attention(q, k, v, bt, n_valid)
     _close(got, ref.paged_decode_attention_ref(q, k, v, bt, n_valid), ATTN_TOL[dtype])
     assert bool((got[2] == 0).all())
@@ -131,10 +174,11 @@ def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype):
+@pytest.mark.parametrize("hd", [64, 128])
+def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype, hd):
     """At page 64 the paged kernel's splits, tiles and arithmetic are the
     flat kernel's: on the same logical cache the outputs are equal bit for bit."""
-    q, k, v, bt, n_valid = _paged_case(64, 10, 4, dtype, cuda)
+    q, k, v, bt, n_valid = _paged_case(64, 10, 4, dtype, cuda, hd=hd)
     flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
     valid = torch.arange(flat_k.shape[1], device=cuda)[None, :] < n_valid[:, None]
     got = paged_decode_attention(q, k, v, bt, n_valid)
@@ -142,17 +186,26 @@ def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b"])
 @pytest.mark.parametrize("page_size,chunk", [(None, None), (4, 5)])
-def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk):
+def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
     """The captured decode block (greedy and sampled variants, one request of
-    each kind per engine) emits what the same body run eagerly emits."""
+    each kind per engine) emits what the same body run eagerly emits.  The
+    reduced phi3.5-moe runs RSI-compressed, so its expert stacks go through
+    the batched kernel, inside the graph as well."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
     from repro_torch.models.model import build_model
     from repro_torch.serving import Engine, Request, SamplingParams
 
-    model = build_model(get_arch("llama3.2-1b", reduced=True), device=cuda)
+    model = build_model(get_arch(arch, reduced=True), device=cuda)
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    moe = model.cfg.family == "moe"
+    if moe:
+        params, _ = compress_tree(params, CompressionPolicy(alpha=0.3, q=2, min_dim=16),
+                                  generator=torch.Generator(device=cuda).manual_seed(1))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, size=n) for n in (9, 4, 12)]
     sampling = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20, seed=5), SamplingParams(seed=1)]
@@ -161,6 +214,7 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk):
         eng = Engine(model, params, n_slots=2, max_len=24, page_size=page_size, prefill_chunk=chunk,
                      decode_block=4, cuda_graph=graph)
         before = paged_mod.KERNEL.launches
+        before_batched = batched_mod.KERNEL.launches
         reqs = [eng.submit(Request(prompt=p, max_new_tokens=10, sampling=s)) for p, s in zip(prompts, sampling)]
         while eng.has_work:
             eng.step()
@@ -168,5 +222,7 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk):
         assert (eng.graph_replays > 0) == graph
         if page_size is not None:
             assert paged_mod.KERNEL.launches > before
+        if moe:
+            assert batched_mod.KERNEL.launches > before_batched
         out[graph] = [r.tokens for r in reqs]
     assert out[True] == out[False]

@@ -169,10 +169,11 @@ def test_build_model_runs_on_the_card_by_default():
 def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_arch("mamba2-130m")
-    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="moe")
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="ssm")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg, device="cpu")
-    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), tie_embeddings=False)
+    # moe is ported with GQA attention; MLA attention (deepseek-v2) is not
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b", reduced=True), kv_lora_rank=8)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg, device="cpu")
 
