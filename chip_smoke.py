@@ -7,7 +7,7 @@ Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
 Phases, in order; any failure exits non-zero before the last line:
 
-1. Device: the card's name and power limit; build the six kernels from
+1. Device: the card's name and power limit; build the seven kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero before the last line:
    row and permuted pages at pages 64, 16 and 128, and at page 64 must
    return the flat kernel's bits.  At phi3.5-moe's shapes: the batched
    low-rank kernel on one layer's expert stacks (decode w_gate and w_down,
-   one prefill), and the three attention kernels at head_dim 128.
+   one prefill), and the three attention kernels at head_dim 128.  The SSD
+   scan kernel against its plain version at zamba2-1.2b's and
+   mamba2-130m's shapes (a prime length and one shorter than a chunk
+   among them), under both x̄ contracts, y and the final state; and the
+   three attention kernels at zamba2's shared block, G = 1 (32/32 heads,
+   head_dim 64), the paged kernel bit for bit the flat one at page 64.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
@@ -62,11 +67,33 @@ Phases, in order; any failure exits non-zero before the last line:
    drops nothing.  Gate also: no linear of the main run left the kernels.
 12. Phase 8's decode-block profile on the MoE model, with the batched
    kernel's share of the device time.
+13. The SSM main path at full width and depth: zamba2-1.2b (38 Mamba2
+   layers, d 2048, d_inner 4096, 64 SSD heads of 64, state 64; one shared
+   attention+MLP block, 32/32 heads, applied 6 times; vocab 32000, untied
+   head; bf16), random weights (seed 0), spectralized (seed 9), compressed
+   at alpha 0.3, q = 4, min_dim 32.  Gates: the reference's compression
+   decisions; on layer 0's w_x, q = 4's normalized error <= q = 1's.
+14. Auto vs reference on zamba2, three ways: every residual branch of the
+   prefill teacher-forced in bf16 (5% of the branch's output); the
+   prefill and first decode-step logits end to end in fp32 (1e-2); the
+   same in bf16, within twice the reference's own spread when only its
+   scan's summation order changes, + 0.05 (bf16 logits of a deep
+   recurrent model are chaotic: one ulp anywhere moves them by percents).
+15. Phase 7 on zamba2 (the chunk is inert: the family prefills
+   monolithically).  Gates also: every prefill micro-batch holds one prompt
+   length, unpadded; ssd_scan launched once per layer per prefill call; no
+   linear outside the kernels.
+16. Profiles: one captured decode block at 8 slots, and one monolithic
+   512-token prefill with ssd_scan's share of the device time.
+17. Phases 13-15 on mamba2-130m at full width and depth (24 layers,
+   d 768, 24 SSD heads, state 128, tied head): its engine reserves zero
+   pages (no cache leaf is paged), and only its w_dt (768 x 24, below
+   min_dim) runs outside the low-rank kernels.
 
-The line before the card line lists every kernel with its time, launches
-on the llama engine's main run (beside them, on the static path, on the
-flat engine's run and on the MoE engine's runs), bound and library time,
-and the attention kernels' times at head_dim 128.
+The line before the card line lists every kernel with its time, its
+launches on the main run of the newest path that runs it (``launches_run``;
+every run's count beside it), bound and library time, and the attention
+kernels' times at head_dim 128 and at G = 1.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -97,10 +124,15 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "sketch_matmul": "src/repro/kernels/sketch_matmul.py:57",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:153",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
 }
 
 # the MoE main path (phases 9-12): phi3.5-moe at full width, depth cut 32 -> 4
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 4
+
+# the SSM main paths (phases 13-17): zamba2-1.2b at full width and depth, mamba2-130m
+SSM_ARCHS = ("zamba2-1.2b", "mamba2-130m")
+SSD_CHUNK = 64  # the ssd_scan kernel's own chunk (csrc/ssd_scan.cu)
 
 # the serving engine's main path (phases 7 and 11)
 ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
@@ -295,6 +327,7 @@ def phase_kernels() -> dict:
 
     phase_paged_kernel(rnd, gen, attn_tol, records)
     phi = phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records)
+    g1 = phase_ssm_kernels(rnd, gen, records)
 
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded
     E, xT = rnd((128256, 2048), torch.bfloat16), rnd((2048, BATCH), torch.bfloat16)
@@ -308,7 +341,7 @@ def phase_kernels() -> dict:
           bytes_moved=nbytes(E, xT) + 128256 * BATCH * 4, ops=2 * 128256 * 2048 * BATCH, records={})
     del E, xT
     torch.cuda.empty_cache()
-    return records, phi
+    return records, phi, g1
 
 
 def phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records):
@@ -622,6 +655,129 @@ def routing_gate(tag: str, what: str, pairs, rel: float) -> None:
         fail(f"{tag}: {what} routing is not within rounding of the replayed run's")
 
 
+def phase_blocks_reference(model, params, batch, tag: str, rel: float = 5e-2) -> float:
+    """Branch by branch, teacher-forced: every residual branch of the prefill
+    (each Mamba2 layer's mixer; a hybrid shared block's attention and its
+    MLP) run under "auto" and under "reference" on the SAME input, built
+    from the reference run's branches before it.  Each branch's output must
+    agree within ``rel`` of its largest value: one branch's chain of bf16
+    kernels, each within 1e-2 of its plain version in phase 2, and nothing
+    carried over from the layers before.  (The branches are compared before
+    the residual add: a one-ulp difference of a branch can flip the bf16
+    rounding of the much larger residual sum by one ulp of the sum.)
+    Returns the worst error / tolerance ratio."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import modules as nn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = nn.embed_lookup(params["embed"], tokens)
+    worst, where, n = 0.0, None, 0
+
+    def branch(label, fn):
+        nonlocal worst, where, n
+        outs = {}
+        for backend in ("auto", "reference"):
+            with use_dispatch(backend=backend):
+                outs[backend] = fn()
+        err = float((outs["auto"].float() - outs["reference"].float()).abs().max())
+        tol = rel * float(outs["reference"].float().abs().max())
+        if not (err <= tol and bool(torch.isfinite(outs["auto"]).all())):
+            fail(f"{tag}: branch {label}: auto vs reference {err:.4e} > {tol:.4e}")
+        if err / tol >= worst:
+            worst, where = err / tol, f"{label}: err {err:.4e}, tol {tol:.4e}"
+        n += 1
+        return outs["reference"]
+
+    for kind, i in lm_mod._schedule(cfg):
+        if kind == "shared":
+            p = params["shared_attn"]
+            h = nn.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+            x = x + branch(f"shared block {i} attention", lambda: attn.gqa_forward(p["attn"], h, cfg,
+                                                                                     positions=positions))
+            h = nn.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+            x = x + branch(f"shared block {i} mlp", lambda: moe_mod.ffn_forward(p["mlp"], h))
+        else:
+            lp = lm_mod._layer(params["layers"], i)
+            h = nn.rmsnorm(lp["ssm_in_norm"], x, cfg.norm_eps)
+            x = x + branch(f"layer {i} mamba", lambda: ssm_mod.mamba2_forward(lp["mamba"], h, cfg))
+    say(f"[{tag}] every prefill branch teacher-forced (auto vs reference on the same input, {B}x{S} tokens): "
+        f"within {rel} x max |branch output| in all {n} branches; worst {where} (ratio {worst:.3f})")
+    return worst
+
+
+def phase_ssm_reference(model, params, batch, tag: str) -> dict:
+    """Auto vs reference end to end for the recurrent families: the prefill
+    logits and the first decode step's (both runs fed auto's first token).
+
+    In fp32 the kernels differ from their plain versions by summation order
+    only (each within 1e-4 in phase 2): held to 1e-2 of max |logit|, room
+    for the recurrent layers' amplification of that.  In bf16 a one-ulp
+    difference anywhere is amplified through 38 (24) recurrent layers as
+    much as the model's own bf16 rounding is: the reference itself, with
+    only its scan's summation order changed (the plain scan at the kernel's
+    64-step chunk against its own chunk rule), moves by ``spread``.  So bf16
+    is held to 2 x spread + 0.05 of max |logit|, which a wrong kernel (O(1)
+    off) cannot meet; the branch-by-branch check (phase_blocks_reference)
+    holds each kernel to its bf16 tolerance in place."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    def run(m, p, backend, tok=None):
+        with use_dispatch(backend=backend):
+            logits, cache = m.prefill(p, batch, PROMPT + GEN)
+            tok = torch.argmax(logits, dim=-1)[:, None] if tok is None else tok
+            step, _ = m.decode_step(p, cache, tok, PROMPT)
+        return logits.float(), tok, step.float()
+
+    def err(a, b, i):
+        return float((a[i] - b[i]).abs().max()) / float(b[i].abs().max())
+
+    def to32(t):
+        return {k: to32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+
+    out = {}
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    p32 = to32(params)
+    auto = run(m32, p32, "auto")
+    ref = run(m32, p32, "reference", auto[1])
+    for i, what, key in ((0, "prefill", "prefill"), (2, "first decode step", "decode")):
+        e = err(auto, ref, i)
+        out[f"fp32_{key}"] = e
+        say(f"[{tag}] fp32 {what} logits: auto vs reference max abs err {e:.4e} x max |reference| (tol 1e-2)")
+        if not (e <= 1e-2 and bool(torch.isfinite(auto[i]).all())):
+            fail(f"{tag}: fp32 {what} logits, auto vs reference {e:.4e} > 1e-2 x max |reference|")
+    del m32, p32, auto, ref
+    torch.cuda.empty_cache()
+
+    auto = run(model, params, "auto")
+    ref = run(model, params, "reference", auto[1])
+    moved = run(build_model(dataclasses.replace(model.cfg, ssm_chunk=SSD_CHUNK)), params, "reference", auto[1])
+    for i, what, key in ((0, "prefill", "prefill"), (2, "first decode step", "decode")):
+        e, spread = err(auto, ref, i), err(moved, ref, i)
+        tol = 2 * spread + 0.05
+        out[f"bf16_{key}"], out[f"bf16_{key}_spread"] = e, spread
+        say(f"[{tag}] bf16 {what} logits: auto vs reference max abs err {e:.4e} x max |reference|; the "
+            f"reference at scan chunk {SSD_CHUNK} vs its own rule {spread:.4e}; tol 2 x that + 0.05 = {tol:.4e}")
+        if not (e <= tol and bool(torch.isfinite(auto[i]).all())):
+            fail(f"{tag}: bf16 {what} logits, auto vs reference {e:.4e} > {tol:.4e}")
+    same = int((auto[1] == run(model, params, "reference")[1]).sum())
+    say(f"[{tag}] first generated tokens, auto vs reference: {same}/{auto[1].shape[0]} equal")
+    return out
+
+
 def phase_reference(model, params, batch, tag: str = "reference"):
     """The model under backend "auto" (kernels) against "reference" (plain
     versions): prefill logits and the first decode step's.  A moe layer's
@@ -698,7 +854,7 @@ def device_rows(prof, per: int = 1) -> list:
 
 # the hand-written kernels' symbols, as the profiler names them
 OWN_KERNELS = re.compile(r"\b(gemm_bf16_kernel|gemm_f32_kernel|gemm_skinny_partial_kernel|gemm_skinny_reduce_kernel|"
-                         r"flash_attention_kernel|decode::partial_kernel|decode::combine_kernel)\b")
+                         r"flash_attention_kernel|decode::partial_kernel|decode::combine_kernel|ssd_scan_kernel)\b")
 
 
 def phase_profile(model, params, batch, steps: int = 4):
@@ -787,12 +943,12 @@ def serve(model, params, label, *, libs, tag: str = "engine", **kw):
 
 def engine_libs() -> dict:
     from repro_torch.kernels import decode_attention, flash_attention, lowrank_matmul, lowrank_matmul_batched
-    from repro_torch.kernels import paged_decode_attention, sketch_matmul
+    from repro_torch.kernels import paged_decode_attention, sketch_matmul, ssd_scan
 
     return {"lowrank_matmul": lowrank_matmul.KERNEL, "sketch_matmul": sketch_matmul.KERNEL,
             "decode_attention": decode_attention.KERNEL, "flash_attention": flash_attention.KERNEL,
             "paged_decode_attention": paged_decode_attention.KERNEL,
-            "lowrank_matmul_batched": lowrank_matmul_batched.KERNEL}
+            "lowrank_matmul_batched": lowrank_matmul_batched.KERNEL, "ssd_scan": ssd_scan.KERNEL}
 
 
 def count_drops(model, seen) -> int:
@@ -808,7 +964,15 @@ def count_drops(model, seen) -> int:
 
 
 def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul", "sketch_matmul",
-                                                                    "flash_attention", "paged_decode_attention")):
+                                                                    "flash_attention", "paged_decode_attention"),
+                 dense_ok=frozenset()):
+    """The engine's gates on ``model``.  ``dense_ok``: the (K, N) of linears
+    the compression policy left dense (below min_dim), the only products
+    allowed outside the low-rank kernels.  For the ssm and hybrid families
+    also: every prefill micro-batch holds one prompt length, unpadded; the
+    SSD kernel launched once per layer per prefill call; mamba2 (no paged
+    leaf) reserved zero pages.  Their prefill is monolithic (the chunk is
+    inert), so the chunked-vs-monolithic check is the attention families'."""
     import dataclasses
 
     import torch
@@ -825,13 +989,30 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     missing = [n for n in on_path if launches[n] <= 0]
     if missing:
         fail(f"kernels never launched on the {tag} main path: {missing}")
-    # every low-rank apply of the main run went through a kernel: no plain version, no dense product
-    plain = {k: n for k, n in dispatch.counters_by_path().items()
-             if k[0] == "dense" or (k[0] == "lowrank_matmul" and k[1] not in ("fused", "fused_batched"))}
+    # every low-rank apply of the main run went through a kernel: no plain version, and no dense
+    # product but those of linears the policy left dense
+    plain = {k: n for k, n in dispatch.counters().items()
+             if (k[0] == "dense" and tuple(k[2]) not in dense_ok)
+             or (k[0] == "lowrank_matmul" and k[1] not in ("fused", "fused_batched"))}
     if plain:
         fail(f"the {tag} main path ran linears outside the kernels: {plain}")
     if eng.graph_replays <= 0:
         fail(f"the {tag} main path never replayed its decode graph")
+    recurrent = model.cfg.family in ("ssm", "hybrid")
+    if recurrent:
+        mixed = [b for b in eng.prefill_batches if b[1] != b[2][0] or len(set(b[2])) != 1]
+        say(f"[{tag}] prefill micro-batches (rows, length, prompt lengths): {eng.prefill_batches}")
+        if mixed:
+            fail(f"{tag}: prefill micro-batches mix or pad prompt lengths: {mixed}")
+        want = model.cfg.n_layers * len(eng.prefill_batches)
+        say(f"[{tag}] ssd_scan launches {launches['ssd_scan']} = {model.cfg.n_layers} layers x "
+            f"{len(eng.prefill_batches)} prefill calls: {launches['ssd_scan'] == want}")
+        if launches["ssd_scan"] != want:
+            fail(f"{tag}: ssd_scan launched {launches['ssd_scan']} times, not once per layer per prefill ({want})")
+        if model.cfg.family == "ssm":
+            say(f"[{tag}] pages reserved at peak: {eng.peak_pages_in_use} (no cache leaf is paged)")
+            if eng.peak_pages_in_use != 0:
+                fail(f"{tag}: {eng.peak_pages_in_use} pages reserved, where no cache leaf is paged")
     eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, tag=tag, cuda_graph=False)
     if eager_tok != main_tok:
         fail(f"{tag}: CUDA-graph tokens differ from the eager run's")
@@ -850,8 +1031,11 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     if paged_tok != flat_tok:
         fail(f"{tag}: paged-engine tokens differ from the flat engine's")
     say(f"[{tag}] paged tokens == flat tokens: True")
-    if flat_launches["decode_attention"] <= 0:
+    if model.cfg.family != "ssm" and flat_launches["decode_attention"] <= 0:
         fail(f"the {tag} flat run never launched decode_attention")
+    if model.prefill_chunk is None:
+        return {"tok_s": tps, "launches": launches, "launches_flat_engine": flat_launches,
+                "prefill_batches": len(eng.prefill_batches)}
 
     # A chunked long prompt's first-token logits against the monolithic
     # prefill's.  Capacity changes results where it binds, and a monolithic
@@ -1083,6 +1267,250 @@ def phase_moe_main():
     return model, params, batch, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 2 (SSM): the SSD scan kernel, and attention at G = 1
+# --------------------------------------------------------------------------- #
+def ssd_ops(B: int, L: int, nh: int, hd: int, s: int, Q: int = SSD_CHUNK) -> int:
+    """Operations of the chunked SSD at chunk Q on these shapes, counting each
+    product once: C B^T once per (sequence, chunk), shared by the heads; the
+    masked intra-chunk product over its t >= u half; the carried state's
+    contribution to y; the state update."""
+    n_chunks = -(-L // Q)
+    per_chunk = 2 * Q * Q * s + nh * (Q * (Q + 1) * hd + 2 * Q * s * hd + 2 * Q * s * hd)
+    return B * n_chunks * per_chunk
+
+
+def phase_ssm_kernels(rnd, gen, records) -> dict:
+    """``ssd_scan`` against its plain version (the reference's chunk rule) at
+    zamba2-1.2b's shapes (nh 64, hd 64, s 64) at (B, L) = (1, 512) and
+    (4, 256), and mamba2-130m's (nh 24, hd 64, s 128) at 512, a prime 509
+    (where the plain version's chunk falls to 1) and 40 (shorter than one
+    kernel chunk); under both x̄ contracts, in bf16 and fp32; y and the final
+    state.  Then the three attention kernels at zamba2's shared block, G = 1
+    (32/32 heads, head_dim 64).  Returns {kernel: bf16 record} at G = 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    dev = torch.device("cuda")
+    # (B, L, nh, hd, s, round_xbar): the model's contract (x̄ rounded) first, the main path's shape
+    cases = [(1, 512, 64, 64, 64, True), (1, 512, 64, 64, 64, False), (4, 256, 64, 64, 64, True),
+             (1, 512, 24, 64, 128, True), (1, 509, 24, 64, 128, True), (2, 40, 24, 64, 128, False)]
+    state_tol = (1e-4, "the fp32 state: the kernel's 64-step chunks against the reference's chunk rule "
+                 "change the summation order only; x̄ is the same one multiply on both sides")
+    ssd_tol = {torch.bfloat16: (1e-2, "bf16 y may land one ulp (2^-8) apart where fp32 sums in another order "
+                                "(chunk boundaries, the within-chunk cumulative sum) straddle a rounding boundary"),
+               torch.float32: (1e-4, "fp32 sums in another order: chunk boundaries and the within-chunk "
+                               "cumulative sum")}
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = ssd_tol[dtype]
+        for Bq, L, nh, hd, s, rnd_x in cases:
+            x = rnd((Bq, L, nh, hd), dtype, scale=1.0)
+            dt = F.softplus(torch.randn((Bq, L, nh), generator=gen, device=dev))
+            Bm, Cm = rnd((Bq, L, s), dtype, scale=s**0.5), rnd((Bq, L, s), dtype, scale=s**0.5)
+            A = -torch.linspace(1.0, 16.0, nh, device=dev)  # -exp(A_log) of the model's init
+            y, st = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x)
+            want_y, want_s = ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x)
+            contract = "x̄ rounded" if rnd_x else "x̄ fp32"
+            check("ssd_scan", [Bq, L, nh, hd, s, contract], dtype, y, want_y, rel, why,
+                  kernel_fn=lambda: ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
+                  plain_fn=lambda: ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
+                  library_fn=None,  # no single PyTorch call computes the SSD scan
+                  bytes_moved=nbytes(x, dt, Bm, Cm, A, y, st), ops=ssd_ops(Bq, L, nh, hd, s), records=records)
+            err, tol = float((st - want_s).abs().max()), state_tol[0] * float(want_s.abs().max())
+            say(json.dumps({"name": "ssd_scan final state", "shape": [Bq, L, nh, hd, s, contract],
+                            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol,
+                            "tol_reason": state_tol[1], "ok": err <= tol}))
+            if not (err <= tol and bool(torch.isfinite(st).all())):
+                fail(f"ssd_scan final state {[Bq, L, nh, hd, s, contract]} {dtype}: {err:.3e} > {tol:.3e}")
+            del x, dt, Bm, Cm, y, st, want_y, want_s
+    torch.cuda.empty_cache()
+
+    attn_tol = {torch.bfloat16: (2e-2, "bf16: p is rounded before PV and the output is rounded"),
+                torch.float32: (1e-4, "fp32 online softmax vs one-pass softmax, another summation order")}
+    g1: dict = {}
+    H = KV = 32
+    hd, Bq, S, page = 64, ENGINE["n_slots"], ENGINE["max_len"], ENGINE["page_size"]
+    n_tbl = -(-S // page)
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        q, k, v = (rnd((BATCH, PROMPT, H, hd), dtype) for _ in range(3))
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        check("flash_attention", [BATCH, PROMPT, H, KV, hd, None], dtype, flash_attention(q, k, v, causal=True),
+              ref.chunked_attention_ref(q, k, v, causal=True), rel, why,
+              kernel_fn=lambda: flash_attention(q, k, v, causal=True),
+              plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+              bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
+              ops=4 * BATCH * H * (PROMPT * (PROMPT + 1) // 2) * hd, records=g1)
+        q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((Bq, S, KV, hd), dtype), rnd((Bq, S, KV, hd), dtype)
+        n_valid = torch.tensor([S, 1, 0, 65, 191, 100, S // 2, 7], device=dev)
+        valid = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
+        mask, n_rows = valid[:, None, None, :], int(valid.sum())
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        check("decode_attention", [Bq, S, H, KV, hd, "ragged mask"], dtype, decode_attention(q, k, v, valid),
+              ref.decode_attention_ref(q, k, v, valid), rel, why,
+              kernel_fn=lambda: decode_attention(q, k, v, valid),
+              plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
+              ops=4 * H * hd * n_rows, records=g1)
+        P = Bq * n_tbl + 1
+        kp, vp = rnd((P, page, KV, hd), dtype), rnd((P, page, KV, hd), dtype)
+        kp[-1], vp[-1] = 1e4, -1e4
+        bt = torch.randperm(P - 1, generator=gen, device=dev)[: Bq * n_tbl].reshape(Bq, n_tbl).to(torch.int32)
+        nv = n_valid.to(torch.int32)
+        got = paged_decode_attention(q, kp, vp, bt, nv)
+        if not bool(torch.equal(got, decode_attention(q, ref.gather_pages(kp, bt), ref.gather_pages(vp, bt), valid))):
+            fail(f"paged_decode_attention at page 64, G = 1 ({dtype}) differs from the flat kernel")
+        say(f"[ssm kernels] paged == flat kernel bit for bit at page 64, 32/32 heads, head_dim 64, {dtype}: True")
+        ks, vs = ref.gather_pages(kp, bt).transpose(1, 2), ref.gather_pages(vp, bt).transpose(1, 2)
+        check("paged_decode_attention", [Bq, page, n_tbl, H, KV, hd, "ragged n_valid"], dtype, got,
+              ref.paged_decode_attention_ref(q, kp, vp, bt, nv), rel, why,
+              kernel_fn=lambda: paged_decode_attention(q, kp, vp, bt, nv),
+              plain_fn=lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, nv),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+              bytes_moved=nbytes(q, bt, nv) + n_rows * KV * 2 * hd * kp.element_size() + Bq * H * hd * q.element_size(),
+              ops=4 * H * hd * n_rows, records=g1)
+        del q, k, v, kp, vp, got
+    torch.cuda.empty_cache()
+    return g1
+
+
+# --------------------------------------------------------------------------- #
+# phases 13-17: the SSM main paths
+# --------------------------------------------------------------------------- #
+# the compression decisions the reference's policy makes at min_dim 32 (its
+# exclude skips conv, dt_*, A_log, D_param and the norms; w_dt is compressed
+# where its narrow side reaches min_dim: the ``dt_`` pattern matches a path
+# segment that STARTS with dt_); mamba2's w_dt (768 x 24) is under min_dim
+SSM_DECISIONS = {
+    "zamba2-1.2b": {"layers/mamba/w_z": True, "layers/mamba/w_x": True, "layers/mamba/w_B": True,
+                    "layers/mamba/w_C": True, "layers/mamba/w_dt": True, "layers/mamba/out_proj": True,
+                    "layers/mamba/conv_x": False, "layers/mamba/A_log": False, "layers/mamba/dt_bias": False,
+                    "layers/mamba/D_param": False, "layers/mamba/ssm_norm/scale": False,
+                    "layers/ssm_in_norm/scale": False, "shared_attn/attn/wq": True,
+                    "shared_attn/mlp/w_gate": True, "lm_head": True, "embed": False},
+    "mamba2-130m": {"layers/mamba/w_z": True, "layers/mamba/w_x": True, "layers/mamba/w_B": True,
+                    "layers/mamba/w_C": True, "layers/mamba/w_dt": False, "layers/mamba/out_proj": True,
+                    "layers/mamba/conv_x": False, "embed": False},
+}
+
+
+def phase_ssm_main(arch: str):
+    """An SSM arch at full width and depth: random weights (seed 0),
+    spectralized (seed 9), RSI-compressed at alpha 0.3, q = 4, min_dim 32.
+    Gate: on layer 0's w_x, q = 4's normalized error <= q = 1's (the q = 1
+    run factorizes that one matrix); the compression decisions are the
+    reference's.  Returns (model, params, batch, summary, dense_ok)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
+    from repro_torch.core.rsi import rsi_factors
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import analytic_param_count, build_model
+
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    dev, tag = model.device, arch.split("-")[0]
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = spectralize_params(model.init(gen(0)), gen(9))
+    torch.cuda.synchronize()
+    shared = (f", one shared attention+MLP block ({cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+              f"d_ff {cfg.d_ff}) after every {cfg.attn_every} layers") if cfg.family == "hybrid" else ""
+    say(f"[{tag}] {arch} full width and depth: {cfg.n_layers} Mamba2 layers, d {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.n_ssm_heads} SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}{shared}; vocab "
+        f"{cfg.vocab} (padded {cfg.vocab_padded}), {'tied' if cfg.tie_embeddings else 'untied'} head, {cfg.dtype}; "
+        f"{analytic_param_count(cfg) / 1e9:.3f}B params; init + spectralize {time.perf_counter() - t0:.1f}s")
+    W = dense["layers"]["mamba"]["w_x"][0].clone()
+    t = time.perf_counter()
+    params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t
+    del dense
+    torch.cuda.empty_cache()
+    ranks = sorted({l.rank for l in rep.layers if l.compressed})
+    by_path = {l.path: l.compressed for l in rep.layers}
+    wrong = {p: by_path.get(p) for p, c in SSM_DECISIONS[arch].items() if by_path.get(p) != c}
+    if wrong:
+        fail(f"{arch} compression decisions differ from the reference's: {wrong}")
+    dense_ok = frozenset(l.shape[-2:] for l in rep.layers if not l.compressed and l.reason.startswith("min-dim"))
+    say(f"[{tag}] compress q=4: {rep.summary()} ranks {ranks} in {comp_s:.1f}s; left dense below min_dim: "
+        f"{sorted(dense_ok)}")
+    ax = params["layers"]["mamba"]["w_x"]
+    k = ax["a"].shape[-1]
+    sv = torch.linalg.svdvals(W.float())
+    errs = {4: float(normalized_error_factored(W, ax["a"][0], ax["b"][0], sv[k], gen(2), iters=64))}
+    A1, B1 = rsi_factors(W, k, 1, generator=gen(3))
+    errs[1] = float(normalized_error_factored(W, A1, B1, sv[k], gen(2), iters=64))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] layer 0 w_x ({W.shape[0]}x{W.shape[1]}, k={k}) normalized error ||W-AB||_2/s_(k+1): "
+        f"q=4 {errs[4]:.4f}, q=1 {errs[1]:.4f}")
+    say(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB (max_memory_allocated, init to compressed model) on "
+        f"{card_line()}")
+    if not errs[4] <= errs[1]:
+        fail(f"{arch}: q=4 normalized error {errs[4]:.4f} > q=1's {errs[1]:.4f}")
+    toks = SyntheticLM(cfg, batch=BATCH, seq=PROMPT, kind="serve", seed=0).at_step(0)["tokens"]
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    summary = {"ratio": rep.ratio, "ranks": ranks, "compress_s": comp_s, "normalized_error": errs,
+               "peak_gib": peak / 2**30}
+    return model, params, batch, summary, dense_ok
+
+
+def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str = "zamba2 prefill"):
+    """Host and device time of one monolithic (1, L) prefill, as the engine
+    makes it for one prompt, and the SSD kernel's share of the device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_scan
+
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, model.cfg.vocab, size=(1, L)), device=model.device)
+    last = torch.tensor([L - 1], device=model.device)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            model.prefill(params, {"tokens": toks}, ENGINE["max_len"], last_index=last)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n
+
+    run(1)  # warm-up
+    wall = run(calls)  # profiler off
+    before = ssd_scan.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(1)
+    if ssd_scan.KERNEL.launches - before != model.cfg.n_layers:
+        fail(f"{tag}: one prefill launched ssd_scan {ssd_scan.KERNEL.launches - before} times, "
+             f"not once per layer ({model.cfg.n_layers})")
+    rows = device_rows(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    ssd_ms = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2]) / 1e3
+    own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
+    say(f"[{tag}] one monolithic (1, {L}) prefill: host {wall * 1e3:.3f} ms (profiler off, mean of {calls}); "
+        f"device busy {device_ms:.3f} ms (profiler): ssd_scan {ssd_ms:.3f} ms ({ssd_ms / device_ms:.3f}, "
+        f"{model.cfg.n_layers} launches), all hand-written kernels {own_ms:.3f} ms; idle share "
+        f"{max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
+    for us, n, key in rows[:10]:
+        say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+    return {"prefill_host_ms": wall * 1e3, "prefill_device_ms": device_ms, "prefill_ssd_ms": ssd_ms,
+            "prefill_ssd_share": ssd_ms / device_ms}
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1113,12 +1541,14 @@ def main() -> int:
     time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     t = time.perf_counter()
-    records, phi = phase_kernels()
+    records, phi, g1 = phase_kernels()
     say(f"[kernels] all checks within tolerance in {time.perf_counter() - t:.1f}s")
-    model, params_q4, batch, launches = phase_main()
+    runs = {}  # launches per kernel on each main run, counts reset just before it
+    model, params_q4, batch, runs["llama3.2-1b static"] = phase_main()
     phase_reference(model, params_q4, batch)
     phase_profile(model, params_q4, batch)
     engine = phase_engine(model, params_q4)
+    runs["llama3.2-1b engine"], runs["llama3.2-1b flat engine"] = engine["launches"], engine["launches_flat_engine"]
     block = phase_block_profile(model, params_q4)
     chunk = phase_chunk_profile(model, params_q4)
     say("[engine] " + json.dumps({"tok_s": engine["tok_s"], **block, **chunk}))
@@ -1132,26 +1562,52 @@ def main() -> int:
     moe_engine = phase_engine(moe_model, moe_params, tag="moe engine",
                               on_path=("lowrank_matmul_batched", "lowrank_matmul", "flash_attention",
                                        "paged_decode_attention"))
+    runs["phi3.5-moe engine"], runs["phi3.5-moe flat engine"] = moe_engine["launches"], moe_engine["launches_flat_engine"]
     moe_block = phase_block_profile(moe_model, moe_params, tag="moe block")
     say("[moe engine] " + json.dumps({"tok_s": moe_engine["tok_s"], **moe_block, **moe,
                                       "moe_phases_s": time.perf_counter() - t}))
+    del moe_model, moe_params, moe_batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    # the SSM slice: zamba2-1.2b (the main path: every prefill through ssd_scan, the shared
+    # block through the attention kernels at G = 1), then mamba2-130m
+    for arch in SSM_ARCHS:
+        t = time.perf_counter()
+        tag = arch.split("-")[0]
+        model, params, batch, summary, dense_ok = phase_ssm_main(arch)
+        summary["branch_err_ratio"] = phase_blocks_reference(model, params, batch, tag=f"{tag} reference")
+        summary["reference"] = phase_ssm_reference(model, params, batch, tag=f"{tag} reference")
+        on_path = ("ssd_scan", "lowrank_matmul") + (("flash_attention", "paged_decode_attention")
+                                                    if model.cfg.family == "hybrid" else ("sketch_matmul",))
+        eng = phase_engine(model, params, tag=f"{tag} engine", on_path=on_path, dense_ok=dense_ok)
+        runs[f"{arch} engine"], runs[f"{arch} flat engine"] = eng["launches"], eng["launches_flat_engine"]
+        prof = {}
+        if model.cfg.family == "hybrid":
+            prof = {**phase_block_profile(model, params, tag=f"{tag} block"),
+                    **phase_prefill_profile(model, params, tag=f"{tag} prefill")}
+        say(f"[{tag} engine] " + json.dumps({"tok_s": eng["tok_s"], "prefill_batches": eng["prefill_batches"],
+                                             **prof, **summary, "phases_s": time.perf_counter() - t}))
+        del model, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # `launches`: the kernel's count on the main run of the newest path that runs it
+    newest_first = ["zamba2-1.2b engine", "mamba2-130m engine", "zamba2-1.2b flat engine", "phi3.5-moe engine",
+                    "llama3.2-1b engine", "llama3.2-1b flat engine"]
     line = []
     for name in KERNELS:
         r = records[name]
-        # launches: the llama engine's main run; the static path's, the flat engine's
-        # and the MoE engine's main run beside it
+        run = next((k for k in newest_first if runs[k].get(name, 0) > 0), "llama3.2-1b static")
         entry = {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                 "replaces": REPLACES[name], "launches": engine["launches"][name],
-                 "launches_static_path": launches.get(name, 0),
-                 "launches_flat_engine": engine["launches_flat_engine"][name],
-                 "launches_moe_engine": moe_engine["launches"][name],
-                 "launches_moe_flat_engine": moe_engine["launches_flat_engine"][name],
+                 "replaces": REPLACES[name], "launches": runs[run].get(name, 0), "launches_run": run,
+                 "launches_by_run": {k: v.get(name, 0) for k, v in runs.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"], "dtype": r["dtype"]}
-        if name in phi:  # the attention kernels at phi3.5-moe's head_dim 128
-            entry["hd128"] = {k: phi[name][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                                         "bound_ms", "bound_by")}
+        for key, sub in (("hd128", phi), ("g1", g1)):  # the attention kernels at phi's head_dim 128, zamba2's G = 1
+            if name in sub:
+                entry[key] = {k: sub[name][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "bound_by")}
         line.append(entry)
     say(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": line}))

@@ -62,8 +62,8 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv_width: int = 4
-    ssm_chunk: int = 256
-    attn_every: int = 0
+    ssm_chunk: int = 256  # SSD chunk length
+    attn_every: int = 0  # zamba2: shared attention block every N mamba blocks
 
     # --- enc-dec (whisper) ---
     n_encoder_layers: int = 0
@@ -82,6 +82,14 @@ class ArchConfig:
     def __post_init__(self):
         if self.kernels not in ("auto", "reference"):
             raise ValueError(f"kernels={self.kernels!r} not in auto|reference")
+
+    @property
+    def d_inner(self) -> int:  # ssm inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def vocab_padded(self) -> int:

@@ -13,6 +13,8 @@ from repro_torch.configs.base import ArchConfig
 _ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 # every arch the reference registry resolves (repro/configs/registry.py)

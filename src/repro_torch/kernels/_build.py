@@ -48,7 +48,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attention", "paged_decode_attention",
-           "lowrank_matmul_batched")
+           "lowrank_matmul_batched", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

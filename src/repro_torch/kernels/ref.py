@@ -7,7 +7,8 @@ code it stands in for, with the same contracts:
   so a bf16 input never meets a bf16-accumulating GEMM);
 * the ``(x @ A)`` intermediate of a low-rank apply is rounded to the input
   dtype before ``@ B``;
-* fully-masked decode rows give zeros, never NaN.
+* fully-masked decode rows give zeros, never NaN;
+* the SSD scan keeps its state and all its arithmetic in fp32.
 
 The CPU tests and the wrappers' CPU path run these; ``chip_smoke.py`` holds
 each CUDA kernel against them on the card.
@@ -28,6 +29,11 @@ __all__ = [
     "paged_decode_attention_ref",
     "flash_attention_ref",
     "chunked_attention_ref",
+    "ssd_xbar",
+    "ssd_scan_ref",
+    "ssd_chunk_len",
+    "ssd_chunk_scan_ref",
+    "ssd_scan_plain",
 ]
 
 NEG_INF = -1e30
@@ -155,3 +161,89 @@ def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int]
     acc = torch.einsum("bkgqc,bckv->bkgqv", p.to(v.dtype).float(), v.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 SSD scan
+# --------------------------------------------------------------------------- #
+def ssd_xbar(x, dt, round_xbar: bool):
+    """The scan's input x̄ = x * dt, in fp32.  Two contracts: the TPU kernel
+    (``repro/kernels/ssd_scan.py:47``) keeps x̄ in fp32; the model
+    (``repro/models/ssm.py:148``) rounds it to x's dtype first
+    (``round_xbar``).  They agree in fp32 and differ in bf16."""
+    xb = x.float() * dt.float()[..., None]
+    return xb.to(x.dtype) if round_xbar else xb
+
+
+def ssd_scan_ref(xbar, dt, B_in, C_in, A):
+    """Sequential (non-chunked) SSD recurrence oracle
+    (``repro/kernels/ref.py::ssd_scan_ref``).
+
+    xbar: (B, L, nh, hd) dt-scaled inputs; dt: (B, L, nh); B_in/C_in:
+    (B, L, s); A: (nh,) negative.  Returns (y (B, L, nh, hd) in xbar's
+    dtype, final_state (B, nh, hd, s) fp32)."""
+    Bsz, L, nh, hd = xbar.shape
+    s = B_in.shape[-1]
+    A32 = A.float()
+    state = torch.zeros((Bsz, nh, hd, s), dtype=torch.float32, device=xbar.device)
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dt[:, t].float() * A32[None, :])  # (B, nh)
+        state = state * decay[:, :, None, None] + torch.einsum(
+            "bs,bhd->bhds", B_in[:, t].float(), xbar[:, t].float())
+        ys.append(torch.einsum("bs,bhds->bhd", C_in[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(xbar.dtype), state
+
+
+def ssd_chunk_len(L: int, chunk: int) -> int:
+    """The reference's chunk rule (``_ssd_chunk_scan``, ``ssd_scan_pallas``):
+    Q = min(chunk, L), halved until it divides L (a prime L gives Q = 1)."""
+    Q = min(chunk, L)
+    while L % Q:
+        Q //= 2
+    return Q
+
+
+def ssd_chunk_scan_ref(xbar, dt, B_in, C_in, A, chunk: int, *, state0=None, out_dtype=None):
+    """Chunked SSD, the computation of ``repro/models/ssm.py::_ssd_chunk_scan``.
+
+    xbar: (B, L, nh, hd) *already dt-scaled*; dt: (B, L, nh) fp32; B_in/C_in:
+    (B, L, s); A: (nh,) negative.  Within a chunk of Q steps (``ssd_chunk_len``)
+    the recurrence is a masked quadratic product; across chunks an fp32
+    (B, nh, hd, s) state carries it.  The t < u half of the segment sums is
+    positive and is masked BEFORE the exp, so it never overflows.  Returns
+    (y (B, L, nh, hd) in ``out_dtype`` (default xbar's), final_state fp32)."""
+    Bsz, L, nh, hd = xbar.shape
+    s = B_in.shape[-1]
+    Q = ssd_chunk_len(L, chunk)
+    Nc = L // Q
+    xc = xbar.reshape(Bsz, Nc, Q, nh, hd).float()
+    Bc = B_in.reshape(Bsz, Nc, Q, s).float()
+    Cc = C_in.reshape(Bsz, Nc, Q, s).float()
+    lcum = torch.cumsum(dt.reshape(Bsz, Nc, Q, nh).float() * A.float(), dim=2)  # within-chunk log-decay
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xbar.device))[None, :, :, None]
+    state = (torch.zeros((Bsz, nh, hd, s), dtype=torch.float32, device=xbar.device)
+             if state0 is None else state0.float())
+    ys = []
+    for c in range(Nc):
+        xq, bq, cq, lq = xc[:, c], Bc[:, c], Cc[:, c], lcum[:, c]
+        cb = torch.einsum("bts,bus->btu", cq, bq)  # (B, Q, Q)
+        seg = lq[:, :, None, :] - lq[:, None, :, :]  # (B, Q, Q, nh): l_t - l_u
+        m = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
+        y_intra = torch.einsum("btuh,buhd->bthd", cb[..., None] * m, xq)
+        y_inter = torch.einsum("bts,bhds->bthd", cq, state) * torch.exp(lq)[..., None]
+        l_last = lq[:, -1]  # (B, nh)
+        w_in = torch.exp(l_last[:, None, :] - lq)  # (B, Q, nh): decay from step u to the chunk's end
+        state = state * torch.exp(l_last)[:, :, None, None] + torch.einsum(
+            "bus,buhd->bhds", bq, w_in[..., None] * xq)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bsz, L, nh, hd)
+    return y.to(out_dtype or xbar.dtype), state
+
+
+def ssd_scan_plain(x, dt, B_in, C_in, A, *, chunk: int, round_xbar: bool):
+    """The plain version of the ``ssd_scan`` kernel: raw x (B, L, nh, hd) and
+    dt (B, L, nh) fp32 after softplus; x̄ formed by :func:`ssd_xbar` under
+    either contract, then the chunked scan with the reference's chunk rule.
+    Returns (y in x's dtype, final_state (B, nh, hd, s) fp32)."""
+    return ssd_chunk_scan_ref(ssd_xbar(x, dt, round_xbar), dt, B_in, C_in, A, chunk, out_dtype=x.dtype)

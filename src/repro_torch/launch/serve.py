@@ -12,9 +12,11 @@ unless ``--device cpu`` is given.  ``--engine continuous`` serves ``--batch``
 requests through ``repro_torch.serving.Engine`` (on the card its decode
 block is a captured CUDA graph) and prints the engine's counters;
 ``--engine static`` runs ``greedy_generate``.  Both print the dispatcher's
-per-site counters at the end, so every linear and attention call shows the
-path it took.  The reference's prefix-sharing, overload, cluster and event
-flags are not ported yet.
+per-site counters at the end, so every linear, attention and SSD scan call
+shows the path it took.  ``--prefill-chunk`` is inert for the ssm and
+hybrid families (``--arch mamba2-130m``, ``zamba2-1.2b``), which prefill
+monolithically, as in the reference.  The reference's prefix-sharing,
+overload, cluster and event flags are not ported yet.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 The port's counterpart of ``repro/models/model.py``.  ``build_model(cfg)``
 returns a :class:`ModelApi` of functions over a params tree (nested dicts
 mirroring the reference's pytree); :class:`LMModule` is the ``nn.Module``
-that owns such a tree's tensors.  The ``dense`` family and the ``moe``
-family with GQA attention are ported; any other family raises.
+that owns such a tree's tensors.  The ``dense`` family, the ``moe`` family
+with GQA attention, and the ``ssm`` (mamba2) and ``hybrid`` (zamba2)
+families are ported; any other family raises.
 """
 
 from __future__ import annotations
@@ -38,13 +39,14 @@ class ModelApi:
     init_cache_paged: Any = None
     # (params, cache, tokens (1, C), bt_row, start, n_real) -> (logits, cache):
     # one page-aligned prefill chunk through the slot's block-table row; None
-    # where prefill carries state across chunks (a sliding window, ssm)
+    # where prefill carries state across the whole prompt (ssm, hybrid: the
+    # engine prefills those monolithically)
     prefill_chunk: Any = None
 
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
-    lm_mod._check_family(cfg)  # dense or GQA moe, no sliding window: raises for what is not yet ported
+    lm_mod._check_family(cfg)  # dense, GQA moe, ssm or hybrid, no sliding window: raises for the rest
     dev = resolve_device(device)
     chunkable = cfg.family in ("dense", "moe") and cfg.sliding_window is None
     return ModelApi(
@@ -108,14 +110,21 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def analytic_param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count N of a dense or GQA moe decoder (the
-    reference's formula)."""
-    if cfg.family not in ("dense", "moe") or cfg.kv_lora_rank or cfg.first_dense_layers or cfg.n_shared_experts:
+    """Analytic parameter count N of a dense, GQA moe, ssm or hybrid decoder
+    (the reference's formula: the linears and the embeddings)."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.kv_lora_rank or cfg.first_dense_layers
+            or cfg.n_shared_experts):
         raise NotImplementedError(f"param count of {cfg.name!r} is not yet ported")
     d, V = cfg.d_model, cfg.vocab_padded
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = d * H * hd + 2 * d * KV * hd + H * hd * d
-    n = (V * d if cfg.tie_embeddings else 2 * V * d) + cfg.n_layers * attn
+    n = V * d if cfg.tie_embeddings else 2 * V * d
+    if cfg.family in ("ssm", "hybrid"):
+        din, s, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        n += cfg.n_layers * (2 * d * din + 2 * d * s + d * nh + din * d)
+        # the hybrid's shared attention + MLP block, counted once
+        return n + (attn + 3 * d * cfg.d_ff if cfg.family == "hybrid" else 0)
+    n += cfg.n_layers * attn
     if cfg.family == "dense":
         return n + cfg.n_layers * 3 * d * cfg.d_ff
     return n + cfg.n_layers * (cfg.n_experts * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)

@@ -3,7 +3,8 @@
 The port's counterpart of ``repro/runtime/dispatch.py``.  Model code calls
 shape-only entry points (``lowrank_apply``, ``dense_apply``,
 ``flash_attention``, ``decode_attention``, ``paged_decode_attention``,
-``sketch_matmul``, ``logits_apply``); the backend is chosen here, in one place:
+``sketch_matmul``, ``logits_apply``, ``ssd_scan``); the backend is chosen
+here, in one place:
 
 * ``backend="auto"`` (the default): on a CUDA tensor the hand-written
   kernel, always — the reference's TPU-only thresholds (``DECODE_MIN_SEQ``
@@ -44,6 +45,7 @@ from repro_torch.kernels.lowrank_matmul import lowrank_matmul as _lowrank_kernel
 from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched as _lowrank_batched_kernel
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.sketch_matmul import sketch_matmul as _sketch_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 __all__ = [
     "BACKENDS",
@@ -62,6 +64,7 @@ __all__ = [
     "decode_attention",
     "choose_paged_decode_path",
     "paged_decode_attention",
+    "ssd_scan",
     "counters",
     "counters_by_path",
     "reset_counters",
@@ -367,3 +370,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
     if path == PATH_KERNEL:
         return _paged_decode_kernel(q, k_pool, v_pool, block_table, n_valid)
     return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_table, n_valid)
+
+
+def ssd_scan(x, dt, B_in, C_in, A, *, chunk: int, round_xbar: bool):
+    """Mamba2 SSD chunked scan of a prefill: x (B, L, nh, hd) raw, dt
+    (B, L, nh) fp32 after softplus, B_in/C_in (B, L, s), A (nh,) fp32.
+    Returns (y in x's dtype, final_state (B, nh, hd, s) fp32).
+
+    Two ways to form x̄ = x * dt.  ``round_xbar`` (what ``mamba2_forward``
+    passes) rounds it to x's dtype before the scan, as the
+    reference model does (``repro/models/ssm.py:148``) and as its XLA
+    dispatch path does (``repro/runtime/dispatch.py:384``).  Without it x̄
+    stays fp32, the TPU kernel's contract (``repro/kernels/ssd_scan.py:47``).
+    They agree in fp32 and differ in bf16.  On ``cuda`` under ``auto`` the
+    kernel (its own fixed chunk, tail padded); otherwise the plain chunked
+    version with the reference's chunk rule for ``chunk``."""
+    config = active_dispatch()
+    Bsz, L, nh, hd = x.shape
+    sig = (Bsz, L, nh, hd, B_in.shape[-1])
+    if _use_kernel(x.device, config):
+        _record("ssd_scan", PATH_KERNEL, sig)
+        return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
+    _record("ssd_scan", PATH_REFERENCE, sig)
+    return _ref.ssd_scan_plain(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)

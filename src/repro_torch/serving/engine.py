@@ -8,7 +8,10 @@ fused-decode loop:
     take cache slots as slots free up; exhaustion queues, it never errors;
   * admitted requests are prefilled in right-padded micro-batches, bucketed
     to powers of two (causal masking keeps padded prefill exact), and
-    their caches are scattered into the pool rows, or into their pages;
+    their caches are scattered into the pool rows, or into their pages.
+    The ssm and hybrid families group admissions by EXACT prompt length and
+    never pad the length: right-padding would run the padding through the
+    recurrent state;
   * ALL active slots then share one fused decode block: ``decode_block``
     iterations of decode step -> sample -> stop detection -> buffer update
     on the device, then ONE host round-trip that drains the emitted
@@ -16,7 +19,9 @@ fused-decode loop:
 
 With ``page_size`` the per-token cache lives in a pool of ``kv_pages``
 pages (plus one trash page) behind per-slot block tables: admission is
-gated on a request's actual page need, decode attention walks the table
+gated on a request's actual page need (zero where no cache leaf is paged,
+as in mamba2, whose conv tails and states are slot rows), decode attention
+walks the table
 (the ``paged_decode_attention`` kernel), and with ``prefill_chunk`` long
 prompts prefill one chunk per step, interleaved with decode blocks.  The
 block table only relocates bytes: greedy tokens equal the flat engine's.
@@ -37,7 +42,10 @@ Frozen slots (finished, empty, or still chunk-prefilling) re-feed their
 last (token, position) pair, so their cache writes are idempotent (empty
 and chunk-prefilling slots write to the trash page in paged mode) while
 their emit mask keeps everything after the stop out of the results: the
-emitted tokens are the same for ANY block size.  A slot whose logits turn
+emitted tokens are the same for ANY block size.  A frozen slot's recurrent
+rows (mamba conv tails and state) do drift, as in the reference; rows are
+independent across the batch, and the prefill scatter overwrites a reused
+slot's rows whole.  A slot whose logits turn
 non-finite freezes on that step; its request ends with ``status="error"``
 and the rest of the batch decodes on.
 
@@ -76,6 +84,11 @@ _NO_EOS = -1
 # rows of the packed per-slot state (one int64 (rows, n_slots) tensor); the
 # paged engine's block table follows, transposed, in rows _BT onwards
 _TOK, _POS, _ACT, _EMIT, _MAXNEW, _SEED, _TOPK, _TEMP, _BT = range(9)
+
+# Families whose decode state integrates every prefill token (recurrent and
+# convolutional state): right-padding would corrupt it, so their admission
+# micro-batches group by EXACT prompt length (repro/serving/engine.py:122-125).
+_EXACT_LEN_FAMILIES = ("ssm", "hybrid")
 
 _LATER = {
     "share_prefix": "the prefix-sharing and session-cache slice",
@@ -144,7 +157,9 @@ class Request:
 def _scatter_slots(pool: dict, part: dict, slots: torch.Tensor) -> None:
     """Write micro-batch cache rows into pool rows ``slots``, in place.
 
-    Leaves are (L, rows, S, ...) with the slot axis 1; ``part`` may carry
+    Leaves are (L, rows, ...) with the slot axis 1 (K/V (L, rows, S, KV, hd);
+    a mamba layer's conv tails and state (L, rows, ...), written whole, so a
+    reused slot keeps nothing of its previous occupant); ``part`` may carry
     MORE rows than ``slots`` (bucketed prefill pads with dummy rows), and
     only the first ``len(slots)`` are written."""
     for name, pl in pool.items():
@@ -263,6 +278,8 @@ class Engine:
             self.max_pages = -(-max_len // page_size)
             self.kv_pages = kv_pages if kv_pages is not None else n_slots * self.max_pages
             self.cache, self._paged_mask = model.init_cache_paged(n_slots, max_len, page_size, self.kv_pages)
+            # no paged leaf (mamba2): every request reserves zero pages
+            self._has_pages = any(m for sub in self._paged_mask.values() for m in sub.values())
             self._trash = self.kv_pages  # the trash page id (attention.trash_page)
             self._bt = np.full((n_slots, self.max_pages), self._trash, np.int32)
             self.page_pool = PageAllocator(self.kv_pages)
@@ -271,16 +288,19 @@ class Engine:
         else:
             self.kv_pages = self.max_pages = 0
             self._paged_mask = None
+            self._has_pages = False
             self._bt = np.zeros((n_slots, 0), np.int32)
             self.page_pool = None
             self.scheduler = Scheduler(SlotAllocator(n_slots))
             self.cache = model.init_cache(n_slots, max_len)
-        # byte accounting: paged leaves are banked per PAGE (axis 1 of a
-        # stacked (L, P, page, ...) pool), everything else is resident up front
-        leaves = self.cache["layers"]
-        self.kv_bytes_capacity = sum(t.numel() * t.element_size() for t in leaves.values())
-        self._bytes_per_page = sum(t.numel() * t.element_size() // t.shape[1] for name, t in leaves.items()
-                                   if self._paged_mask["layers"][name]) if self.paged else 0
+        # byte accounting over every cache subtree (layers, shared_attn):
+        # paged leaves are banked per PAGE (axis 1 of a stacked (L, P, page,
+        # ...) pool), everything else is resident up front
+        self._subtrees = [k for k in self.cache if k != "block_table"]
+        leaves = [(sub, name, t) for sub in self._subtrees for name, t in self.cache[sub].items()]
+        self.kv_bytes_capacity = sum(t.numel() * t.element_size() for _, _, t in leaves)
+        self._bytes_per_page = sum(t.numel() * t.element_size() // t.shape[1] for sub, name, t in leaves
+                                   if self._paged_mask[sub][name]) if self.paged else 0
         self._bytes_resident = self.kv_bytes_capacity - self._bytes_per_page * (self.kv_pages + 1)
         self._chunking: Dict[int, list] = {}  # slot -> [request, next_start, table row]
 
@@ -310,6 +330,8 @@ class Engine:
         self.decoded_tokens = 0  # tokens emitted by decode (prefill's first token excluded)
         self.peak_active = 0  # max concurrently admitted requests
         self.prefill_chunks = 0  # chunked-prefill chunks executed
+        # one (rows, padded length, prompt lengths) per prefill micro-batch
+        self.prefill_batches: List[tuple] = []
         self.quarantined = 0  # requests ended on non-finite logits
 
     # ------------------------------------------------------------------ #
@@ -317,7 +339,10 @@ class Engine:
     # ------------------------------------------------------------------ #
     def _page_need(self, request) -> int:
         """Pages a request reserves: its WHOLE footprint (prompt plus
-        max_new_tokens), so decode never runs out of pages mid-stream."""
+        max_new_tokens), so decode never runs out of pages mid-stream; zero
+        where no cache leaf is paged."""
+        if not self._has_pages:
+            return 0
         return -(-(int(request.prompt.size) + request.max_new_tokens) // self.page_size)
 
     def _reserve(self, request) -> Optional[PageGrant]:
@@ -393,6 +418,7 @@ class Engine:
         re-arm to CURRENT usage."""
         self.steps = self.host_syncs = self.graph_replays = self.decoded_tokens = 0
         self.prefill_chunks = self.quarantined = 0
+        self.prefill_batches = []
         self.decode_seconds = 0.0
         self.peak_active = self.scheduler.allocator.n_active
         if self.paged:
@@ -401,13 +427,27 @@ class Engine:
     # ------------------------------------------------------------------ #
     # admission + prefill
     # ------------------------------------------------------------------ #
+    def _admission_groups(self, placed):
+        """Split (slot, request) placements into prefill micro-batches: one
+        for the attention families, one per prompt length for ssm and hybrid
+        (``repro/serving/engine.py::_admission_groups``)."""
+        if self.cfg.family not in _EXACT_LEN_FAMILIES:
+            return [placed]
+        by_len: Dict[int, list] = {}
+        for slot, req in placed:
+            by_len.setdefault(int(req.prompt.size), []).append((slot, req))
+        return list(by_len.values())
+
     def _prefill_shape(self, n_reqs: int, max_prompt: int):
         """Bucket the micro-batch shape: batch rows up to the next power of
-        two (capped at n_slots; dummy rows are discarded by the scatter) and
-        prompt length up to the next power of two >= 8 (capped at max_len),
-        the reference's buckets."""
+        two (capped at n_slots; dummy rows are discarded by the scatter) and,
+        for the attention families, prompt length up to the next power of two
+        >= 8 (capped at max_len), the reference's buckets.  An ssm or hybrid
+        group keeps its exact length."""
         G = min(_next_pow2(n_reqs, 1), self.n_slots)
-        P = max(max_prompt, min(_next_pow2(max_prompt, 8), self.max_len))
+        P = max_prompt
+        if self.cfg.family not in _EXACT_LEN_FAMILIES:
+            P = max(max_prompt, min(_next_pow2(max_prompt, 8), self.max_len))
         return G, P
 
     def _prefill_group(self, group) -> List[Request]:
@@ -415,6 +455,7 @@ class Engine:
         reqs = [req for _, req in group]
         lens = np.array([r.prompt.size for r in reqs], np.int64)
         G, P = self._prefill_shape(len(reqs), int(lens.max()))
+        self.prefill_batches.append((G, P, tuple(int(n) for n in lens)))
         toks = np.zeros((G, P), np.int64)
         for i, r in enumerate(reqs):
             toks[i, : r.prompt.size] = r.prompt
@@ -430,10 +471,12 @@ class Engine:
             # the trash page; allocated pages are overwritten whole
             bt_rows = np.full((G, self.max_pages), self._trash, np.int32)
             bt_rows[: len(slots)] = self._bt[slots]
-            _scatter_mixed(self.cache["layers"], part["layers"], self._paged_mask["layers"], slot_idx,
-                           torch.from_numpy(bt_rows).to(dev), self.page_size)
+            bt_dev = torch.from_numpy(bt_rows).to(dev)
+            for sub in self._subtrees:
+                _scatter_mixed(self.cache[sub], part[sub], self._paged_mask[sub], slot_idx, bt_dev, self.page_size)
         else:
-            _scatter_slots(self.cache["layers"], part["layers"], slot_idx)
+            for sub in self._subtrees:
+                _scatter_slots(self.cache[sub], part[sub], slot_idx)
         first = self._sample(logits, reqs + [None] * (G - len(reqs)), [0] * G)
         now = time.perf_counter()
         for i, (slot, req) in enumerate(group):
@@ -561,7 +604,8 @@ class Engine:
         step -> sample -> stop detection -> buffer update, then the packed
         result into ``self._out``.  Reads ``self._state`` and never writes
         it, so running it with every slot frozen changes nothing but K/V
-        rows the next real block rewrites with the same values."""
+        rows the next real block rewrites with the same values, and the
+        frozen slots' recurrent rows (which drift)."""
         st, out, n = self._state, self._out, self.decode_block
         if self.paged:
             self.cache["block_table"].copy_(st[_BT:].T)
@@ -603,12 +647,15 @@ class Engine:
 
         ``self._state`` already holds this block's inputs.  The eager
         warm-up (side stream, as capture requires) runs with every slot
-        frozen and loads every kernel library; its only effect is K/V
-        re-writes the block itself makes first.  Launches and dispatch calls
-        made during capture are recorded per graph and counted per replay."""
+        frozen and loads every kernel library.  Frozen slots still advance
+        their recurrent rows (mamba conv tails and states), which would
+        corrupt the live slots' states, so the cache is saved before the
+        warm-up and restored after it.  Launches and dispatch calls made
+        during capture are recorded per graph and counted per replay."""
         entry = self._graphs.get(greedy)
         if entry is not None:
             return entry
+        saved = [(t, t.clone()) for sub in self._subtrees for t in self.cache[sub].values()]
         active = self._state[_ACT].clone()
         self._state[_ACT].zero_()
         side = torch.cuda.Stream(self.device)
@@ -616,6 +663,9 @@ class Engine:
         with torch.cuda.stream(side):
             self._block_body(greedy)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        for t, copy in saved:
+            t.copy_(copy)
+        del saved
         self._state[_ACT].copy_(active)
         libs = kernel_libs()
         before = [lib.captured for lib in libs]
@@ -708,9 +758,9 @@ class Engine:
                 if row is not None:
                     self._bt[slot] = row
                 direct.append((slot, req))
-        if direct:
+        for group in self._admission_groups(direct) if direct else ():
             # requests whose single token came from prefill finish here
-            finished.extend(self._prefill_group(direct))
+            finished.extend(self._prefill_group(group))
         if self._chunking:
             # a prefill budget of ~one chunk of REAL tokens per step, so a
             # long prefill never stalls the running decodes for long

@@ -12,7 +12,10 @@ reference by the other tests/test_torch_*.py files.  Run on a card with
 Tolerances, relative to the largest reference value: bf16 1e-2 for the
 GEMMs and 2e-2 for attention (outputs, the rounded x@A and the rounded p
 may land one bf16 ulp, 2^-8, apart where sums in another order straddle a
-rounding boundary); fp32 1e-4 (summation order only).
+rounding boundary); fp32 1e-4 (summation order only).  The SSD scan: y
+as the GEMMs (bf16 1e-2, fp32 1e-4) and its fp32 final state 1e-4 in both
+(the kernel's fixed 64-step chunks against the reference's chunk rule
+change only the summation order; x̄ is formed by the same one multiply).
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.sketch_matmul import sketch_matmul
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEMM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -144,6 +148,56 @@ def test_gpu_flash_attention(cuda, S, window, q_offset, hd, dtype):
     _close(got, want, ATTN_TOL[dtype])
 
 
+def _ssd_inputs(B, L, nh, hd, s, dtype, device, seed=20):
+    """Raw x, dt after softplus (fp32), B/C and a negative A as the model
+    makes them (A = -exp(log(linspace(1, 16, nh))))."""
+    rng = np.random.default_rng(seed)
+    x = _rand((B, L, nh, hd), seed, dtype, device)
+    dt = torch.nn.functional.softplus(torch.from_numpy(rng.standard_normal((B, L, nh)).astype(np.float32))).to(device)
+    Bm, Cm = _rand((B, L, s), seed + 1, dtype, device), _rand((B, L, s), seed + 2, dtype, device)
+    A = -torch.linspace(1.0, 16.0, nh, device=device)
+    return x, dt, Bm, Cm, A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("round_xbar", [False, True])
+@pytest.mark.parametrize("B,L,nh,hd,s", [(1, 512, 64, 64, 64), (4, 256, 64, 64, 64), (1, 509, 24, 64, 128),
+                                         (2, 40, 24, 64, 128), (3, 97, 4, 16, 16), (2, 200, 5, 32, 100),
+                                         (1, 1, 2, 16, 8)])
+def test_gpu_ssd_scan(cuda, B, L, nh, hd, s, round_xbar, dtype):
+    """y and the final state against the plain chunked version (the
+    reference's chunk rule: a prime L falls to Q = 1 there), under both x̄
+    contracts; in fp32 also against the sequential oracle."""
+    x, dt, Bm, Cm, A = _ssd_inputs(B, L, nh, hd, s, dtype, cuda)
+    y, state = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+    assert y.dtype == x.dtype and state.dtype == torch.float32 and tuple(state.shape) == (B, nh, hd, s)
+    want_y, want_s = ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+    _close(y, want_y, GEMM_TOL[dtype])
+    _close(state, want_s, 1e-4)
+    if dtype == "float32" and L <= 256:
+        seq_y, seq_s = ref.ssd_scan_ref(ref.ssd_xbar(x, dt, round_xbar), dt, Bm, Cm, A)
+        _close(y, seq_y, 1e-4)
+        _close(state, seq_s, 1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_refuses_bad_operands(cuda):
+    x, dt, Bm, Cm, A = _ssd_inputs(2, 8, 2, 16, 8, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        ssd_scan(x, dt.cpu(), Bm, Cm, A)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt, Bm.float(), Cm, A)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt.bfloat16(), Bm, Cm, A)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt[:, :4], Bm, Cm, A)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_scan(x[..., :8], dt, Bm, Cm, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, Bm, Cm, A)
+
+
 def _paged_case(page, n_tbl, G, dtype, device, *, seed=12, hd=64):
     """A pool with pages at permuted physical ids, a finite-poison trash page,
     ragged n_valid (crossing page boundaries) and one fully-masked row."""
@@ -186,17 +240,20 @@ def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype, hd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "mamba2-130m"])
 @pytest.mark.parametrize("page_size,chunk", [(None, None), (4, 5)])
 def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
     """The captured decode block (greedy and sampled variants, one request of
     each kind per engine) emits what the same body run eagerly emits.  The
     reduced phi3.5-moe runs RSI-compressed, so its expert stacks go through
-    the batched kernel, inside the graph as well."""
+    the batched kernel, inside the graph as well.  The ssm and hybrid
+    families prefill through the SSD scan kernel (the chunk is inert there)
+    and decode their recurrent state inside the graph."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import CompressionPolicy, compress_tree
     from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.model import build_model
     from repro_torch.serving import Engine, Request, SamplingParams
 
@@ -215,13 +272,16 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
                      decode_block=4, cuda_graph=graph)
         before = paged_mod.KERNEL.launches
         before_batched = batched_mod.KERNEL.launches
+        before_ssd = ssd_mod.KERNEL.launches
         reqs = [eng.submit(Request(prompt=p, max_new_tokens=10, sampling=s)) for p, s in zip(prompts, sampling)]
         while eng.has_work:
             eng.step()
         assert all(r.status == "ok" and len(r.tokens) == 10 for r in reqs)
         assert (eng.graph_replays > 0) == graph
-        if page_size is not None:
+        if page_size is not None and model.cfg.family != "ssm":
             assert paged_mod.KERNEL.launches > before
+        if model.cfg.family in ("ssm", "hybrid"):
+            assert ssd_mod.KERNEL.launches == before_ssd + model.cfg.n_layers * len(eng.prefill_batches)
         if moe:
             assert batched_mod.KERNEL.launches > before_batched
         out[graph] = [r.tokens for r in reqs]
