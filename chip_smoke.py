@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py    # every phase; the last line is the result
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
 Phases, in order; any failure exits non-zero before the last line:
 
 1. Device: the card's name and power limit; build the seven kernels from
-   ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once).
+   ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once); one line
+   a library with its registers, shared memory and spills (ptxas), and the
+   HGMMA (wgmma) instructions in the SASS of the two wgmma libraries.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
    beside each check; times of the kernel, the plain version and one
    PyTorch library call for the same function, and the card's bound.  The
+   sketch GEMM runs on operands in the storage RSI and the logits give it
+   (``aligned_rows``), the library call on the same strided views; once
+   more on an unaligned Y as a correctness case only; and at phi3.5-moe's
+   untied head logits, transposed as the dispatch computes them (and, as a
+   comparison only, untransposed).  The
    paged decode kernel also runs on a ragged n_valid with a fully-masked
    row and permuted pages at pages 64, 16 and 128, and at page 64 must
    return the flat kernel's bits.  At phi3.5-moe's shapes: the batched
@@ -29,7 +36,8 @@ Phases, in order; any failure exits non-zero before the last line:
    32 tokens for 4 prompts of 256 tokens with the dense and both compressed
    models.  Gate: q = 4's normalized error <= q = 1's on one w_gate layer.
 4. Launches: every kernel of the static path ran during phase 3 (counts
-   reset just before).
+   reset just before); the sketch GEMM's wrapper copied no operand into
+   aligned rows there, nor in any compression or engine run.
 5. Reference comparison: the q = 4 model's prefill and first decode step
    under backend "auto" (kernels) and "reference" (plain versions).
 6. Profile (informational): device time by kernel over a few q = 4 decode
@@ -92,8 +100,11 @@ Phases, in order; any failure exits non-zero before the last line:
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
-every run's count beside it), bound and library time, and the attention
-kernels' times at head_dim 128 and at G = 1.
+every run's count beside it), bound and library time, the attention
+kernels' times at head_dim 128 and at G = 1, the sketch GEMM's at W^T @ X
+the tied logits and the untied head's logits.  The line before it gives,
+for the two kernels redesigned for Hopper, their earlier times as
+``PERF.md`` records them (``[earlier]``: copied, not measured in the run).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -103,6 +114,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -127,6 +139,17 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
 }
 
+# the kernels this round redesigned for Hopper (their libraries' SASS must hold wgmma), and
+# their times before it as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W),
+# printed on a line of their own: they are not measured in the run
+REDESIGNED = ("flash_attention", "sketch_matmul")
+EARLIER_MS = {
+    "flash_attention (4, 256) hd 64 G 4, FMA kernel": 0.1378,
+    "flash_attention (4, 256) hd 128 G 4, FMA kernel": 0.2655,
+    "flash_attention (4, 256) hd 64 G 1, FMA kernel": 0.1402,
+    "sketch_matmul 2048x8192 @ 8192x615, WMMA tiles, Y at row stride 615": 0.3700,
+}
+
 # the MoE main path (phases 9-12): phi3.5-moe at full width, depth cut 32 -> 4
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 4
 
@@ -146,6 +169,36 @@ def fail(msg: str) -> None:
 
 def say(*a) -> None:
     print(*a, flush=True)
+
+
+def ptxas_summary(log: str) -> str:
+    """One line from a library's ``nvcc -Xptxas -v`` log: its entries'
+    registers, static shared memory, stack and spills."""
+    regs, smem, stack, spills = [], [0], [0], 0
+    for line in log.splitlines():
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+            sm = re.search(r"(\d+) bytes smem", line)
+            smem.append(int(sm.group(1)) if sm else 0)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            stack.append(int(m.group(1)))
+            spills += int(m.group(2)) + int(m.group(3))
+    return (f"{len(regs)} kernels: registers {regs} (max {max(regs, default=0)}); static shared memory max "
+            f"{max(smem)} bytes; stack max {max(stack)} bytes; spill stores + loads {spills} bytes")
+
+
+def hgmma_count(so) -> "int | None":
+    """HGMMA (wgmma) instructions in a built library's SASS, or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {so} failed: {res.stderr[-2000:]}")
+    return sum("HGMMA" in line for line in res.stdout.splitlines())
 
 
 def card_line() -> str:
@@ -197,9 +250,10 @@ def nbytes(*ts) -> int:
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------------- #
 def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn, library_fn, bytes_moved, ops,
-          records):
+          records, key=None):
     """Compare, time, and print one JSON line; keep the first bf16 case of
-    each kernel (its main-path representative) for the summary."""
+    each kernel (its main-path representative) for the summary, under
+    ``key`` (default the kernel's name)."""
     import torch
 
     torch.cuda.synchronize()
@@ -218,8 +272,8 @@ def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn
     say(json.dumps(rec))
     if not ok:
         fail(f"{name} {shape} {dname}: max abs err {err:.3e} > tol {rel_tol * scale:.3e}")
-    if dname == "bfloat16" and name not in records:
-        records[name] = rec
+    if (key is not None or dname == "bfloat16") and (key or name) not in records:
+        records[key or name] = rec
 
 
 def phase_kernels() -> dict:
@@ -265,20 +319,25 @@ def phase_kernels() -> dict:
                       ops=2 * M * K * r + 2 * M * r * N, records=records)
                 del x, A, B, got
 
-        # RSI's sketch GEMMs on a w_gate-sized W: W @ Y and W^T @ X at l = 615
+        # RSI's sketch GEMMs on a w_gate-sized W: W @ Y and W^T @ X at l = 615, with Y and X in
+        # the storage core/rsi.py gives them (aligned_rows: row stride 616); torch.matmul gets
+        # the same strided views.  Then once more on a contiguous (unaligned, row stride 615)
+        # Y: a correctness case only, which the wrapper copies into aligned rows first.
         C, D, ell = 2048, 8192, 615
         W = rnd((C, D), dtype)
-        for trans, other in ((False, (D, ell)), (True, (C, ell))):
-            Y = rnd(other, dtype)
+        for trans, other, storage in ((False, (D, ell), "aligned_rows"), (True, (C, ell), "aligned_rows"),
+                                      (False, (D, ell), "unaligned, correctness only")):
+            Y = aligned_rows(rnd(other, dtype)) if storage == "aligned_rows" else rnd(other, dtype)
             got = sketch_matmul(W, Y, trans_a=trans)
             M_out = D if trans else C
-            check("sketch_matmul", [M_out, other[0], ell, "trans_a" if trans else "plain"], dtype, got,
+            check("sketch_matmul", [M_out, other[0], ell, "trans_a" if trans else "plain", storage], dtype, got,
                   ref.sketch_matmul_ref(W, Y, trans_a=trans), rel, why,
                   kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
                   plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
                   library_fn=lambda: torch.matmul(W.T if trans else W, Y),
                   bytes_moved=nbytes(W, Y) + M_out * ell * W.element_size(),
-                  ops=2 * C * D * ell, records=records)
+                  ops=2 * C * D * ell, records=records if storage == "aligned_rows" else {},
+                  key="sketch_matmul trans_a" if trans else "sketch_matmul")
             del Y, got
         del W
 
@@ -329,8 +388,9 @@ def phase_kernels() -> dict:
     phi = phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records)
     g1 = phase_ssm_kernels(rnd, gen, records)
 
-    # the tied-embedding logits through the sketch kernel: fp32 out, unrounded
-    E, xT = rnd((128256, 2048), torch.bfloat16), rnd((2048, BATCH), torch.bfloat16)
+    # the tied-embedding logits through the sketch kernel: fp32 out, unrounded; x^T in the
+    # storage runtime/dispatch.logits_apply gives it (aligned_rows: row stride 8)
+    E, xT = rnd((128256, 2048), torch.bfloat16), aligned_rows(rnd((2048, BATCH), torch.bfloat16))
     rel, why = 1e-4, "fp32 output of bf16 products; only the summation order differs"
     got = sketch_matmul(E, xT, out_dtype=torch.float32)
     check("sketch_matmul", [128256, 2048, BATCH, "logits fp32 out"], torch.float32, got,
@@ -338,8 +398,28 @@ def phase_kernels() -> dict:
           kernel_fn=lambda: sketch_matmul(E, xT, out_dtype=torch.float32),
           plain_fn=lambda: ref.sketch_matmul_ref(E, xT, out_dtype=torch.float32),
           library_fn=lambda: torch.matmul(xT.T, E.T),
-          bytes_moved=nbytes(E, xT) + 128256 * BATCH * 4, ops=2 * 128256 * 2048 * BATCH, records={})
+          bytes_moved=nbytes(E, xT) + 128256 * BATCH * 4, ops=2 * 128256 * 2048 * BATCH, records=records,
+          key="sketch_matmul logits")
     del E, xT
+
+    # the untied head's logits (phi3.5-moe: d 4096, V 32064) for the slots of one decode
+    # step, as runtime/dispatch.logits_apply computes them: head^T @ x^T, the stored (d, V)
+    # head read in place as the MN-major A operand, x^T in aligned_rows.  Then the same
+    # product in the form x @ head (8 rows of a 256-row tile): a comparison only.
+    d, V, n = 4096, 32064, ENGINE["n_slots"]
+    head, x = rnd((d, V), torch.bfloat16), rnd((n, d), torch.bfloat16)
+    xT = aligned_rows(x.T)
+    forms = (("head^T @ x^T", lambda: sketch_matmul(head, xT, trans_a=True, out_dtype=torch.float32).T),
+             ("x @ head, comparison only", lambda: sketch_matmul(x, head, out_dtype=torch.float32)))
+    for label, fn in forms:
+        main_form = label == "head^T @ x^T"
+        check("sketch_matmul", [n, d, V, f"untied head logits fp32 out, {label}"], torch.float32, fn(),
+              ref.sketch_matmul_ref(x, head, out_dtype=torch.float32), rel, why,
+              kernel_fn=fn, plain_fn=lambda: ref.sketch_matmul_ref(x, head, out_dtype=torch.float32),
+              library_fn=lambda: torch.matmul(x, head),
+              bytes_moved=nbytes(head, x) + n * V * 4, ops=2 * n * d * V,
+              records=records if main_form else {}, key="sketch_matmul untied head")
+    del head, x, xT
     torch.cuda.empty_cache()
     return records, phi, g1
 
@@ -541,6 +621,7 @@ def phase_main():
 
     for k in kernels.values():
         k.reset()
+    sketch_matmul.ALIGN_COPIES.reset()
     main_t0 = time.perf_counter()
     dense_out, dense_tps = generate(params, "dense")
     summary = {"dense_tok_s": dense_tps}
@@ -569,6 +650,7 @@ def phase_main():
         compressed[q] = cp
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
+    no_align_copies("the llama3.2-1b static run (compression and generation)")
     summary["main_path_s"] = time.perf_counter() - main_t0
     summary["launches"] = launches
     say("[main] " + json.dumps(summary))
@@ -854,7 +936,9 @@ def device_rows(prof, per: int = 1) -> list:
 
 # the hand-written kernels' symbols, as the profiler names them
 OWN_KERNELS = re.compile(r"\b(gemm_bf16_kernel|gemm_f32_kernel|gemm_skinny_partial_kernel|gemm_skinny_reduce_kernel|"
-                         r"flash_attention_kernel|decode::partial_kernel|decode::combine_kernel|ssd_scan_kernel)\b")
+                         r"gemm_wgmma_kernel|flash_attention_kernel|flash_wgmma_kernel|decode::partial_kernel|"
+                         r"decode::combine_kernel|ssd_scan_kernel)\b")
+FLASH_KERNELS = re.compile(r"\b(flash_attention_kernel|flash_wgmma_kernel)\b")
 
 
 def phase_profile(model, params, batch, steps: int = 4):
@@ -913,6 +997,7 @@ def serve(model, params, label, *, libs, tag: str = "engine", **kw):
     import torch
 
     from repro_torch.runtime import dispatch
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
     from repro_torch.serving import Engine
 
     opts = dict(ENGINE)
@@ -923,11 +1008,13 @@ def serve(model, params, label, *, libs, tag: str = "engine", **kw):
     for lib in libs.values():
         lib.reset()
     dispatch.reset_counters()
+    ALIGN_COPIES.reset()
     t = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches = {n: lib.launches for n, lib in libs.items()}
+    no_align_copies(f"the {tag} run ({label})")
     n_tok = sum(len(r.tokens) for r in reqs)
     bad = [r.uid for r in reqs if r.status != "ok" or len(r.tokens) != r.max_new_tokens
            or min(r.tokens) < 0 or max(r.tokens) >= model.cfg.vocab_padded]
@@ -939,6 +1026,16 @@ def serve(model, params, label, *, libs, tag: str = "engine", **kw):
     if bad:
         fail(f"engine {label}: requests {bad} did not finish with their requested token counts")
     return [r.tokens for r in reqs], eng, launches, n_tok / dt
+
+
+def no_align_copies(what: str) -> None:
+    """Fail unless the sketch GEMM's wrapper copied no operand into aligned
+    rows since its count was last reset: the main path hands TMA its operands
+    in place."""
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
+
+    if ALIGN_COPIES.count:
+        fail(f"{what}: the sketch_matmul wrapper copied {ALIGN_COPIES.count} operands into aligned rows")
 
 
 def engine_libs() -> dict:
@@ -1207,6 +1304,7 @@ def phase_moe_main():
     from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
     from repro_torch.core.rsi import rsi_factors
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
     from repro_torch.models.model import analytic_param_count, build_model
 
     full = get_arch(MOE_ARCH)
@@ -1229,7 +1327,9 @@ def phase_moe_main():
         f"{analytic_param_count(cfg) / 1e9:.3f}B params; init + spectralize {time.perf_counter() - t0:.1f}s")
     W = dense["layers"]["moe"]["experts"]["w_gate"][0, 0].clone()
     t = time.perf_counter()
+    ALIGN_COPIES.reset()
     params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    no_align_copies(f"{MOE_ARCH} compression")
     torch.cuda.synchronize()
     comp_s = time.perf_counter() - t
     del dense
@@ -1414,6 +1514,7 @@ def phase_ssm_main(arch: str):
     from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
     from repro_torch.core.rsi import rsi_factors
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
     from repro_torch.models.model import analytic_param_count, build_model
 
     cfg = get_arch(arch)
@@ -1435,7 +1536,9 @@ def phase_ssm_main(arch: str):
         f"{analytic_param_count(cfg) / 1e9:.3f}B params; init + spectralize {time.perf_counter() - t0:.1f}s")
     W = dense["layers"]["mamba"]["w_x"][0].clone()
     t = time.perf_counter()
+    ALIGN_COPIES.reset()
     params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    no_align_copies(f"{arch} compression")
     torch.cuda.synchronize()
     comp_s = time.perf_counter() - t
     del dense
@@ -1499,15 +1602,17 @@ def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str 
     rows = device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
     ssd_ms = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2]) / 1e3
+    flash_ms = sum(r[0] for r in rows if FLASH_KERNELS.search(r[2])) / 1e3
     own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
     say(f"[{tag}] one monolithic (1, {L}) prefill: host {wall * 1e3:.3f} ms (profiler off, mean of {calls}); "
         f"device busy {device_ms:.3f} ms (profiler): ssd_scan {ssd_ms:.3f} ms ({ssd_ms / device_ms:.3f}, "
-        f"{model.cfg.n_layers} launches), all hand-written kernels {own_ms:.3f} ms; idle share "
-        f"{max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
+        f"{model.cfg.n_layers} launches), flash_attention {flash_ms:.3f} ms ({flash_ms / device_ms:.4f}), all "
+        f"hand-written kernels {own_ms:.3f} ms; idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
     for us, n, key in rows[:10]:
         say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
     return {"prefill_host_ms": wall * 1e3, "prefill_device_ms": device_ms, "prefill_ssd_ms": ssd_ms,
-            "prefill_ssd_share": ssd_ms / device_ms}
+            "prefill_ssd_share": ssd_ms / device_ms, "prefill_flash_ms": flash_ms,
+            "prefill_flash_share": flash_ms / device_ms}
 
 
 
@@ -1535,9 +1640,12 @@ def main() -> int:
     for name, so in built.items():
         log = so.with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line:
-                    say(f"[ptxas {name}] {line.strip()}")
+            say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
+    for name in REDESIGNED:
+        n = hgmma_count(built[name])
+        say(f"[sass {name}] " + ("cuobjdump not found" if n is None else f"HGMMA instructions: {n}"))
+        if n == 0:
+            fail(f"{name}: no HGMMA (wgmma) instruction in the built library")
     time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     t = time.perf_counter()
@@ -1604,12 +1712,18 @@ def main() -> int:
                  "launches_by_run": {k: v.get(name, 0) for k, v in runs.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"], "dtype": r["dtype"]}
-        for key, sub in (("hd128", phi), ("g1", g1)):  # the attention kernels at phi's head_dim 128, zamba2's G = 1
-            if name in sub:
-                entry[key] = {k: sub[name][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                                        "bound_ms", "bound_by")}
+        # the attention kernels at phi's head_dim 128 and zamba2's G = 1; the sketch GEMM's
+        # W^T @ X, tied logits and untied head
+        subs = (("hd128", phi, name), ("g1", g1, name), ("trans_a", records, f"{name} trans_a"),
+                ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"))
+        for key, sub, rec_key in subs:
+            if rec_key in sub:
+                entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")}
         line.append(entry)
     say(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
+    say("[earlier] times of the redesigned kernels before this round, copied from PERF.md section 6 "
+        "(not measured in this run): " + json.dumps(EARLIER_MS))
     say(json.dumps({"kernels": line}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

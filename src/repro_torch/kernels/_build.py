@@ -51,7 +51,7 @@ KERNELS = ("lowrank_matmul", "sketch_matmul", "decode_attention", "flash_attenti
            "lowrank_matmul_batched", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
 
 _LOCK = threading.Lock()

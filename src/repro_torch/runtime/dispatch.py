@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._build import aligned_rows
 from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul as _lowrank_kernel
@@ -296,10 +297,12 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
     untied dense (d, V) head (``tied=False``; the reference's
     ``jnp.matmul(x, head, preferred_element_type=f32)``).
 
-    On the card this is the sketch GEMM with an fp32 output; the tied form
-    is computed transposed (table rows stream once; x is the skinny
-    operand) — a bf16 GEMM rounded to bf16 and then upcast could flip
-    greedy argmaxes, and upcasting the table each step would move 1 GB.
+    On the card this is the sketch GEMM with an fp32 output; both forms are
+    computed transposed, ``table @ x.T`` or ``head.T @ x.T`` with the head
+    read in place (the table streams once through the GEMM's tall side; x
+    is the skinny operand, not 8 rows of a 256-row tile) — a bf16 GEMM
+    rounded to bf16 and then upcast could flip greedy argmaxes, and
+    upcasting the table each step would move 1 GB.
     """
     config = active_dispatch()
     d = x.shape[-1]
@@ -310,7 +313,9 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
     _record("logits", PATH_KERNEL if kernel else PATH_REFERENCE, sig)
     gemm = _sketch_kernel if kernel else _ref.sketch_matmul_ref
     if tied:
-        out = gemm(table, x2.T.contiguous() if kernel else x2.T, out_dtype=torch.float32).T
+        out = gemm(table, aligned_rows(x2.T) if kernel else x2.T, out_dtype=torch.float32).T
+    elif kernel:
+        out = gemm(table, aligned_rows(x2.T), trans_a=True, out_dtype=torch.float32).T
     else:
         out = gemm(x2, table, out_dtype=torch.float32)
     return out.reshape(x.shape[:-1] + (V,))

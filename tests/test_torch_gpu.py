@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul
 from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-from repro_torch.kernels.sketch_matmul import sketch_matmul
+from repro_torch.kernels.sketch_matmul import ALIGN_COPIES, sketch_matmul
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,6 +67,79 @@ def test_gpu_sketch_matmul(cuda, M, K, N, trans_a, dtype):
         got = sketch_matmul(a, b, trans_a=trans_a, out_dtype=torch.float32)
         assert got.dtype == torch.float32
         _close(got, ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=torch.float32), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_a", [False, True])
+@pytest.mark.parametrize("M,K,N", [
+    (2048, 8192, 615),  # RSI's W @ Y at l = 615; under trans_a its W^T @ X (M = 8192)
+    (256, 1000, 130),   # K not a multiple of the 64-deep k-block
+    (300, 2048, 64),    # N at the 64-wide tile
+])
+def test_gpu_sketch_matmul_rsi_storage(cuda, M, K, N, trans_a):
+    """bf16 operands in the storage RSI gives them (aligned_rows: Y at row
+    stride 616): no copy before the launch, and the result within tolerance,
+    bf16 and fp32 out.  Under trans_a the stored operand is (K, M), so
+    (2048, 8192, 615) is RSI's W^T @ X with W stored (2048, 8192) and M = 8192."""
+    if trans_a:
+        M, K = K, M
+    a = _rand((K, M) if trans_a else (M, K), 21, "bfloat16", cuda)
+    b = aligned_rows(_rand((K, N), 22, "bfloat16", cuda))
+    before = ALIGN_COPIES.count
+    _close(sketch_matmul(a, b, trans_a=trans_a), ref.sketch_matmul_ref(a, b, trans_a=trans_a), GEMM_TOL["bfloat16"])
+    got = sketch_matmul(a, b, trans_a=trans_a, out_dtype=torch.float32)
+    _close(got, ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=torch.float32), 1e-4)
+    assert ALIGN_COPIES.count == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 4, 8])
+def test_gpu_sketch_matmul_skinny_f32out(cuda, N):
+    """The tied-logits form: a tall table times a skinny x^T (in the storage
+    logits_apply gives it), fp32 out, with a ragged last row tile."""
+    a = _rand((5000, 2048), 23, "bfloat16", cuda)
+    b = aligned_rows(_rand((2048, N), 24, "bfloat16", cuda))
+    before = ALIGN_COPIES.count
+    got = sketch_matmul(a, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5000, N)
+    _close(got, ref.sketch_matmul_ref(a, b, out_dtype=torch.float32), 1e-4)
+    assert ALIGN_COPIES.count == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 70])
+def test_gpu_logits_apply_untied(cuda, M):
+    """The untied head's fp32 logits on the card (computed as head^T @ x^T,
+    the head read in place), against the plain x @ head; no operand copied."""
+    from repro_torch.runtime import dispatch
+
+    x = _rand((M, 512), 29, "bfloat16", cuda)
+    head = _rand((512, 5000), 30, "bfloat16", cuda)
+    before = ALIGN_COPIES.count
+    got = dispatch.logits_apply(x, head, tied=False)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, 5000)
+    _close(got, ref.sketch_matmul_ref(x, head, out_dtype=torch.float32), 1e-4)
+    assert ALIGN_COPIES.count == before
+
+
+@pytest.mark.gpu
+def test_gpu_sketch_matmul_copies_unaligned(cuda):
+    """A bf16 operand TMA cannot read in place (row stride 77) is copied into
+    aligned rows first, counted once; the aligned one is read in place."""
+    a = _rand((130, 256), 25, "bfloat16", cuda)  # row stride 256: aligned
+    b = _rand((256, 77), 26, "bfloat16", cuda)   # row stride 77: not a multiple of 8
+    before = ALIGN_COPIES.count
+    _close(sketch_matmul(a, b), ref.sketch_matmul_ref(a, b), GEMM_TOL["bfloat16"])
+    assert ALIGN_COPIES.count == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_a", [False, True])
+def test_gpu_sketch_matmul_deterministic(cuda, trans_a):
+    """Two launches give the same bits (the split-K cluster sums in rank order)."""
+    a = _rand((2048, 8192), 27, "bfloat16", cuda)
+    b = aligned_rows(_rand((2048 if trans_a else 8192, 615), 28, "bfloat16", cuda))
+    assert torch.equal(sketch_matmul(a, b, trans_a=trans_a), sketch_matmul(a, b, trans_a=trans_a))
 
 
 @pytest.mark.gpu
@@ -146,6 +219,60 @@ def test_gpu_flash_attention(cuda, S, window, q_offset, hd, dtype):
     got = flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
     want = ref.chunked_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset)
     _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 4, 6, 8])
+@pytest.mark.parametrize("S", [70, 200])  # not multiples of the 64-row tile
+def test_gpu_flash_attention_bf16_tiles(cuda, S, G, hd):
+    """The bf16 kernel at every head dim and at G = 1, 3, 4, 6, 8, causal.  A
+    64-row tile packs 64 / GP positions of GP heads, GP the largest power of
+    two dividing G: G itself at 1, 4, 8; at 3 and 6 (GP 1 and 2) a KV head's
+    group spans 3 blocks."""
+    B, KV = 2, 2
+    q = _rand((B, S, KV * G, hd), 30, "bfloat16", cuda)
+    k, v = _rand((B, S, KV, hd), 31, "bfloat16", cuda), _rand((B, S, KV, hd), 32, "bfloat16", cuda)
+    _close(flash_attention(q, k, v, causal=True), ref.chunked_attention_ref(q, k, v, causal=True),
+           ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128), (8, 64)])
+def test_gpu_flash_attention_q_offset(cuda, G, hd, window, dtype):
+    """A chunk of 70 queries at q_offset 230 over a 300-position cache (Skv > Sq)."""
+    B, KV, Sq, Skv = 2, 2, 70, 300
+    q = _rand((B, Sq, KV * G, hd), 33, dtype, cuda)
+    k, v = _rand((B, Skv, KV, hd), 34, dtype, cuda), _rand((B, Skv, KV, hd), 35, dtype, cuda)
+    got = flash_attention(q, k, v, causal=True, window=window, q_offset=Skv - Sq)
+    want = ref.chunked_attention_ref(q, k, v, causal=True, window=window, q_offset=Skv - Sq)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_row_masked_in_first_tile(cuda, dtype):
+    """At G = 1 a block holds positions 64-127; with window 16 its first key
+    tile (0-63) is fully masked for the rows past position 78, whose state
+    (m = -1e30) the next tile's correction factor must zero, not turn NaN."""
+    B, H, S, hd = 1, 2, 128, 64
+    q, k, v = (_rand((B, S, H, hd), 36 + i, dtype, cuda) for i in range(3))
+    got = flash_attention(q, k, v, causal=True, window=16)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, ref.chunked_attention_ref(q, k, v, causal=True, window=16), ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd", [(4, 64), (4, 128), (1, 64)])
+def test_gpu_flash_attention_deterministic(cuda, G, hd):
+    """Two launches on the same inputs give the same bits (the engine's graph ==
+    eager gates rely on it), at the main path's (4, 256) shapes."""
+    B, S, KV = 4, 256, 32 // G
+    q = _rand((B, S, 32, hd), 39, "bfloat16", cuda)
+    k, v = _rand((B, S, KV, hd), 40, "bfloat16", cuda), _rand((B, S, KV, hd), 41, "bfloat16", cuda)
+    assert torch.equal(flash_attention(q, k, v, causal=True), flash_attention(q, k, v, causal=True))
 
 
 def _ssd_inputs(B, L, nh, hd, s, dtype, device, seed=20):
