@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. Device: the card's name and power limit; build the seven kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once); one line
    a library with its registers, shared memory and spills (ptxas), and the
-   HGMMA (wgmma) instructions in the SASS of the two wgmma libraries.
+   tensor-core instructions in the SASS of the four libraries redesigned
+   for Hopper: HGMMA (wgmma) in flash_attention and sketch_matmul, HMMA
+   (mma.sync) in the two decode kernels.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
    beside each check; times of the kernel, the plain version and one
@@ -58,8 +60,10 @@ Phases, in order; any failure exits non-zero before the last line:
 8. Profiles: host and device time of one captured decode block with all
    8 slots decoding (gate: all 8 active throughout), and the device's idle
    share; the profiler's trace of one block (one replay) must name the
-   paged kernel.  Then one (1, 256) prefill chunk: host time, and device
-   time split between the hand-written kernels and torch's own.
+   paged kernel, with one launch of it per paged decode call the block
+   makes (its device time beside them).  Then one (1, 256) prefill chunk:
+   host time, and device time split between the hand-written kernels and
+   torch's own.
 9. The MoE main path at full width: phi3.5-moe (d 4096, 32/8 heads,
    head_dim 128, 16 experts top-2, expert d_ff 6400, vocab 32064, untied
    head, bf16) with n_layers cut 32 -> 4, the only cut (the dense model
@@ -103,7 +107,7 @@ launches on the main run of the newest path that runs it (``launches_run``;
 every run's count beside it), bound and library time, the attention
 kernels' times at head_dim 128 and at G = 1, the sketch GEMM's at W^T @ X
 the tied logits and the untied head's logits.  The line before it gives,
-for the two kernels redesigned for Hopper, their earlier times as
+for the four kernels redesigned for Hopper, their earlier times as
 ``PERF.md`` records them (``[earlier]``: copied, not measured in the run).
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -139,11 +143,19 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
 }
 
-# the kernels this round redesigned for Hopper (their libraries' SASS must hold wgmma), and
-# their times before it as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W),
-# printed on a line of their own: they are not measured in the run
-REDESIGNED = ("flash_attention", "sketch_matmul")
+# the kernels this round redesigned for Hopper, with the tensor-core instruction their
+# libraries' SASS must hold, and their times before it as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed on a line of their own: they are not measured
+# in the run
+REDESIGNED = {"flash_attention": "HGMMA", "sketch_matmul": "HGMMA", "decode_attention": "HMMA",
+              "paged_decode_attention": "HMMA"}
 EARLIER_MS = {
+    "decode_attention B 4 S 288 hd 64 G 4 prefix mask, split + combine FMA kernels": 0.0208,
+    "decode_attention B 8 S 640 hd 128 G 4 ragged mask, split + combine FMA kernels": 0.0398,
+    "decode_attention B 8 S 640 hd 64 G 1 ragged mask, split + combine FMA kernels": 0.0502,
+    "paged_decode_attention B 8 page 64 n_tbl 10 hd 64 G 4, split + combine FMA kernels": 0.0257,
+    "paged_decode_attention B 8 page 64 n_tbl 10 hd 128 G 4, split + combine FMA kernels": 0.0350,
+    "paged_decode_attention B 8 page 64 n_tbl 10 hd 64 G 1, split + combine FMA kernels": 0.0259,
     "flash_attention (4, 256) hd 64 G 4, FMA kernel": 0.1378,
     "flash_attention (4, 256) hd 128 G 4, FMA kernel": 0.2655,
     "flash_attention (4, 256) hd 64 G 1, FMA kernel": 0.1402,
@@ -189,8 +201,9 @@ def ptxas_summary(log: str) -> str:
             f"{max(smem)} bytes; stack max {max(stack)} bytes; spill stores + loads {spills} bytes")
 
 
-def hgmma_count(so) -> "int | None":
-    """HGMMA (wgmma) instructions in a built library's SASS, or None without cuobjdump."""
+def sass_count(so, opcode: str) -> "int | None":
+    """Instructions of ``opcode`` (HGMMA: wgmma; HMMA: mma.sync) in a built
+    library's SASS, or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                      "cuobjdump")
     if not os.path.exists(tool):
@@ -198,7 +211,7 @@ def hgmma_count(so) -> "int | None":
     res = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass {so} failed: {res.stderr[-2000:]}")
-    return sum("HGMMA" in line for line in res.stdout.splitlines())
+    return sum(re.search(rf"\b{opcode}\b", line) is not None for line in res.stdout.splitlines())
 
 
 def card_line() -> str:
@@ -936,8 +949,8 @@ def device_rows(prof, per: int = 1) -> list:
 
 # the hand-written kernels' symbols, as the profiler names them
 OWN_KERNELS = re.compile(r"\b(gemm_bf16_kernel|gemm_f32_kernel|gemm_skinny_partial_kernel|gemm_skinny_reduce_kernel|"
-                         r"gemm_wgmma_kernel|flash_attention_kernel|flash_wgmma_kernel|decode::partial_kernel|"
-                         r"decode::combine_kernel|ssd_scan_kernel)\b")
+                         r"gemm_wgmma_kernel|flash_attention_kernel|flash_wgmma_kernel|decode::decode_kernel|"
+                         r"ssd_scan_kernel)\b")
 FLASH_KERNELS = re.compile(r"\b(flash_attention_kernel|flash_wgmma_kernel)\b")
 
 
@@ -1196,6 +1209,7 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import paged_decode_attention as paged_mod
     from repro_torch.serving import Engine, Request
 
     eng = Engine(model, params, **ENGINE)
@@ -1215,9 +1229,10 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         eng.step()
     wall = (time.perf_counter() - t) / blocks  # profiler off; each step ends in the block's drain
     tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
-    replays = eng.graph_replays
+    replays, calls = eng.graph_replays, paged_mod.KERNEL.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step()  # one block: the state copied in, one replay, the drain
+    calls = paged_mod.KERNEL.launches - calls  # paged decode calls in the replayed block
     if eng.graph_replays != replays + 1:
         fail("the profiled engine step did not replay the decode graph exactly once")
     if eng.n_active != ENGINE["n_slots"]:
@@ -1226,6 +1241,14 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     names = " ".join(r[2] for r in rows)
     if "PagedRows" not in names:
         fail(f"the trace of one decode-block replay does not name the paged kernel: {names[:400]}")
+    # one kernel launch a paged decode call: the trace's launches of kernels built on PagedRows
+    # equal the wrapper's calls, and no second pass (combine) runs beside them
+    paged_rows = [r for r in rows if "PagedRows" in r[2]]
+    paged_launches, paged_ms = sum(r[1] for r in paged_rows), sum(r[0] for r in paged_rows) / 1e3
+    say(f"[{tag}] paged decode: {calls} calls, {paged_launches} kernel launches in the trace "
+        f"({', '.join(sorted({r[2][:60] for r in paged_rows}))}), {paged_ms:.4f} ms device")
+    if calls <= 0 or paged_launches != calls or "combine_kernel" in names:
+        fail(f"{tag}: {calls} paged decode calls ran {paged_launches} PagedRows kernel launches (one a call expected)")
     device_ms = sum(r[0] for r in rows) / 1e3
     say(f"[{tag}] one captured decode block ({ENGINE['decode_block']} steps x {eng.n_active} active slots): "
         f"host {wall * 1e3:.3f} ms per block (profiler off, copy in + replay + drain), device busy "
@@ -1234,7 +1257,8 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     for us, n, key in rows[:12]:
         say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
     out = {"block_host_ms": wall * 1e3, "block_device_ms": device_ms,
-           "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s}
+           "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s,
+           "block_paged_ms": paged_ms, "block_paged_launches": paged_launches}
     if model.cfg.family == "moe":
         # In a moe decode block the 64x64 tiles (gemm_bf16_kernel) are the batched
         # kernel's alone: the 2-D low-rank applies (attention, the compressed
@@ -1641,11 +1665,11 @@ def main() -> int:
         log = so.with_suffix(".log")
         if log.exists():
             say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
-    for name in REDESIGNED:
-        n = hgmma_count(built[name])
-        say(f"[sass {name}] " + ("cuobjdump not found" if n is None else f"HGMMA instructions: {n}"))
+    for name, opcode in REDESIGNED.items():
+        n = sass_count(built[name], opcode)
+        say(f"[sass {name}] " + ("cuobjdump not found" if n is None else f"{opcode} instructions: {n}"))
         if n == 0:
-            fail(f"{name}: no HGMMA (wgmma) instruction in the built library")
+            fail(f"{name}: no {opcode} instruction in the built library")
     time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     t = time.perf_counter()

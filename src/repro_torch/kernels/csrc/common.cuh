@@ -34,25 +34,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { retu
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f32<T>(from_f32<T>(v)); }
 
-// Row addressing of a tile load: row r of the tile starts at base + r * stride.
-template <typename T>
-struct StridedRows {
-    const T* __restrict__ base;
-    size_t stride;
-    __device__ __forceinline__ const T* operator()(int r) const { return base + r * stride; }
-};
-
-// Copy a tile of `rows` rows x `cols` elements (row r at rows_at(r)) into
-// fp32 shared memory dst[r * dst_ld + c]; rows >= valid_rows read as 0.
+// Copy a tile of `rows` rows x `cols` elements (row r at src + r * src_stride)
+// into fp32 shared memory dst[r * dst_ld + c]; rows >= valid_rows read as 0.
 // 16-byte vector loads, eight per thread issued before any of them is
 // stored, so a thread waits out one load latency per eight chunks instead
-// of one per element.  Needs cols to be a multiple of 16 / sizeof(T) and
-// every row 16-byte aligned (the Python wrappers check).  With SCALE, each
-// value is scaled in fp32 and rounded back through T (the reference's
-// `(q.astype(f32) * scale).astype(T)`).
-template <typename T, bool SCALE = false, typename RowAt>
-__device__ __forceinline__ void load_rows_f32_at(float* dst, int dst_ld, RowAt rows_at, int rows, int valid_rows,
-                                                 int cols, float scale = 1.f) {
+// of one per element.  Needs cols and src_stride to be multiples of
+// 16 / sizeof(T) and src 16-byte aligned (the Python wrappers check).  With
+// SCALE, each value is scaled in fp32 and rounded back through T (the
+// reference's `(q.astype(f32) * scale).astype(T)`).
+template <typename T, bool SCALE = false>
+__device__ __forceinline__ void load_rows_f32(float* dst, int dst_ld, const T* __restrict__ src, size_t src_stride,
+                                              int rows, int valid_rows, int cols, float scale = 1.f) {
     constexpr int VEC = 16 / sizeof(T);
     constexpr int BATCH = 8;
     const int per_row = cols / VEC, total = rows * per_row;
@@ -62,7 +54,7 @@ __device__ __forceinline__ void load_rows_f32_at(float* dst, int dst_ld, RowAt r
         for (int j = 0; j < BATCH; ++j) {
             int i = base + j * blockDim.x;
             int r = i / per_row, c = (i % per_row) * VEC;
-            buf[j] = (i < total && r < valid_rows) ? __ldg(reinterpret_cast<const uint4*>(rows_at(r) + c))
+            buf[j] = (i < total && r < valid_rows) ? __ldg(reinterpret_cast<const uint4*>(src + r * src_stride + c))
                                                    : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
@@ -79,14 +71,6 @@ __device__ __forceinline__ void load_rows_f32_at(float* dst, int dst_ld, RowAt r
             }
         }
     }
-}
-
-// The same for rows at a fixed stride (row r at src + r * src_stride; the
-// stride a multiple of 16 / sizeof(T) and src 16-byte aligned).
-template <typename T, bool SCALE = false>
-__device__ __forceinline__ void load_rows_f32(float* dst, int dst_ld, const T* __restrict__ src, size_t src_stride,
-                                              int rows, int valid_rows, int cols, float scale = 1.f) {
-    load_rows_f32_at<T, SCALE>(dst, dst_ld, StridedRows<T>{src, src_stride}, rows, valid_rows, cols, scale);
 }
 
 // Raise a kernel's dynamic shared-memory ceiling when it needs more than

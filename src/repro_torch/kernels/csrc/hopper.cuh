@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels
-// (flash_attention.cu, sketch_matmul.cu): shared-memory addresses,
+// (flash_attention.cu, sketch_matmul.cu, and the cluster combine of
+// decode_attention.cuh): shared-memory addresses,
 // mbarriers, TMA tile loads, cluster barriers and distributed shared memory,
 // wgmma descriptors and instructions, and the host-side tensor-map encoder.
 //
@@ -116,6 +117,12 @@ __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
     uint32_t out;
     asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
     return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+    return v;
 }
 
 __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {

@@ -6,6 +6,14 @@ table, with the flat kernel's numerics; positions at or past a slot's
 the TPU kernel
 ``repro/kernels/decode_attention.py::paged_decode_attention_pallas``.
 
+The kernel is the flat kernel's (``csrc/decode_attention.cuh``: one
+launch, 16-position warp tiles over a cluster, bf16 on tensor cores, the
+clusters' partials combined through distributed shared memory) with the
+block table in place of the mask: each tile resolves its page ids before
+its copies are issued, and tiles at or past ``n_valid`` are skipped.  The
+plan is the flat kernel's at S = n_tbl * page (:func:`paged_plan`), so on
+the same logical cache the two return the same bits.
+
 On a CPU tensor the plain version (``ref.paged_decode_attention_ref``)
 runs; on a CUDA tensor the kernel launches or this raises.  The launch is
 safe to capture in a CUDA graph: no host sync, and the grid depends only on
@@ -14,22 +22,25 @@ the shapes.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import F, I, KernelLib, P, Query, check_vector_layout
+from repro_torch.kernels._build import F, I, KernelLib, P, check_vector_layout
+from repro_torch.kernels.decode_attention import DecodePlan, decode_plan, plan_groups, sm_count
 
-__all__ = ["KERNEL", "MAX_PAGE", "paged_decode_attention"]
+__all__ = ["KERNEL", "MAX_PAGE", "paged_decode_attention", "paged_plan"]
 
 MAX_PAGE = 128  # the reference's VMEM_ANALYSIS_BOUNDS["page"]
-_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, I, P]
 KERNEL = KernelLib("paged_decode_attention", {
     "paged_decode_attention_bf16": _ARGS,
     "paged_decode_attention_f32": _ARGS,
-    "paged_decode_attention_workspace_bytes": Query([I, I, I, I, I, I], ctypes.c_longlong),
 })
+
+
+def paged_plan(n_tbl: int, page: int, hd: int, vd: int, esz: int, groups: int, sms: int) -> DecodePlan:
+    """The flat kernel's plan over the table's n_tbl * page logical positions."""
+    return decode_plan(n_tbl * page, hd, vd, esz, groups, sms)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
@@ -64,11 +75,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode_attention: operands must be contiguous")
     check_vector_layout("paged_decode_attention", q, k_pool, v_pool)
+    plan = paged_plan(n_tbl, page, hd, vd, q.element_size(), plan_groups(B, KV, H // KV, vd),
+                      sm_count(q.device.index or 0))
     out = torch.empty((B, 1, H, vd), dtype=q.dtype, device=q.device)
-    # per-split (m, l, acc) partials, combined by the kernel's second pass
-    ws_bytes = KERNEL.query("paged_decode_attention_workspace_bytes", B, n_tbl, page, KV, H // KV, vd)
-    ws = torch.empty((max(ws_bytes, 4) // 4,), dtype=torch.float32, device=q.device)
     entry = "paged_decode_attention_f32" if q.dtype == torch.float32 else "paged_decode_attention_bf16"
     KERNEL.launch(entry, q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-                  n_valid.data_ptr(), ws.data_ptr(), out.data_ptr(), B, n_tbl, page, KV, H // KV, hd, vd, hd**-0.5)
+                  n_valid.data_ptr(), out.data_ptr(), B, n_tbl, page, KV, H // KV, hd, vd, hd**-0.5, *plan)
     return out

@@ -195,15 +195,41 @@ def test_gpu_lowrank_matmul_batched_refuses_bad_operands(cuda):
         lowrank_matmul_batched(x, A.transpose(1, 2).contiguous().transpose(1, 2), B)
 
 
+def _holes(B, S, device, seed=0):
+    """A (B, S) mask with fully-masked 16-position tiles between live ones
+    (the kernel skips those tiles), ragged live tiles, and a fully-masked
+    last row."""
+    rng = np.random.default_rng(seed)
+    tile_live = rng.random((B, -(-S // 16))) < 0.4
+    tile_live[:, 0] = True
+    m = np.repeat(tile_live, 16, axis=1)[:, :S] & (rng.random((B, S)) < 0.7)
+    m[:, 0] = True
+    m[-1] = False
+    return torch.from_numpy(m).to(device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,G,hd", [(45, 4, 64), (200, 1, 64), (300, 8, 64), (260, 4, 128)])
-def test_gpu_decode_attention(cuda, S, G, hd, dtype):
+@pytest.mark.parametrize("mask", ["prefix", "holes"])
+@pytest.mark.parametrize("S,G,hd,vd", [(45, 4, 64, 64), (200, 1, 64, 64), (300, 8, 64, 64), (260, 4, 128, 128),
+                                       (150, 4, 80, 80), (200, 4, 128, 64), (120, 2, 64, 128), (300, 3, 64, 64),
+                                       (300, 6, 64, 64), (1100, 4, 64, 64), (1100, 1, 128, 128), (90, 16, 16, 16),
+                                       (70, 2, 32, 320)])
+def test_gpu_decode_attention(cuda, S, G, hd, vd, mask, dtype):
+    """The flat kernel against its plain version: hd 80 (a half mma step),
+    vd != hd, G = 1, 2, 3, 4, 6, 8 and 16 (two head chunks), vd 320 (two
+    feature chunks), S = 1100 (more 64-position splits than one cluster
+    holds: warps walk several tiles); a prefix mask, and a mask with
+    fully-masked tiles between live ones.  The last row is fully masked."""
     B, KV = 3, 2
     q, k, v = (_rand(s, 6 + i, dtype, cuda) for i, s in enumerate([(B, 1, KV * G, hd), (B, S, KV, hd),
-                                                                      (B, S, KV, hd)]))
-    valid = torch.arange(S, device=cuda)[None, :] < torch.tensor([[S], [S // 3], [0]], device=cuda)
+                                                                      (B, S, KV, vd)]))
+    if mask == "prefix":
+        valid = torch.arange(S, device=cuda)[None, :] < torch.tensor([[S], [S // 3], [0]], device=cuda)
+    else:
+        valid = _holes(B, S, cuda)
     got = decode_attention(q, k, v, valid)
+    assert tuple(got.shape) == (B, 1, KV * G, vd)
     _close(got, ref.decode_attention_ref(q, k, v, valid), ATTN_TOL[dtype])
     assert bool((got[2] == 0).all())
 
@@ -265,14 +291,27 @@ def test_gpu_flash_attention_row_masked_in_first_tile(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention", "paged_decode_attention"])
 @pytest.mark.parametrize("G,hd", [(4, 64), (4, 128), (1, 64)])
-def test_gpu_flash_attention_deterministic(cuda, G, hd):
+def test_gpu_flash_attention_deterministic(cuda, G, hd, kernel):
     """Two launches on the same inputs give the same bits (the engine's graph ==
-    eager gates rely on it), at the main path's (4, 256) shapes."""
-    B, S, KV = 4, 256, 32 // G
-    q = _rand((B, S, 32, hd), 39, "bfloat16", cuda)
-    k, v = _rand((B, S, KV, hd), 40, "bfloat16", cuda), _rand((B, S, KV, hd), 41, "bfloat16", cuda)
-    assert torch.equal(flash_attention(q, k, v, causal=True), flash_attention(q, k, v, causal=True))
+    eager gates rely on it): the flash kernel at the main path's (4, 256)
+    shapes, the decode kernels at the engine's 8 slots x 640 positions (their
+    cluster combines its partials in rank order)."""
+    if kernel == "flash_attention":
+        B, S, KV = 4, 256, 32 // G
+        q = _rand((B, S, 32, hd), 39, "bfloat16", cuda)
+        k, v = _rand((B, S, KV, hd), 40, "bfloat16", cuda), _rand((B, S, KV, hd), 41, "bfloat16", cuda)
+        assert torch.equal(flash_attention(q, k, v, causal=True), flash_attention(q, k, v, causal=True))
+        return
+    q, k, v, bt, n_valid = _paged_case(64, 10, G, "bfloat16", cuda, hd=hd)
+    if kernel == "paged_decode_attention":
+        fn = lambda: paged_decode_attention(q, k, v, bt, n_valid)  # noqa: E731
+    else:
+        flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
+        valid = torch.arange(flat_k.shape[1], device=cuda)[None, :] < n_valid[:, None]
+        fn = lambda: decode_attention(q, flat_k, flat_v, valid)  # noqa: E731
+    assert torch.equal(fn(), fn())
 
 
 def _ssd_inputs(B, L, nh, hd, s, dtype, device, seed=20):
@@ -325,14 +364,14 @@ def test_gpu_ssd_scan_refuses_bad_operands(cuda):
         ssd_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, Bm, Cm, A)
 
 
-def _paged_case(page, n_tbl, G, dtype, device, *, seed=12, hd=64):
+def _paged_case(page, n_tbl, G, dtype, device, *, seed=12, hd=64, vd=None):
     """A pool with pages at permuted physical ids, a finite-poison trash page,
     ragged n_valid (crossing page boundaries) and one fully-masked row."""
     B, KV = 4, 2
     rng = np.random.default_rng(seed)
     P = B * n_tbl + 1
     q = _rand((B, 1, KV * G, hd), seed, dtype, device)
-    k, v = _rand((P, page, KV, hd), seed + 1, dtype, device), _rand((P, page, KV, hd), seed + 2, dtype, device)
+    k, v = _rand((P, page, KV, hd), seed + 1, dtype, device), _rand((P, page, KV, vd or hd), seed + 2, dtype, device)
     k[-1], v[-1] = 1e4, -1e4  # the trash page: finite poison, never attended
     bt = torch.from_numpy(rng.permutation(P - 1)[: B * n_tbl].reshape(B, n_tbl).astype(np.int32)).to(device)
     S = n_tbl * page
@@ -344,26 +383,77 @@ def _paged_case(page, n_tbl, G, dtype, device, *, seed=12, hd=64):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("page,n_tbl,G,hd", [(1, 37, 4, 64), (4, 9, 1, 64), (16, 5, 4, 64), (64, 3, 4, 64),
-                                             (128, 2, 8, 64), (48, 3, 4, 64), (64, 5, 4, 128), (16, 9, 4, 128)])
-def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, hd, dtype):
-    q, k, v, bt, n_valid = _paged_case(page, n_tbl, G, dtype, cuda, hd=hd)
+@pytest.mark.parametrize("page,n_tbl,G,hd,vd", [
+    (1, 37, 4, 64, 64), (4, 9, 1, 64, 64), (16, 5, 4, 64, 64), (64, 3, 4, 64, 64), (128, 2, 8, 64, 64),
+    (48, 3, 4, 64, 64), (64, 5, 4, 128, 128), (16, 9, 4, 128, 128),
+    (64, 5, 4, 80, 80), (16, 9, 4, 128, 64), (32, 6, 2, 64, 128),  # hd 80; vd != hd
+    (64, 5, 3, 64, 64), (32, 10, 6, 64, 64), (16, 8, 16, 16, 16),  # G = 3, 6, 16
+    (1, 1100, 4, 64, 64), (48, 23, 4, 64, 64), (128, 9, 1, 128, 128),  # pages 1, 48, 128 past one cluster
+])
+def test_gpu_paged_decode_attention(cuda, page, n_tbl, G, hd, vd, dtype):
+    """The paged kernel against its plain version (ragged n_valid: partly
+    valid last tiles and splits, a table entry past n_valid on the trash
+    page, one empty slot), at pages 1-128, hd 80, vd != hd, G = 1-16, and
+    tables longer than one cluster's 32 warp tiles."""
+    q, k, v, bt, n_valid = _paged_case(page, n_tbl, G, dtype, cuda, hd=hd, vd=vd)
     got = paged_decode_attention(q, k, v, bt, n_valid)
+    assert tuple(got.shape) == (4, 1, 2 * G, vd)
     _close(got, ref.paged_decode_attention_ref(q, k, v, bt, n_valid), ATTN_TOL[dtype])
     assert bool((got[2] == 0).all())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
-def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype, hd):
-    """At page 64 the paged kernel's splits, tiles and arithmetic are the
-    flat kernel's: on the same logical cache the outputs are equal bit for bit."""
-    q, k, v, bt, n_valid = _paged_case(64, 10, 4, dtype, cuda, hd=hd)
+@pytest.mark.parametrize("G,hd", [(4, 64), (4, 128), (1, 64)])
+def test_gpu_paged_decode_bitwise_equals_flat_at_page_64(cuda, dtype, G, hd):
+    """At page 64 the paged kernel's tiles, their order and its arithmetic
+    are the flat kernel's: on the same logical cache the outputs are equal
+    bit for bit (hd 64 and 128, and G = 1)."""
+    q, k, v, bt, n_valid = _paged_case(64, 10, G, dtype, cuda, hd=hd)
     flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
     valid = torch.arange(flat_k.shape[1], device=cuda)[None, :] < n_valid[:, None]
     got = paged_decode_attention(q, k, v, bt, n_valid)
     assert torch.equal(got, decode_attention(q, flat_k, flat_v, valid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "paged_decode_attention"])
+def test_gpu_decode_graph_replay_equals_eager(cuda, kernel, dtype):
+    """A CUDA graph captured around one decode launch, replayed after the
+    mask or n_valid changed in place (more and fewer live tiles, an empty
+    slot, a full one), returns what an eager launch on the same inputs
+    returns, bit for bit: the grid depends on the shapes alone and the
+    kernel reads the mask and the table at run time."""
+    from repro_torch.kernels import decode_attention as flat_mod
+    from repro_torch.kernels import paged_decode_attention as paged_mod
+
+    q, k, v, bt, n_valid = _paged_case(64, 10, 4, dtype, cuda, hd=64)
+    S = bt.shape[1] * 64
+    flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
+    valid = torch.arange(S, device=cuda)[None, :] < n_valid[:, None]
+    if kernel == "paged_decode_attention":
+        fn, lib = (lambda: paged_decode_attention(q, k, v, bt, n_valid)), paged_mod.KERNEL  # noqa: E731
+    else:
+        fn, lib = (lambda: decode_attention(q, flat_k, flat_v, valid)), flat_mod.KERNEL  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # build and warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = lib.captured
+    with torch.cuda.graph(graph):
+        out = fn()
+    assert lib.captured == captured + 1  # one launch a call
+    for nv in ([S, 1, 0, 65], [17, S, 300, 0], [0, 0, 0, 0], [S, S, S, S], [64, 63, 129, 640]):
+        n_valid.copy_(torch.tensor(nv, dtype=torch.int32))
+        valid.copy_(torch.arange(S, device=cuda)[None, :] < n_valid[:, None])
+        valid[1, 5:200] = False  # fully-masked tiles between live ones (the flat kernel's mask only)
+        if kernel == "paged_decode_attention":
+            valid.copy_(torch.arange(S, device=cuda)[None, :] < n_valid[:, None])
+        graph.replay()
+        assert torch.equal(out, fn())
 
 
 @pytest.mark.gpu
