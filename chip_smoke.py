@@ -2,6 +2,9 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py    # every phase; the last line is the result
+    python3 chip_smoke.py --lowrank-only [--src DIR]
+                             # phase 2's low-rank cases alone, on the package tree DIR
+                             # (another checkout's src/, to time its kernels in the same call)
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -10,13 +13,18 @@ Phases, in order; any failure exits non-zero before the last line:
 1. Device: the card's name and power limit; build the seven kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once); one line
    a library with its registers, shared memory and spills (ptxas), and the
-   tensor-core instructions in the SASS of the four libraries redesigned
-   for Hopper: HGMMA (wgmma) in flash_attention and sketch_matmul, HMMA
-   (mma.sync) in the two decode kernels.
+   tensor-core instructions in the SASS of the six libraries redesigned
+   for Hopper: HGMMA (wgmma) in flash_attention, sketch_matmul and both
+   low-rank kernels, HMMA (mma.sync) in the two decode kernels and the
+   low-rank kernel's skinny (M <= 8) path.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
    beside each check; times of the kernel, the plain version and one
-   PyTorch library call for the same function, and the card's bound.  The
+   PyTorch library call for the same function, and the card's bound (and,
+   first, what the timing reads for one and two empty launches).  The
+   low-rank kernel runs at every main-path M (4 and 8 decode, 256 the
+   engine's chunk, 1024 the static prefill) on the four llama shapes, and
+   at M 8 on phi3.5-moe's untied head and zamba2's w_x.  The
    sketch GEMM runs on operands in the storage RSI and the logits give it
    (``aligned_rows``), the library call on the same strided views; once
    more on an unaligned Y as a correctness case only; and at phi3.5-moe's
@@ -26,7 +34,11 @@ Phases, in order; any failure exits non-zero before the last line:
    row and permuted pages at pages 64, 16 and 128, and at page 64 must
    return the flat kernel's bits.  At phi3.5-moe's shapes: the batched
    low-rank kernel on one layer's expert stacks (decode w_gate and w_down,
-   one prefill), and the three attention kernels at head_dim 128.  The SSD
+   one prefill) with every capacity row live, then the decode stacks at
+   the decode occupancy (8 tokens x top-2, numpy seed 0) and a skewed one
+   (16 assignments on 2 experts), rows past each count zero (and zero in
+   the output); their bound counts the live experts' factors, x read once
+   and y written whole.  Then the three attention kernels at head_dim 128.  The SSD
    scan kernel against its plain version at zamba2-1.2b's and
    mamba2-130m's shapes (a prime length and one shorter than a chunk
    among them), under both x̄ contracts, y and the final state; and the
@@ -61,7 +73,9 @@ Phases, in order; any failure exits non-zero before the last line:
    8 slots decoding (gate: all 8 active throughout), and the device's idle
    share; the profiler's trace of one block (one replay) must name the
    paged kernel, with one launch of it per paged decode call the block
-   makes (its device time beside them).  Then one (1, 256) prefill chunk:
+   makes (its device time beside them), and at most two low-rank launches
+   per low-rank call (one a stage) with no split-K reduce pass.  Then one
+   (1, 256) prefill chunk:
    host time, and device time split between the hand-written kernels and
    torch's own.
 9. The MoE main path at full width: phi3.5-moe (d 4096, 32/8 heads,
@@ -78,7 +92,8 @@ Phases, in order; any failure exits non-zero before the last line:
    monolithic check replays the monolithic routing under a capacity that
    drops nothing.  Gate also: no linear of the main run left the kernels.
 12. Phase 8's decode-block profile on the MoE model, with the batched
-   kernel's share of the device time.
+   kernel's share of the device time (its liveness pass and its expert
+   tiles, three launches a call; the trace must name them).
 13. The SSM main path at full width and depth: zamba2-1.2b (38 Mamba2
    layers, d 2048, d_inner 4096, 64 SSD heads of 64, state 64; one shared
    attention+MLP block, 32/32 heads, applied 6 times; vocab 32000, untied
@@ -106,9 +121,12 @@ The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
 every run's count beside it), bound and library time, the attention
 kernels' times at head_dim 128 and at G = 1, the sketch GEMM's at W^T @ X
-the tied logits and the untied head's logits.  The line before it gives,
-for the four kernels redesigned for Hopper, their earlier times as
-``PERF.md`` records them (``[earlier]``: copied, not measured in the run).
+the tied logits and the untied head's logits, the low-rank kernel's at M 8,
+256 and 1024 and the batched kernel's at the decode and skewed
+occupancies.  The line before it gives, for the six kernels redesigned for
+Hopper, their earlier times as ``PERF.md`` records them (``[earlier]``:
+copied, not measured in the run; the parent's kernels are timed by
+``--lowrank-only --src`` in the same call).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -124,7 +142,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "src"))
+# --src DIR: the package tree to import (default this checkout's src/), so that
+# --lowrank-only can time another checkout's low-rank kernels in the same call
+SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]) if "--src" in sys.argv else os.path.join(HERE, "src")
+sys.path.insert(0, SRC)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 outside them
@@ -143,12 +164,13 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
 }
 
-# the kernels this round redesigned for Hopper, with the tensor-core instruction their
+# the kernels this round redesigned for Hopper, with the tensor-core instructions their
 # libraries' SASS must hold, and their times before it as PERF.md section 6 records them
 # (NVIDIA H100 80GB HBM3, 700.00 W), printed on a line of their own: they are not measured
 # in the run
-REDESIGNED = {"flash_attention": "HGMMA", "sketch_matmul": "HGMMA", "decode_attention": "HMMA",
-              "paged_decode_attention": "HMMA"}
+REDESIGNED = {"flash_attention": ("HGMMA",), "sketch_matmul": ("HGMMA",), "decode_attention": ("HMMA",),
+              "paged_decode_attention": ("HMMA",), "lowrank_matmul": ("HMMA", "HGMMA"),
+              "lowrank_matmul_batched": ("HGMMA",)}
 EARLIER_MS = {
     "decode_attention B 4 S 288 hd 64 G 4 prefix mask, split + combine FMA kernels": 0.0208,
     "decode_attention B 8 S 640 hd 128 G 4 ragged mask, split + combine FMA kernels": 0.0398,
@@ -160,6 +182,8 @@ EARLIER_MS = {
     "flash_attention (4, 256) hd 128 G 4, FMA kernel": 0.2655,
     "flash_attention (4, 256) hd 64 G 1, FMA kernel": 0.1402,
     "sketch_matmul 2048x8192 @ 8192x615, WMMA tiles, Y at row stride 615": 0.3700,
+    "lowrank_matmul M 4 2048x615x8192, split-K FMA partial + reduce passes": 0.0330,
+    "lowrank_matmul_batched 16 x C 128 4096x1229x6400 every row live, 64x64 WMMA tiles": 0.5303,
 }
 
 # the MoE main path (phases 9-12): phi3.5-moe at full width, depth cut 32 -> 4
@@ -249,6 +273,19 @@ def time_ms(fn, *, iters: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def launch_floor() -> dict:
+    """What ``time_ms`` reads for one and for two back-to-back launches of an
+    empty kernel (an 8-element add): the floor under every kernel time of
+    phase 2, printed beside them."""
+    import torch
+
+    tiny = torch.zeros(8, device="cuda")
+    floor = {"one_launch_ms": time_ms(lambda: tiny.add_(1)),
+             "two_launches_ms": time_ms(lambda: (tiny.add_(1), tiny.add_(1)))}
+    say("[launch floor] " + json.dumps(floor))
+    return floor
+
+
 def bound(bytes_moved: float, ops: float, dtype_name: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype_name]
@@ -263,10 +300,11 @@ def nbytes(*ts) -> int:
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------------- #
 def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn, library_fn, bytes_moved, ops,
-          records, key=None):
+          records, key=None, extra=None):
     """Compare, time, and print one JSON line; keep the first bf16 case of
     each kernel (its main-path representative) for the summary, under
-    ``key`` (default the kernel's name)."""
+    ``key`` (default the kernel's name).  ``extra``: more fields of the
+    record (another bound, the occupancy)."""
     import torch
 
     torch.cuda.synchronize()
@@ -280,13 +318,161 @@ def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn
         "tol_reason": reason, "ok": ok,
         "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
         "library_ms": time_ms(library_fn) if library_fn is not None else None,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, **(extra or {}),
     }
     say(json.dumps(rec))
     if not ok:
         fail(f"{name} {shape} {dname}: max abs err {err:.3e} > tol {rel_tol * scale:.3e}")
     if (key is not None or dname == "bfloat16") and (key or name) not in records:
         records[key or name] = rec
+
+
+# the 2-D low-rank kernel's main-path shapes (K, r, N): llama's wq/wo, wk/wv, w_gate/w_up and
+# w_down at alpha 0.3; phi3.5-moe's compressed untied head (M = 8 slots); zamba2's w_x
+LOWRANK_LLAMA = [(2048, 615, 8192), (2048, 615, 2048), (2048, 154, 512), (8192, 615, 2048)]
+LOWRANK_M = (4, 8, 256, 1024)  # the static decode, the engine's decode, its prefill chunk, the static prefill
+LOWRANK_OTHER = [(8, 4096, 1229, 32064, "phi3.5-moe untied head"), (8, 2048, 615, 4096, "zamba2 w_x")]
+# the batched kernel at phi3.5-moe's shapes: 16 experts, rank 1229 (ceil(0.3 * 4096)); (C, K, N)
+BATCHED_SHAPES = [(128, 4096, 6400, "decode w_gate"), (128, 6400, 4096, "decode w_down"), (640, 4096, 6400, "prefill")]
+MOE_E, MOE_R, MOE_SLOTS, MOE_TOPK = 16, 1229, 8, 2
+
+
+def moe_decode_counts(occupancy: str):
+    """Capacity rows filled per expert: "full" every row; "decode" phi3.5-moe's
+    decode occupancy, 8 tokens x top-2 distinct experts drawn with numpy seed
+    0; "skewed" all 16 assignments on 2 experts (the synthetic router's skew)."""
+    import numpy as np
+
+    if occupancy == "decode":
+        rng = np.random.default_rng(0)
+        ids = np.stack([rng.choice(MOE_E, size=MOE_TOPK, replace=False) for _ in range(MOE_SLOTS)])
+        return np.bincount(ids.reshape(-1), minlength=MOE_E)
+    if occupancy == "skewed":
+        counts = np.zeros(MOE_E, dtype=np.int64)
+        counts[[3, 11]] = MOE_SLOTS
+        return counts
+    return None
+
+
+def gemm_tolerances() -> dict:
+    """{dtype: (relative tolerance, reason)} of the GEMM kernels against their plain versions."""
+    import torch
+
+    return {torch.bfloat16: (1e-2, "bf16 outputs (and the rounded x@A) may land one ulp (2^-8) apart "
+                             "where fp32 sums in another order straddle a rounding boundary"),
+            torch.float32: (1e-4, "fp32 sums over up to 8192 terms in another order than cuBLAS")}
+
+
+def phase_lowrank_kernels(rnd, gemm_tol, records):
+    """lowrank_matmul at every main-path M (4 and 8 decode, 256 the engine's
+    chunk, 1024 the static prefill) on the four llama shapes in bf16, the phi
+    head and a zamba2 projection at M 8, and at M 4 and 1024 in fp32; factors
+    in the storage the model keeps them in (core/lowrank.lowrank_params)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+
+    cases = [(torch.bfloat16, M, K, r, N, None) for M in LOWRANK_M for K, r, N in LOWRANK_LLAMA]
+    cases += [(torch.bfloat16, M, K, r, N, label) for M, K, r, N, label in LOWRANK_OTHER]
+    cases += [(torch.float32, M, K, r, N, None) for M in (4, 1024) for K, r, N in LOWRANK_LLAMA]
+    for dtype, M, K, r, N, label in cases:
+        rel, why = gemm_tol[dtype]
+        x, A, B = rnd((M, K), dtype), aligned_rows(rnd((K, r), dtype)), aligned_rows(rnd((r, N), dtype))
+        got = lowrank_matmul(x, A, B)
+        # each M's w_gate case is its summary row (M 4 under the kernel's own name)
+        key = None if dtype != torch.bfloat16 or (K, r, N) != LOWRANK_LLAMA[0] or label else (
+            "lowrank_matmul" if M == LOWRANK_M[0] else f"lowrank_matmul M {M}")
+        check("lowrank_matmul", [M, K, r, N] + ([label] if label else []), dtype, got,
+              ref.lowrank_matmul_ref(x, A, B), rel, why,
+              kernel_fn=lambda: lowrank_matmul(x, A, B),
+              plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+              library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
+              bytes_moved=nbytes(x, A, B) + M * N * x.element_size(),
+              ops=2 * M * K * r + 2 * M * r * N, records=records if key else {}, key=key)
+        del x, A, B, got
+    torch.cuda.empty_cache()
+
+
+def phase_batched_kernels(rnd, gemm_tol, records):
+    """lowrank_matmul_batched on one layer's expert stacks at phi3.5-moe's
+    shapes (factors as a view of a row-padded (L, E, K, r) leaf): every
+    capacity row live (bf16 and fp32), then in bf16 at the decode occupancy
+    and a skewed one, rows past each expert's count exact zeros.  The bound
+    of an occupancy counts what its inputs need: the factors of the experts
+    with a live row, x read once, y written whole (``bound_all_ms``: every
+    expert's factors)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
+
+    dev = torch.device("cuda")
+    E, r = MOE_E, MOE_R
+    cases = [(dtype, C, K, N, label, "full") for dtype in (torch.bfloat16, torch.float32)
+             for C, K, N, label in BATCHED_SHAPES]
+    cases += [(torch.bfloat16, C, K, N, label, occ) for occ in ("decode", "skewed")
+              for C, K, N, label in BATCHED_SHAPES[:2]]
+    for dtype, C, K, N, label, occ in cases:
+        rel, why = gemm_tol[dtype]
+        x = rnd((E, C, K), dtype)
+        counts = moe_decode_counts(occ)
+        if counts is not None:  # rows past each count: exact zeros, as models/moe.py leaves them
+            live = torch.arange(C, device=dev)[None, :] < torch.as_tensor(counts, device=dev)[:, None]
+            x = torch.where(live[..., None], x, torch.zeros((), dtype=dtype, device=dev))
+        n_live = E if counts is None else int((counts > 0).sum())
+        rows = E * C if counts is None else int(counts.sum())
+        # one layer's slice of an (L, E, K, r) factor leaf, stored as compress_tree stores it
+        A = aligned_rows(rnd((1, E, K, r), dtype))[0]
+        B = aligned_rows(rnd((1, E, r, N), dtype))[0]
+        got = lowrank_matmul_batched(x, A, B)
+        want = ref.lowrank_matmul_ref(x, A, B)
+        if counts is not None and not bool((got[~live] == 0).all()):
+            fail(f"lowrank_matmul_batched {label} at the {occ} occupancy: a row past its expert's count is not zero")
+        esz = x.element_size()
+        factor = (K * r + r * N) * esz  # one expert's factors
+        xy = nbytes(x) + E * C * N * esz
+        all_ms, all_by = bound(E * factor + xy, 2 * E * C * (K * r + r * N), str(dtype).replace("torch.", ""))
+        key = f"lowrank_matmul_batched {occ}" if occ != "full" and label == "decode w_gate" else None
+        check("lowrank_matmul_batched", [E, C, K, r, N, label, f"{occ} occupancy"], dtype, got, want, rel, why,
+              kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
+              plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+              library_fn=lambda: torch.bmm(torch.bmm(x, A), B),  # bmm rounds t to x's dtype, as the kernel
+              bytes_moved=n_live * factor + xy, ops=2 * rows * (K * r + r * N),
+              records=records if occ == "full" or key else {}, key=key,
+              extra={"live_experts": n_live, "live_rows": rows, "bound_all_ms": all_ms, "bound_all_by": all_by})
+        del x, A, B, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_lowrank_only() -> int:
+    """``--lowrank-only``: phase 2's low-rank cases alone, on the tree ``--src``
+    names (another checkout's kernels, timed in the same call as this one's)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"[lowrank-only] {card_line()}; package tree {SRC}")
+    build_all(["lowrank_matmul", "lowrank_matmul_batched"])
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    launch_floor()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    records: dict = {}
+    phase_lowrank_kernels(rnd, gemm_tolerances(), records)
+    phase_batched_kernels(rnd, gemm_tolerances(), records)
+    say("[lowrank-only] " + json.dumps({k: {f: v[f] for f in ("shape", "ms", "library_ms", "bound_ms")}
+                                        for k, v in records.items()}))
+    return 0
 
 
 def phase_kernels() -> dict:
@@ -297,7 +483,6 @@ def phase_kernels() -> dict:
     from repro_torch.kernels._build import aligned_rows
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
     from repro_torch.kernels.sketch_matmul import sketch_matmul
 
     dev = torch.device("cuda")
@@ -308,30 +493,15 @@ def phase_kernels() -> dict:
         return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
 
     records: dict = {}
-    gemm_tol = {torch.bfloat16: (1e-2, "bf16 outputs (and the rounded x@A) may land one ulp (2^-8) apart "
-                                 "where fp32 sums in another order straddle a rounding boundary"),
-                torch.float32: (1e-4, "fp32 sums over up to 8192 terms in another order than cuBLAS")}
+    launch_floor()
+    gemm_tol = gemm_tolerances()
     attn_tol = {torch.bfloat16: (2e-2, "bf16: p is rounded before PV (unnormalized in the kernel, "
                                  "normalized in the plain decode version) and the output is rounded"),
                 torch.float32: (1e-4, "fp32 online softmax vs one-pass softmax, another summation order")}
 
-    # the main path's (K, r, N): wq/wo, wk/wv, w_gate/w_up, w_down at alpha 0.3
-    ranks = [(2048, 615, 8192), (2048, 615, 2048), (2048, 154, 512), (8192, 615, 2048)]
+    phase_lowrank_kernels(rnd, gemm_tol, records)
     for dtype in (torch.bfloat16, torch.float32):
         rel, why = gemm_tol[dtype]
-        for M in (4, 1024):
-            for K, r, N in ranks:
-                # factors in the storage the model keeps them in (core/lowrank.lowrank_params)
-                x, A, B = rnd((M, K), dtype), aligned_rows(rnd((K, r), dtype)), aligned_rows(rnd((r, N), dtype))
-                got = lowrank_matmul(x, A, B)
-                check("lowrank_matmul", [M, K, r, N], dtype, got, ref.lowrank_matmul_ref(x, A, B), rel, why,
-                      kernel_fn=lambda: lowrank_matmul(x, A, B),
-                      plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
-                      library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-                      bytes_moved=nbytes(x, A, B) + M * N * x.element_size(),
-                      ops=2 * M * K * r + 2 * M * r * N, records=records)
-                del x, A, B, got
-
         # RSI's sketch GEMMs on a w_gate-sized W: W @ Y and W^T @ X at l = 615, with Y and X in
         # the storage core/rsi.py gives them (aligned_rows: row stride 616); torch.matmul gets
         # the same strided views.  Then once more on a contiguous (unaligned, row stride 615)
@@ -447,32 +617,13 @@ def phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels._build import aligned_rows
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 
-    dev = torch.device("cuda")
-    E, r = 16, 1229  # ceil(0.3 * 4096)
-    shapes = [(128, 4096, 6400), (128, 6400, 4096), (640, 4096, 6400)]  # decode w_gate, decode w_down, prefill
-    for dtype in (torch.bfloat16, torch.float32):
-        rel, why = gemm_tol[dtype]
-        for C, K, N in shapes:
-            x = rnd((E, C, K), dtype)
-            # one layer's slice of an (L, E, K, r) factor leaf, stored as compress_tree stores it
-            A = aligned_rows(rnd((1, E, K, r), dtype))[0]
-            B = aligned_rows(rnd((1, E, r, N), dtype))[0]
-            got = lowrank_matmul_batched(x, A, B)
-            check("lowrank_matmul_batched", [E, C, K, r, N], dtype, got, ref.lowrank_matmul_ref(x, A, B), rel, why,
-                  kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
-                  plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
-                  library_fn=lambda: torch.bmm(torch.bmm(x, A), B),  # bmm rounds t to x's dtype, as the kernel
-                  bytes_moved=nbytes(x, A, B) + E * C * N * x.element_size(),
-                  ops=2 * E * C * (K * r + r * N), records=records)
-            del x, A, B, got
-    torch.cuda.empty_cache()
+    phase_batched_kernels(rnd, gemm_tol, records)
 
+    dev = torch.device("cuda")
     phi: dict = {}
     H, KV, hd = 32, 8, 128
     Bq = ENGINE["n_slots"]
@@ -947,10 +1098,35 @@ def device_rows(prof, per: int = 1) -> list:
     return rows
 
 
+def device_busy_ms(prof, per: int = 1) -> float:
+    """Device busy time of a ``torch.profiler`` trace in ms, divided by ``per``
+    runs: the union of its device events' intervals.  Kernels may overlap
+    (the skinny low-rank kernel is a programmatic dependent launch, resident
+    while the kernel before it ends), so the sum of their times can exceed
+    the time the device was busy."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        fail("the profiler trace holds no device event with a time range")
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3 / per
+
+
 # the hand-written kernels' symbols, as the profiler names them
-OWN_KERNELS = re.compile(r"\b(gemm_bf16_kernel|gemm_f32_kernel|gemm_skinny_partial_kernel|gemm_skinny_reduce_kernel|"
-                         r"gemm_wgmma_kernel|flash_attention_kernel|flash_wgmma_kernel|decode::decode_kernel|"
-                         r"ssd_scan_kernel)\b")
+OWN_KERNELS = re.compile(r"\b(gemm_f32_kernel|gemm_kernel|expert_gemm_kernel|live_rows_kernel|skinny_kernel|"
+                         r"flash_attention_kernel|flash_wgmma_kernel|decode::decode_kernel|ssd_scan_kernel)\b")
+# the low-rank kernels' launches in a trace: the skinny decode kernel, the wgmma tiles of the
+# 2-D kernel and of the sketch GEMM (one symbol), the expert stacks' tiles and liveness pass
+SKINNY_KERNEL = re.compile(r"\bskinny_kernel\b")
+TILE_KERNEL = re.compile(r"\bgemm_kernel\b")
+EXPERT_KERNELS = re.compile(r"\b(expert_gemm_kernel|live_rows_kernel)\b")
 FLASH_KERNELS = re.compile(r"\b(flash_attention_kernel|flash_wgmma_kernel)\b")
 
 
@@ -975,7 +1151,7 @@ def phase_profile(model, params, batch, steps: int = 4):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_prof = run(PROMPT + steps)
     rows = device_rows(prof, steps)
-    device_ms = sum(r[0] for r in rows) / 1e3
+    device_ms = device_busy_ms(prof, steps) if rows else 0.0
     if not rows:
         say(f"[profile] q=4 decode step: wall {wall * 1e3:.3f} ms; device time not measured (no CUDA events)")
         return
@@ -1042,13 +1218,14 @@ def serve(model, params, label, *, libs, tag: str = "engine", **kw):
 
 
 def no_align_copies(what: str) -> None:
-    """Fail unless the sketch GEMM's wrapper copied no operand into aligned
-    rows since its count was last reset: the main path hands TMA its operands
-    in place."""
-    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
+    """Fail unless the TMA kernels' wrappers (sketch_matmul, lowrank_matmul,
+    lowrank_matmul_batched) copied no operand into aligned rows since the
+    shared count was last reset: the main path hands TMA its operands in
+    place."""
+    from repro_torch.kernels._build import ALIGN_COPIES
 
     if ALIGN_COPIES.count:
-        fail(f"{what}: the sketch_matmul wrapper copied {ALIGN_COPIES.count} operands into aligned rows")
+        fail(f"{what}: the TMA kernels' wrappers copied {ALIGN_COPIES.count} operands into aligned rows")
 
 
 def engine_libs() -> dict:
@@ -1209,7 +1386,10 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import lowrank_matmul as lowrank_mod
+    from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
+    from repro_torch.kernels import sketch_matmul as sketch_mod
     from repro_torch.serving import Engine, Request
 
     eng = Engine(model, params, **ENGINE)
@@ -1229,10 +1409,12 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         eng.step()
     wall = (time.perf_counter() - t) / blocks  # profiler off; each step ends in the block's drain
     tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
-    replays, calls = eng.graph_replays, paged_mod.KERNEL.launches
+    libs = (paged_mod.KERNEL, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL)
+    replays, before = eng.graph_replays, [lib.launches for lib in libs]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step()  # one block: the state copied in, one replay, the drain
-    calls = paged_mod.KERNEL.launches - calls  # paged decode calls in the replayed block
+    # wrapper calls in the replayed block (graph launches count once per replay)
+    calls, lowrank_calls, sketch_calls, batched_calls = (lib.launches - b for lib, b in zip(libs, before))
     if eng.graph_replays != replays + 1:
         fail("the profiled engine step did not replay the decode graph exactly once")
     if eng.n_active != ENGINE["n_slots"]:
@@ -1249,25 +1431,42 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         f"({', '.join(sorted({r[2][:60] for r in paged_rows}))}), {paged_ms:.4f} ms device")
     if calls <= 0 or paged_launches != calls or "combine_kernel" in names:
         fail(f"{tag}: {calls} paged decode calls ran {paged_launches} PagedRows kernel launches (one a call expected)")
-    device_ms = sum(r[0] for r in rows) / 1e3
+    # the 2-D low-rank calls (decode: M = 8 slots, the skinny kernel): at most two launches a
+    # call (one a stage), no reduce pass; the wgmma tiles' symbol is the sketch GEMM's too
+    skinny = sum(r[1] for r in rows if SKINNY_KERNEL.search(r[2]))
+    lowrank_launches = skinny + sum(r[1] for r in rows if TILE_KERNEL.search(r[2])) - sketch_calls
+    lowrank_ms = sum(r[0] for r in rows if SKINNY_KERNEL.search(r[2])) / 1e3
+    say(f"[{tag}] low-rank: {lowrank_calls} calls, {lowrank_launches} kernel launches in the trace ({skinny} of "
+        f"the skinny kernel, {lowrank_ms:.4f} ms device); sketch GEMM calls {sketch_calls}")
+    if lowrank_calls <= 0 or lowrank_launches > 2 * lowrank_calls or lowrank_launches <= 0:
+        fail(f"{tag}: {lowrank_calls} low-rank calls ran {lowrank_launches} launches (at most two a call expected)")
+    if "gemm_skinny_reduce_kernel" in names:
+        fail(f"{tag}: the trace still holds a split-K reduce pass (gemm_skinny_reduce_kernel)")
+    device_ms, kernel_ms = device_busy_ms(prof), sum(r[0] for r in rows) / 1e3
     say(f"[{tag}] one captured decode block ({ENGINE['decode_block']} steps x {eng.n_active} active slots): "
         f"host {wall * 1e3:.3f} ms per block (profiler off, copy in + replay + drain), device busy "
-        f"{device_ms:.3f} ms (profiler, one block); idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}; "
+        f"{device_ms:.3f} ms (profiler, one block; its kernels' times sum to {kernel_ms:.3f} ms, overlap "
+        f"counted twice); idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}; "
         f"{eng.decoded_tokens - tok0} tokens decoded in the {blocks} timed blocks = {tok_s:.1f} tok/s")
     for us, n, key in rows[:12]:
         say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
-    out = {"block_host_ms": wall * 1e3, "block_device_ms": device_ms,
+    out = {"block_host_ms": wall * 1e3, "block_device_ms": device_ms, "block_kernel_sum_ms": kernel_ms,
            "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s,
-           "block_paged_ms": paged_ms, "block_paged_launches": paged_launches}
+           "block_paged_ms": paged_ms, "block_paged_launches": paged_launches,
+           "block_lowrank_calls": lowrank_calls, "block_lowrank_launches": lowrank_launches,
+           "block_lowrank_ms": lowrank_ms}
     if model.cfg.family == "moe":
-        # In a moe decode block the 64x64 tiles (gemm_bf16_kernel) are the batched
-        # kernel's alone: the 2-D low-rank applies (attention, the compressed
-        # head) run at M = 8 slots, on the split-K skinny path.
-        tiles = [r for r in rows if "gemm_bf16_kernel" in r[2]]
+        # the batched kernel's own symbols: its liveness pass and its expert-stack tiles
+        tiles = [r for r in rows if EXPERT_KERNELS.search(r[2])]
+        if not tiles or batched_calls <= 0:
+            fail(f"{tag}: the trace names no launch of the batched kernel ({batched_calls} calls): {names[:400]}")
         out["batched_ms"] = sum(r[0] for r in tiles) / 1e3
         out["batched_launches"] = sum(r[1] for r in tiles)
-        say(f"[{tag}] the batched kernel's tiles: {out['batched_ms']:.3f} ms of {device_ms:.3f} ms device "
-            f"({out['batched_ms'] / device_ms:.3f}), {out['batched_launches']} launches (two per call)")
+        say(f"[{tag}] the batched kernel: {out['batched_ms']:.3f} ms of {device_ms:.3f} ms device "
+            f"({out['batched_ms'] / device_ms:.3f}), {out['batched_launches']} launches over {batched_calls} calls "
+            f"(a liveness pass and two stages a call)")
+        if out["batched_launches"] != 3 * batched_calls:
+            fail(f"{tag}: {batched_calls} batched calls ran {out['batched_launches']} launches (three a call)")
     return out
 
 
@@ -1300,7 +1499,7 @@ def phase_chunk_profile(model, params, calls: int = 5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(1)
     rows = device_rows(prof)
-    device_ms = sum(r[0] for r in rows) / 1e3
+    device_ms = device_busy_ms(prof)
     own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
     n_launch = sum(r[1] for r in rows)
     cpu_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
@@ -1624,7 +1823,7 @@ def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str 
         fail(f"{tag}: one prefill launched ssd_scan {ssd_scan.KERNEL.launches - before} times, "
              f"not once per layer ({model.cfg.n_layers})")
     rows = device_rows(prof)
-    device_ms = sum(r[0] for r in rows) / 1e3
+    device_ms = device_busy_ms(prof)
     ssd_ms = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2]) / 1e3
     flash_ms = sum(r[0] for r in rows if FLASH_KERNELS.search(r[2])) / 1e3
     own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
@@ -1646,6 +1845,8 @@ def main() -> int:
         import torch
     except ImportError:
         fail("torch is not installed")
+    if "--lowrank-only" in sys.argv:
+        return phase_lowrank_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -1665,11 +1866,12 @@ def main() -> int:
         log = so.with_suffix(".log")
         if log.exists():
             say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
-    for name, opcode in REDESIGNED.items():
-        n = sass_count(built[name], opcode)
-        say(f"[sass {name}] " + ("cuobjdump not found" if n is None else f"{opcode} instructions: {n}"))
-        if n == 0:
-            fail(f"{name}: no {opcode} instruction in the built library")
+    for name, opcodes in REDESIGNED.items():
+        for opcode in opcodes:
+            n = sass_count(built[name], opcode)
+            say(f"[sass {name}] " + ("cuobjdump not found" if n is None else f"{opcode} instructions: {n}"))
+            if n == 0:
+                fail(f"{name}: no {opcode} instruction in the built library")
     time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     t = time.perf_counter()
@@ -1737,9 +1939,13 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"], "dtype": r["dtype"]}
         # the attention kernels at phi's head_dim 128 and zamba2's G = 1; the sketch GEMM's
-        # W^T @ X, tied logits and untied head
+        # W^T @ X, tied logits and untied head; the low-rank kernel's w_gate at M 8, 256 and
+        # 1024; the batched kernel at the decode and the skewed occupancy
         subs = (("hd128", phi, name), ("g1", g1, name), ("trans_a", records, f"{name} trans_a"),
-                ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"))
+                ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"),
+                ("m8", records, f"{name} M 8"), ("m256", records, f"{name} M 256"),
+                ("m1024", records, f"{name} M 1024"), ("decode_occupancy", records, f"{name} decode"),
+                ("skewed_occupancy", records, f"{name} skewed"))
         for key, sub, rec_key in subs:
             if rec_key in sub:
                 entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",

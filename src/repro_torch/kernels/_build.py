@@ -9,7 +9,9 @@ hash of the sources and flags, so an edited source is rebuilt.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Also holds the checks every wrapper shares: device, dtype, layout, and the
-CUDA error code each C entry point returns.
+CUDA error code each C entry point returns; the SM count the launch plans
+take; and the copies into aligned rows that the TMA kernels' wrappers make
+(:func:`tma_ready`, counted in :data:`ALIGN_COPIES`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import functools
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
@@ -30,7 +33,6 @@ __all__ = [
     "BUILD_DIR",
     "KernelLib",
     "kernel_libs",
-    "Query",
     "CSRC",
     "nvcc_path",
     "library",
@@ -43,6 +45,9 @@ __all__ = [
     "row_stride",
     "stack_strides",
     "check_vector_layout",
+    "sm_count",
+    "ALIGN_COPIES",
+    "tma_ready",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -177,7 +182,7 @@ class KernelLib:
                 for entry, argtypes in self._entries.items():
                     fn = getattr(lib, entry)
                     fn.argtypes = list(argtypes)
-                    fn.restype = getattr(argtypes, "restype", ctypes.c_int)
+                    fn.restype = ctypes.c_int
                     fns[entry] = fn
                 self._fns = (lib, fns)
             return self._fns
@@ -192,10 +197,6 @@ class KernelLib:
                 self._captured += 1
             else:
                 self._launches += 1
-
-    def query(self, entry: str, *args):
-        """Call a host-only C entry (a workspace size, say); not a launch."""
-        return self._bound()[1][entry](*args)
 
     @property
     def launches(self) -> int:
@@ -222,14 +223,6 @@ def kernel_libs() -> list:
     """Every :class:`KernelLib` created so far (one per kernel wrapper module)."""
     with _LOCK:
         return list(_REGISTRY)
-
-
-class Query(list):
-    """Argument types of a host-only C entry, with its return type."""
-
-    def __init__(self, argtypes: list, restype):
-        super().__init__(argtypes)
-        self.restype = restype
 
 
 def row_stride(t: torch.Tensor, what: str) -> int:
@@ -298,4 +291,54 @@ def aligned_rows(t: torch.Tensor) -> torch.Tensor:
     ld = -(-cols // 8) * 8
     out = torch.empty(t.shape[:-1] + (ld,), dtype=t.dtype, device=t.device)[..., :cols]
     out.copy_(t)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launch plans' input)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class _CopyCount:
+    """Operands a wrapper copied into 16-byte aligned rows before a launch."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0  # guarded by: _lock
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+# every operand the TMA kernels' wrappers (sketch_matmul, lowrank_matmul,
+# lowrank_matmul_batched) copied because TMA could not read it in place
+ALIGN_COPIES = _CopyCount()
+
+
+def tma_ready(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``t`` itself when TMA can read it in place (16-byte aligned base, row
+    stride and, for a 3-D stack, stack stride: multiples of 8 elements), else
+    a counted copy in such storage (:func:`aligned_rows`)."""
+    if t.dim() == 3:
+        ld, st = stack_strides(t, what)
+        ok = ld % 8 == 0 and st % 8 == 0
+    else:
+        ok = row_stride(t, what) % 8 == 0
+    if t.data_ptr() % 16 == 0 and ok:
+        return t
+    ALIGN_COPIES.add()
+    out = aligned_rows(t)
+    if out is t:  # aligned strides on a misaligned base: a fresh allocation is aligned
+        out = aligned_rows(t.clone())
     return out

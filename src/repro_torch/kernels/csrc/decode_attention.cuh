@@ -72,6 +72,9 @@
 namespace repro {
 namespace decode {
 
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma_16816;
 using hopper::smem_u32;
 
 constexpr int TP = 16;            // positions a warp tile (the mma's M)
@@ -99,7 +102,7 @@ inline size_t smem_bytes(int warps, int stages, int hd, int vd, int esz) {
 }
 
 // ---------------------------------------------------------------------------
-// cp.async, ldmatrix, mma.sync
+// cp.async (ldmatrix and mma.sync are hopper.cuh's)
 // ---------------------------------------------------------------------------
 // 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
@@ -111,27 +114,6 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-// d += a (16x16, row) . b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float warp_max(float x, int from) {
     for (int o = from; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

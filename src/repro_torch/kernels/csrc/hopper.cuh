@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels
-// (flash_attention.cu, sketch_matmul.cu, and the cluster combine of
-// decode_attention.cuh): shared-memory addresses,
+// (flash_attention.cu, the wgmma GEMM of gemm_wgmma.cuh, the skinny GEMM of
+// lowrank_matmul.cu, and the cluster combine of decode_attention.cuh):
+// shared-memory addresses,
 // mbarriers, TMA tile loads, cluster barriers and distributed shared memory,
 // wgmma descriptors and instructions, and the host-side tensor-map encoder.
 //
@@ -38,6 +39,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
     uint32_t a = smem_u32(p);
     return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// The byte offset, inside a 1024-byte aligned tile that TMA wrote with a
+// `SW`-byte swizzle (32, 64 or 128), of logical byte offset `o`: the 16-byte
+// chunk bits [4, 4 + log2(SW / 16)) are XORed with the bits above the 128-byte line.
+template <int SW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+    return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -93,6 +102,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :
+        : "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
     asm volatile(
@@ -132,6 +150,41 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
                  : "r"(addr)
                  : "memory");
     return v;
+}
+
+// ---------------------------------------------------------------------------
+// Programmatic dependent launch: a kernel launched with the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it on the stream still runs, once every block of that one
+// has called launch_dependents (or exited); it must call grid_dependency_wait
+// before it touches memory the earlier kernel writes or reads.  Without the
+// attribute both are no-ops.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void launch_dependents() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
+// ldmatrix, mma.sync (m16n8k16, bf16 in, fp32 accumulate)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+// d += a (16x16, row) . b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -220,6 +273,42 @@ struct WgmmaSS<160, TA, TB> {
               "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
               "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
               "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+            : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
+            : "memory");
+    }
+};
+
+template <int TA, int TB>
+struct WgmmaSS<256, TA, TB> {
+    __device__ static __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
+            "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+            "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+            "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81,"
+            "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100,"
+            "%101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+            "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+            "%128, %129, p, 1, 1, %131, %132;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+              "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+              "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+              "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+              "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+              "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+              "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+              "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
+              "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+              "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
             : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
             : "memory");
     }
@@ -354,21 +443,27 @@ inline EncodeTiled tensor_map_encoder() {
     return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1.. , each a multiple of 16) with a box of `box` elements, swizzled
-// by `swizzle_bytes` (32, 64 or 128); out-of-range elements load as zero.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes) {
+// A tensor map of `rank` dims (innermost first; strides in bytes of dims
+// 1.., each a multiple of 16) with a box of `box` elements, swizzled by
+// `swizzle_bytes` (32, 64 or 128); out-of-range elements load as zero.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                              int swizzle_bytes) {
     EncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
     const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
     const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                         : CU_TENSOR_MAP_SWIZZLE_32B;
-    CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+    CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                                   const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes) {
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box, swizzle_bytes);
 }
 
 }  // namespace hopper

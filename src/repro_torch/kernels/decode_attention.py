@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import F, I, KernelLib, P, check_vector_layout
+from repro_torch.kernels._build import F, I, KernelLib, P, check_vector_layout, sm_count
 
 __all__ = ["KERNEL", "DecodePlan", "decode_attention", "decode_plan", "plan_groups", "sm_count", "smem_bytes"]
 
@@ -98,11 +98,6 @@ def decode_plan(S: int, hd: int, vd: int, esz: int, groups: int, sms: int) -> De
 def plan_groups(B: int, KV: int, G: int, vd: int) -> int:
     """The clusters one call launches: batch rows x KV heads x head chunks x feature chunks."""
     return B * KV * -(-G // HEADS) * -(-vd // VMAX)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q, k_cache, v_cache, valid):

@@ -13,19 +13,19 @@ The bf16 kernel loads its tiles by TMA, which needs each operand's base and
 row stride on 16-byte boundaries.  RSI's operands (``aligned_rows``,
 ``padded_rows``) and the logits' (``aligned_rows(x.T)``) have them; any
 other bf16 operand is first copied into such storage (``aligned_rows``), the
-same kernel then runs on the copy, and :data:`ALIGN_COPIES` counts the
-copies, so a run can show that its main path made none.
+same kernel then runs on the copy, and :data:`ALIGN_COPIES` (shared with
+the low-rank kernels' wrappers) counts the copies, so a run can show that
+its main path made none.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import I, KernelLib, P, aligned_rows, padded_rows, row_stride
+from repro_torch.kernels._build import ALIGN_COPIES, I, KernelLib, P, padded_rows, row_stride, tma_ready
 
 __all__ = ["KERNEL", "ALIGN_COPIES", "sketch_matmul"]
 
@@ -34,42 +34,6 @@ KERNEL = KernelLib(
     "sketch_matmul",
     {"sketch_matmul_bf16": _ARGS, "sketch_matmul_bf16_f32out": _ARGS, "sketch_matmul_f32": _ARGS},
 )
-
-
-class _CopyCount:
-    """Operands the wrapper copied into 16-byte aligned rows before a launch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0  # guarded by: _lock
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    @property
-    def count(self) -> int:
-        with self._lock:
-            return self._n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-
-ALIGN_COPIES = _CopyCount()
-
-
-def _tma_ready(t: torch.Tensor, what: str) -> torch.Tensor:
-    """``t`` itself when TMA can read it in place (16-byte aligned base, a row
-    stride of a multiple of 8 elements), else a counted copy in such storage."""
-    if t.data_ptr() % 16 == 0 and row_stride(t, what) % 8 == 0:
-        return t
-    ALIGN_COPIES.add()
-    out = aligned_rows(t)
-    if out is t:  # aligned row stride on a misaligned base: a fresh allocation is aligned
-        out = aligned_rows(t.clone())
-    return out
 
 
 def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
@@ -95,7 +59,7 @@ def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         raise ValueError(f"sketch_matmul: op(a) is ({M}, {K}) but b is {tuple(b.shape)}")
     N = b.shape[1]
     if a.dtype == torch.bfloat16:
-        a, b = _tma_ready(a, "sketch_matmul a"), _tma_ready(b, "sketch_matmul b")
+        a, b = tma_ready(a, "sketch_matmul a"), tma_ready(b, "sketch_matmul b")
     lda, ldb = row_stride(a, "sketch_matmul a"), row_stride(b, "sketch_matmul b")
     c = padded_rows(M, N, out_dtype, a.device)
     if a.dtype == torch.float32:

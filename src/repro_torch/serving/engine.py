@@ -645,13 +645,20 @@ class Engine:
     def _graph(self, greedy: bool):
         """The captured decode block for one sampling variant, built on first use.
 
-        ``self._state`` already holds this block's inputs.  The eager
-        warm-up (side stream, as capture requires) runs with every slot
-        frozen and loads every kernel library.  Frozen slots still advance
-        their recurrent rows (mamba conv tails and states), which would
-        corrupt the live slots' states, so the cache is saved before the
-        warm-up and restored after it.  Launches and dispatch calls made
-        during capture are recorded per graph and counted per replay."""
+        ``self._state`` already holds this block's inputs.  One eager
+        warm-up pass of the block runs with every slot frozen, on the side
+        stream that then captures it: the body has no data-dependent host
+        control flow, so that pass runs every op the capture records, and
+        every first use that may not happen inside a capture (loading a
+        kernel library, a cuBLAS handle and its workspace for that stream,
+        a launch plan's cached device query) happens there first.  A capture
+        on any other stream (``torch.cuda.graph``'s own, by default) would
+        meet cuBLAS's first use of that stream inside the capture, which
+        invalidates it.  Frozen slots still advance their recurrent rows
+        (mamba conv tails and states), which would corrupt the live slots'
+        states, so the cache is saved before the warm-up and restored after
+        it.  Launches and dispatch calls made during capture are recorded
+        per graph and counted per replay."""
         entry = self._graphs.get(greedy)
         if entry is not None:
             return entry
@@ -670,7 +677,7 @@ class Engine:
         libs = kernel_libs()
         before = [lib.captured for lib in libs]
         graph = torch.cuda.CUDAGraph()
-        with dispatch.recording_capture() as calls, torch.cuda.graph(graph):
+        with dispatch.recording_capture() as calls, torch.cuda.graph(graph, stream=side):
             self._block_body(greedy)
         launches = {lib: lib.captured - b for lib, b in zip(libs, before) if lib.captured > b}
         entry = (graph, Counter(calls), launches)

@@ -144,7 +144,7 @@ def test_gpu_sketch_matmul_deterministic(cuda, trans_a):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M", [1, 4, 8, 9, 70])  # both sides of the split-K (M <= 8) path
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 70])  # both sides of the skinny (M <= 8) path
 @pytest.mark.parametrize("K,r,N", [(250, 37, 96), (512, 154, 512)])
 def test_gpu_lowrank_matmul(cuda, M, K, r, N, dtype):
     x = _rand((M, K), 3, dtype, cuda)
@@ -193,6 +193,127 @@ def test_gpu_lowrank_matmul_batched_refuses_bad_operands(cuda):
         lowrank_matmul_batched(x[0], A[0], B[0])
     with pytest.raises(ValueError, match="contiguous rows"):
         lowrank_matmul_batched(x, A.transpose(1, 2).contiguous().transpose(1, 2), B)
+
+
+# the main path's 2-D low-rank shapes (K, r, N): llama's wq/wo, wk/wv, w_gate/w_up, w_down at
+# alpha 0.3, phi3.5-moe's compressed attention projection and untied head, zamba2's w_x and w_dt
+LOWRANK_MAIN = [(2048, 615, 2048), (2048, 154, 512), (2048, 615, 8192), (8192, 615, 2048), (4096, 1229, 4096),
+                (4096, 1229, 32064), (2048, 615, 4096), (2048, 20, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 256])
+@pytest.mark.parametrize("K,r,N", LOWRANK_MAIN)
+def test_gpu_lowrank_matmul_main_shapes(cuda, M, K, r, N, dtype):
+    """The 2-D kernel at the main path's shapes (decode M <= 8 on the skinny
+    kernel, the engine's 256-row chunk on the wgmma tiles), factors in the
+    storage the model keeps them in (row-padded), against its plain version."""
+    x = _rand((M, K), 40, dtype, cuda)
+    A, B = aligned_rows(_rand((K, r), 41, dtype, cuda)), aligned_rows(_rand((r, N), 42, dtype, cuda))
+    before = ALIGN_COPIES.count
+    _close(lowrank_matmul(x, A, B), ref.lowrank_matmul_ref(x, A, B), GEMM_TOL[dtype])
+    assert ALIGN_COPIES.count == before  # read in place: nothing copied for TMA
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 8, 256, 1024])
+def test_gpu_lowrank_matmul_deterministic(cuda, M):
+    """Two launches give the same bits: the k-splits of the skinny kernel and
+    of the wgmma tiles are summed in cluster-rank order."""
+    x = _rand((M, 2048), 43, "bfloat16", cuda)
+    A, B = aligned_rows(_rand((2048, 615), 44, "bfloat16", cuda)), aligned_rows(_rand((615, 8192), 45, "bfloat16", cuda))
+    assert torch.equal(lowrank_matmul(x, A, B), lowrank_matmul(x, A, B))
+
+
+def _capacity_rows(E, C, K, counts, seed, device, dtype="bfloat16", negative_zero=False):
+    """An (E, C, K) MoE capacity buffer: expert e's first counts[e] rows hold
+    values, the rest exact zeros (-0.0 where ``negative_zero``, as 0 x a
+    negative value gives); and the same buffer with every row filled."""
+    full = _rand((E, C, K), seed, dtype, device)
+    live = torch.arange(C, device=device)[None, :] < torch.as_tensor(counts, device=device)[:, None]
+    zero = torch.zeros((), dtype=full.dtype, device=device)
+    sparse = torch.where(live[..., None], full, -zero if negative_zero else zero)
+    return sparse, full, live
+
+
+def _phi_decode_counts(E=16, slots=8, top_k=2, seed=0, skewed=False):
+    """Assignments per expert at phi3.5-moe's decode occupancy: 8 slots x top-2
+    distinct experts drawn with numpy (seed 0), or all on two experts."""
+    if skewed:
+        counts = np.zeros(E, dtype=np.int64)
+        counts[[3, 11]] = slots
+        return counts
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(E, size=top_k, replace=False) for _ in range(slots)])
+    return np.bincount(ids.reshape(-1), minlength=E)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occupancy", ["decode", "skewed", "full"])
+def test_gpu_lowrank_matmul_batched_phi_decode(cuda, occupancy):
+    """The batched kernel at phi3.5-moe's decode w_gate (16 experts x C 128,
+    4096 -> 1229 -> 6400, one layer's view of a row-padded leaf) at three
+    occupancies, against its plain version; rows past each count are zero
+    in both."""
+    E, C, K, r, N = 16, 128, 4096, 1229, 6400
+    counts = np.full(E, C) if occupancy == "full" else _phi_decode_counts(skewed=occupancy == "skewed")
+    x, _, live = _capacity_rows(E, C, K, counts, 46, cuda)
+    A = aligned_rows(_rand((1, E, K, r), 47, "bfloat16", cuda))[0]
+    B = aligned_rows(_rand((1, E, r, N), 48, "bfloat16", cuda))[0]
+    before = ALIGN_COPIES.count
+    got = lowrank_matmul_batched(x, A, B)
+    assert ALIGN_COPIES.count == before
+    want = ref.lowrank_matmul_ref(x, A, B)
+    _close(got, want, GEMM_TOL["bfloat16"])
+    assert bool((got[~live] == 0).all()) and bool((want[~live] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("negative_zero", [False, True])
+@pytest.mark.parametrize("L,C,K,r,N", [(16, 128, 4096, 1229, 6400), (6, 320, 512, 154, 320), (4, 128, 250, 37, 96)])
+def test_gpu_lowrank_matmul_batched_skips_zero_rows(cuda, L, C, K, r, N, negative_zero):
+    """Tiles with no live row are skipped: the live rows of a call in which
+    the other rows are zero equal, bit for bit, the same rows of a call in
+    which every row is live, and the zero rows come out exactly zero."""
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 3, size=L)
+    counts[0], counts[-1] = 0, C  # an empty expert and a full one
+    sparse, full, live = _capacity_rows(L, C, K, counts, 49, cuda, negative_zero=negative_zero)
+    A, B = aligned_rows(_rand((L, K, r), 50, "bfloat16", cuda)), aligned_rows(_rand((L, r, N), 51, "bfloat16", cuda))
+    y_sparse, y_full = lowrank_matmul_batched(sparse, A, B), lowrank_matmul_batched(full, A, B)
+    assert torch.equal(y_sparse[live], y_full[live])
+    assert bool((y_sparse[~live] == 0).all())
+    _close(y_sparse, ref.lowrank_matmul_ref(sparse, A, B), GEMM_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_gpu_lowrank_matmul_batched_deterministic_and_graph_replay(cuda):
+    """Two launches give the same bits, and a CUDA graph captured around one
+    call replays, after the routing changed in place (other live experts,
+    none, all), what an eager call on the same inputs returns: the plan
+    depends on the shapes alone and liveness is found on the device."""
+    from repro_torch.kernels import lowrank_matmul_batched as batched_mod
+
+    E, C, K, r, N = 16, 128, 4096, 1229, 6400
+    x, full, _ = _capacity_rows(E, C, K, _phi_decode_counts(), 52, cuda)
+    A = aligned_rows(_rand((E, K, r), 53, "bfloat16", cuda))
+    B = aligned_rows(_rand((E, r, N), 54, "bfloat16", cuda))
+    assert torch.equal(lowrank_matmul_batched(x, A, B), lowrank_matmul_batched(x, A, B))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lowrank_matmul_batched(x, A, B)
+    graph = torch.cuda.CUDAGraph()
+    captured = batched_mod.KERNEL.captured
+    with torch.cuda.graph(graph, stream=side):
+        out = lowrank_matmul_batched(x, A, B)
+    assert batched_mod.KERNEL.captured == captured + 1
+    for counts in (_phi_decode_counts(seed=3), _phi_decode_counts(skewed=True), np.zeros(E), np.full(E, C)):
+        live = torch.arange(C, device=cuda)[None, :] < torch.as_tensor(counts, device=cuda)[:, None]
+        x.copy_(torch.where(live[..., None], full, torch.zeros((), dtype=full.dtype, device=cuda)))
+        graph.replay()
+        assert torch.equal(out, lowrank_matmul_batched(x, A, B))
 
 
 def _holes(B, S, device, seed=0):
@@ -503,3 +624,22 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
             assert batched_mod.KERNEL.launches > before_batched
         out[graph] = [r.tokens for r in reqs]
     assert out[True] == out[False]
+
+
+@pytest.mark.gpu
+def test_gpu_engine_graph_capture_in_a_fresh_process(cuda):
+    """The captured decode block's engine tests alone, in a fresh interpreter:
+    nothing else of this file has captured a graph or used cuBLAS there
+    first, which is where a capture on a stream the warm-up did not run on
+    used to be invalidated."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_gpu.py", "-m", "gpu", "-q",
+                          "-p", "no:cacheprovider", "-k", "engine_graph_equals_eager"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=1800)
+    # exit 0: every selected test ran and passed (pytest exits 5 when it selects none)
+    assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-3000:]

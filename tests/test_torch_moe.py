@@ -246,6 +246,73 @@ def test_dispatch_compute_combine_matches_reference(compressed, capacity_factor)
     np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def _capacity_buffer(monkeypatch, dtype, capacity_factor, T=320, seed=21):
+    """The (E, C, d) capacity buffer that _dispatch_compute_combine hands the
+    expert stacks (caught at its first dense apply), with each expert's
+    count of kept assignments and the compressed params."""
+    jcfg, tcfg = _cfgs(dtype, capacity_factor=capacity_factor)
+    jp, tp = _moe_params(jcfg, compressed=True)
+    E = jcfg.n_experts
+    jx, tx = _pair(_np((T, jcfg.d_model), seed), dtype)
+    j_ids, j_gates, _ = jmoe._route(jx, jp["router"]["gate_w"], jcfg)
+    C = jmoe.moe_capacity(T, jcfg)
+    ids, gates = torch.from_numpy(np.array(j_ids)).long(), torch.from_numpy(np.array(j_gates))
+    seen = []
+    dense = tmoe.nn.dense
+
+    def spy(p, x):
+        seen.append(x)
+        return dense(p, x)
+
+    monkeypatch.setattr(tmoe.nn, "dense", spy)
+    tmoe._dispatch_compute_combine(tx, ids, gates, tp["experts"], C, E, DTYPES[dtype][1])
+    counts = np.minimum(np.bincount(np.asarray(j_ids).reshape(-1), minlength=E), C)
+    return seen[0], counts, tp, C
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_capacity_buffer_is_zero_past_each_count(monkeypatch, capacity_factor, dtype):
+    """The contract the batched kernel's skip of dead tiles rests on: each
+    expert's capacity rows are filled from 0, and every row past its count
+    of kept assignments is exactly zero (-0.0 counts as zero)."""
+    buf, counts, _, C = _capacity_buffer(monkeypatch, dtype, capacity_factor)
+    assert tuple(buf.shape[:2]) == (len(counts), C)
+    live = torch.arange(C)[None, :] < torch.from_numpy(counts)[:, None]
+    assert bool((buf[~live] == 0).all())
+    assert bool((buf[live] != 0).any(dim=-1).all())  # the kept rows hold their tokens
+    # at 1.25 some expert has rows past its count; at 0.5 every expert overflows C
+    assert (counts < C).any() == (capacity_factor == 1.25)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_batched_version_keeps_zero_rows_zero(monkeypatch, dtype):
+    """The plain batched version on the capacity buffer and an RSI-compressed
+    expert stack gives exactly zero rows past each count: what the kernel
+    writes for a tile it skips."""
+    buf, counts, tp, C = _capacity_buffer(monkeypatch, dtype, 1.25)
+    leaf = tp["experts"]["w_gate"]
+    y = tref.lowrank_matmul_ref(buf, leaf["a"], leaf["b"])
+    live = torch.arange(C)[None, :] < torch.from_numpy(counts)[:, None]
+    assert bool((y[~live] == 0).all())
+    assert torch.equal(lowrank_matmul_batched(buf, leaf["a"], leaf["b"]), y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_on_zero_rows_matches_batched_pallas(monkeypatch, dtype):
+    """With those zero rows, the batched wrapper still matches the JAX batched
+    kernel (interpret mode) at the stated tolerance, zero rows included."""
+    buf, counts, tp, C = _capacity_buffer(monkeypatch, dtype, 1.25, seed=22)
+    leaf = tp["experts"]["w_up"]
+    jd = DTYPES[dtype][0]
+    jx, jA, jB = (jnp.asarray(tensor_to_numpy(t)).astype(jd) for t in (buf, leaf["a"], leaf["b"]))
+    got = lowrank_matmul_batched(buf, leaf["a"], leaf["b"])
+    want = np.asarray(lowrank_matmul_batched_pallas(jx, jA, jB, bm=32, bk=64, interpret=True), np.float32)
+    np.testing.assert_allclose(tensor_to_numpy(got), want, **KERNEL_TOL[dtype])
+    live = np.arange(C)[None, :] < counts[:, None]
+    assert (want[~live] == 0).all()
+
+
 def tmoe_layer(leaf, e):
     """Expert e's slice of a dense (E, a, b) leaf or of a factored one."""
     return {k: v[e] for k, v in leaf.items()} if lowrank.is_lowrank(leaf) else leaf[e]
