@@ -5,6 +5,10 @@
     python3 chip_smoke.py --lowrank-only [--src DIR]
                              # phase 2's low-rank cases alone, on the package tree DIR
                              # (another checkout's src/, to time its kernels in the same call)
+    python3 chip_smoke.py --ssd-only [--src DIR]
+                             # phase 2's SSD scan cases alone, likewise
+    python3 chip_smoke.py --prefill-only [--src DIR]
+                             # the SSM models' profiled 512-token prefill alone, likewise
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -13,10 +17,10 @@ Phases, in order; any failure exits non-zero before the last line:
 1. Device: the card's name and power limit; build the seven kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once); one line
    a library with its registers, shared memory and spills (ptxas), and the
-   tensor-core instructions in the SASS of the six libraries redesigned
+   tensor-core instructions in the SASS of the seven libraries redesigned
    for Hopper: HGMMA (wgmma) in flash_attention, sketch_matmul and both
-   low-rank kernels, HMMA (mma.sync) in the two decode kernels and the
-   low-rank kernel's skinny (M <= 8) path.
+   low-rank kernels, HMMA (mma.sync) in the two decode kernels, the
+   low-rank kernel's skinny (M <= 8) path and ssd_scan's bf16 kernel.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, in bf16 and fp32, with the tolerance stated
    beside each check; times of the kernel, the plain version and one
@@ -41,7 +45,8 @@ Phases, in order; any failure exits non-zero before the last line:
    and y written whole.  Then the three attention kernels at head_dim 128.  The SSD
    scan kernel against its plain version at zamba2-1.2b's and
    mamba2-130m's shapes (a prime length and one shorter than a chunk
-   among them), under both x̄ contracts, y and the final state; and the
+   among them), under both x̄ contracts, y and the final state, and the
+   same bits from a second call at the main-path shape; and the
    three attention kernels at zamba2's shared block, G = 1 (32/32 heads,
    head_dim 64), the paged kernel bit for bit the flat one at page 64.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
@@ -111,7 +116,9 @@ Phases, in order; any failure exits non-zero before the last line:
    length, unpadded; ssd_scan launched once per layer per prefill call; no
    linear outside the kernels.
 16. Profiles: one captured decode block at 8 slots, and one monolithic
-   512-token prefill with ssd_scan's share of the device time.
+   512-token prefill with ssd_scan's share of the device time and its time
+   a launch beside the bound of one call (the prefill also for mamba2-130m
+   in phase 17).
 17. Phases 13-15 on mamba2-130m at full width and depth (24 layers,
    d 768, 24 SSD heads, state 128, tied head): its engine reserves zero
    pages (no cache leaf is paged), and only its w_dt (768 x 24, below
@@ -123,10 +130,10 @@ every run's count beside it), bound and library time, the attention
 kernels' times at head_dim 128 and at G = 1, the sketch GEMM's at W^T @ X
 the tied logits and the untied head's logits, the low-rank kernel's at M 8,
 256 and 1024 and the batched kernel's at the decode and skewed
-occupancies.  The line before it gives, for the six kernels redesigned for
+occupancies.  The line before it gives, for the seven kernels redesigned for
 Hopper, their earlier times as ``PERF.md`` records them (``[earlier]``:
 copied, not measured in the run; the parent's kernels are timed by
-``--lowrank-only --src`` in the same call).
+``--lowrank-only --src`` or ``--ssd-only --src`` in the same call).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -143,7 +150,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # --src DIR: the package tree to import (default this checkout's src/), so that
-# --lowrank-only can time another checkout's low-rank kernels in the same call
+# --lowrank-only and --ssd-only can time another checkout's kernels in the same call
 SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]) if "--src" in sys.argv else os.path.join(HERE, "src")
 sys.path.insert(0, SRC)
 
@@ -170,7 +177,7 @@ REPLACES = {
 # in the run
 REDESIGNED = {"flash_attention": ("HGMMA",), "sketch_matmul": ("HGMMA",), "decode_attention": ("HMMA",),
               "paged_decode_attention": ("HMMA",), "lowrank_matmul": ("HMMA", "HGMMA"),
-              "lowrank_matmul_batched": ("HGMMA",)}
+              "lowrank_matmul_batched": ("HGMMA",), "ssd_scan": ("HMMA",)}
 EARLIER_MS = {
     "decode_attention B 4 S 288 hd 64 G 4 prefix mask, split + combine FMA kernels": 0.0208,
     "decode_attention B 8 S 640 hd 128 G 4 ragged mask, split + combine FMA kernels": 0.0398,
@@ -184,6 +191,9 @@ EARLIER_MS = {
     "sketch_matmul 2048x8192 @ 8192x615, WMMA tiles, Y at row stride 615": 0.3700,
     "lowrank_matmul M 4 2048x615x8192, split-K FMA partial + reduce passes": 0.0330,
     "lowrank_matmul_batched 16 x C 128 4096x1229x6400 every row live, 64x64 WMMA tiles": 0.5303,
+    "ssd_scan zamba2 (1, 512) 64 x 64 s 64 x̄ rounded, fp32 FMA loops over shared memory": 0.2764,
+    "ssd_scan zamba2 (4, 256) 64 x 64 s 64 x̄ rounded, fp32 FMA loops over shared memory": 0.4060,
+    "ssd_scan mamba2 (1, 512) 24 x 64 s 128 x̄ rounded, fp32 FMA loops over shared memory": 0.4154,
 }
 
 # the MoE main path (phases 9-12): phi3.5-moe at full width, depth cut 32 -> 4
@@ -472,6 +482,139 @@ def phase_lowrank_only() -> int:
     phase_batched_kernels(rnd, gemm_tolerances(), records)
     say("[lowrank-only] " + json.dumps({k: {f: v[f] for f in ("shape", "ms", "library_ms", "bound_ms")}
                                         for k, v in records.items()}))
+    return 0
+
+
+def phase_ssd_only() -> int:
+    """``--ssd-only``: phase 2's SSD scan cases alone, on the tree ``--src``
+    names (another checkout's kernel, timed in the same call as this one's)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    say(f"[ssd-only] {card_line()}; package tree {SRC}")
+    build_all(["ssd_scan"])
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    launch_floor()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    records: dict = {}
+    phase_ssd_kernels(rnd, gen, records)
+    say("[ssd-only] " + json.dumps({k: {f: v[f] for f in ("shape", "ms", "plain_ms", "bound_ms")}
+                                    for k, v in records.items() if k != "ssd_scan"}))
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    if hasattr(ssd_mod, "ssd_plan"):  # the plan's inputs, on trees that have it
+        ssd_plan_inputs(rnd, gen)
+    return 0
+
+
+def _ssd_launcher(fn, B, L, nh, hd, s, rnd, gen, cols):
+    """A closure launching ``fn`` (``ssd_scan_bf16``'s arguments but the
+    stream; returns a CUDA error code) on fresh inputs at ``cols`` columns a
+    block, clustered as the plan clusters them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import cluster_size
+
+    x = rnd((B, L, nh, hd), torch.bfloat16, scale=1.0)
+    dt = F.softplus(torch.randn((B, L, nh), generator=gen, device="cuda"))
+    Bm, Cm = rnd((B, L, s), torch.bfloat16, scale=s**0.5), rnd((B, L, s), torch.bfloat16, scale=s**0.5)
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    y, st = torch.empty_like(x), torch.empty((B, nh, hd, s), device="cuda")
+
+    def run():
+        code = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(), y.data_ptr(),
+                  st.data_ptr(), B, L, nh, hd, s, 1, cols, cluster_size(hd // cols))
+        if code != 0:
+            fail(f"ssd_scan_bf16 at {cols} columns: CUDA error {code}")
+    return run
+
+
+def ssd_plan_inputs(rnd, gen) -> None:
+    """What the plan and the design rest on, bf16, x̄ rounded: the kernel's
+    time at both column tiles on the three main-path shapes (the plan's pick
+    marked), over L at zamba2's head shape, and with its C B^T products taken
+    out (a copy of the source built without them: wrong results, timed only),
+    whose saving is C B^T's share of the call."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels._build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc_path
+
+    def fn(*args):
+        ssd_mod.KERNEL.launch("ssd_scan_bf16", torch.device("cuda"), *args)  # raises on an error
+        return 0
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in ((1, 512, 64, 64, 64), (4, 256, 64, 64, 64), (1, 512, 24, 64, 128)):
+        ms = {c: time_ms(_ssd_launcher(fn, *shape, rnd, gen, c)) for c in ssd_mod.COLS}
+        say("[ssd plan] " + json.dumps({"shape": list(shape), "ms_by_cols": ms,
+                                        "plan_cols": ssd_mod.ssd_plan(*shape, torch.bfloat16, n_sms).cols}))
+    cols = ssd_mod.ssd_plan(1, 512, 64, 64, 64, torch.bfloat16, n_sms).cols
+    say("[ssd plan] zamba2 head shape over L, ms: " + json.dumps(
+        {L: time_ms(_ssd_launcher(fn, 1, L, 64, 64, 64, rnd, gen, cols)) for L in (64, 128, 256, 512, 1024, 2048)}))
+    src = (CSRC / "ssd_scan.cu").read_text()
+    cut = ("mma_16816(g[0], ca, bb[0], bb[1]);", "mma_16816(g[1], ca, bb[2], bb[3]);")
+    if not all(c in src for c in cut):
+        fail("ssd_scan.cu: the C B^T products to take out are not found")
+    for c in cut:
+        src = src.replace(c, "")
+    cu, so = CSRC / "_ssd_no_cb.cu", BUILD_DIR / "ssd_scan_no_cb.so"
+    cu.write_text(src)
+    try:
+        res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(so), str(cu)], capture_output=True, text=True,
+                             timeout=600)
+    finally:
+        cu.unlink()
+    if res.returncode != 0:
+        fail(f"nvcc failed for ssd_scan without C B^T: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    lib = ctypes.CDLL(str(so)).ssd_scan_bf16
+    lib.argtypes, lib.restype = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int
+
+    def no_cb(*args):
+        return lib(*args, torch.cuda.current_stream().cuda_stream)
+
+    for shape in ((1, 512, 64, 64, 64), (1, 512, 24, 64, 128)):
+        c = ssd_mod.ssd_plan(*shape, torch.bfloat16, n_sms).cols
+        full, cut_ms = time_ms(_ssd_launcher(fn, *shape, rnd, gen, c)), time_ms(_ssd_launcher(no_cb, *shape, rnd, gen, c))
+        say("[ssd plan] " + json.dumps({"shape": list(shape), "cols": c, "ms": full, "ms_without_cb": cut_ms,
+                                        "cb_share": 1 - cut_ms / full}))
+
+
+def phase_prefill_only() -> int:
+    """``--prefill-only``: the SSM models of phases 13 and 17 (set up and
+    compressed as there) and one profiled monolithic 512-token prefill each,
+    on the tree ``--src`` names (another checkout's kernels, timed in the
+    same call as this one's)."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[prefill-only] {card_line()}; package tree {SRC}")
+    build_all()
+    for arch in SSM_ARCHS:
+        tag = arch.split("-")[0]
+        model, params, _, _, _ = phase_ssm_main(arch)
+        say("[prefill-only] " + json.dumps({"arch": arch, **phase_prefill_profile(model, params, tag=f"{tag} prefill")}))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -1121,7 +1264,8 @@ def device_busy_ms(prof, per: int = 1) -> float:
 
 # the hand-written kernels' symbols, as the profiler names them
 OWN_KERNELS = re.compile(r"\b(gemm_f32_kernel|gemm_kernel|expert_gemm_kernel|live_rows_kernel|skinny_kernel|"
-                         r"flash_attention_kernel|flash_wgmma_kernel|decode::decode_kernel|ssd_scan_kernel)\b")
+                         r"flash_attention_kernel|flash_wgmma_kernel|decode::decode_kernel|ssd_scan_kernel|"
+                         r"ssd_scan_fma_kernel)\b")
 # the low-rank kernels' launches in a trace: the skinny decode kernel, the wgmma tiles of the
 # 2-D kernel and of the sketch GEMM (one symbol), the expert stacks' tiles and liveness pass
 SKINNY_KERNEL = re.compile(r"\bskinny_kernel\b")
@@ -1603,21 +1747,20 @@ def ssd_ops(B: int, L: int, nh: int, hd: int, s: int, Q: int = SSD_CHUNK) -> int
     return B * n_chunks * per_chunk
 
 
-def phase_ssm_kernels(rnd, gen, records) -> dict:
+def phase_ssd_kernels(rnd, gen, records) -> None:
     """``ssd_scan`` against its plain version (the reference's chunk rule) at
     zamba2-1.2b's shapes (nh 64, hd 64, s 64) at (B, L) = (1, 512) and
     (4, 256), and mamba2-130m's (nh 24, hd 64, s 128) at 512, a prime 509
     (where the plain version's chunk falls to 1) and 40 (shorter than one
     kernel chunk); under both x̄ contracts, in bf16 and fp32; y and the final
-    state.  Then the three attention kernels at zamba2's shared block, G = 1
-    (32/32 heads, head_dim 64).  Returns {kernel: bf16 record} at G = 1."""
+    state, each case timed beside its bound and its plain version's time.
+    At the main-path shape (the first case) a second call must return the
+    same bits (a fixed summation order, no atomics).  Each bf16 case is
+    kept in ``records`` under its shape."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     dev = torch.device("cuda")
@@ -1640,11 +1783,22 @@ def phase_ssm_kernels(rnd, gen, records) -> dict:
             y, st = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x)
             want_y, want_s = ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x)
             contract = "x̄ rounded" if rnd_x else "x̄ fp32"
+            if (Bq, L, nh, hd, s, rnd_x) == cases[0]:
+                y2, st2 = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x)
+                same = bool(torch.equal(y, y2)) and bool(torch.equal(st, st2))
+                say(f"[ssd kernels] a second call at {list(cases[0])} {dtype} returns the same bits: {same}")
+                if not same:
+                    fail(f"ssd_scan {list(cases[0])} {dtype}: two calls on the same inputs differ")
+                del y2, st2
+            key = f"ssd_scan {Bq}x{L} nh {nh} s {s} {contract}"
             check("ssd_scan", [Bq, L, nh, hd, s, contract], dtype, y, want_y, rel, why,
                   kernel_fn=lambda: ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
                   plain_fn=lambda: ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
                   library_fn=None,  # no single PyTorch call computes the SSD scan
-                  bytes_moved=nbytes(x, dt, Bm, Cm, A, y, st), ops=ssd_ops(Bq, L, nh, hd, s), records=records)
+                  bytes_moved=nbytes(x, dt, Bm, Cm, A, y, st), ops=ssd_ops(Bq, L, nh, hd, s),
+                  records=records if dtype == torch.bfloat16 else {}, key=key)
+            if dtype == torch.bfloat16 and "ssd_scan" not in records:
+                records["ssd_scan"] = records[key]
             err, tol = float((st - want_s).abs().max()), state_tol[0] * float(want_s.abs().max())
             say(json.dumps({"name": "ssd_scan final state", "shape": [Bq, L, nh, hd, s, contract],
                             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol,
@@ -1654,6 +1808,21 @@ def phase_ssm_kernels(rnd, gen, records) -> dict:
             del x, dt, Bm, Cm, y, st, want_y, want_s
     torch.cuda.empty_cache()
 
+
+def phase_ssm_kernels(rnd, gen, records) -> dict:
+    """The SSD scan's cases (:func:`phase_ssd_kernels`), then the three
+    attention kernels at zamba2's shared block, G = 1 (32/32 heads,
+    head_dim 64).  Returns {kernel: bf16 record} at G = 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+
+    dev = torch.device("cuda")
+    phase_ssd_kernels(rnd, gen, records)
     attn_tol = {torch.bfloat16: (2e-2, "bf16: p is rounded before PV and the output is rounded"),
                 torch.float32: (1e-4, "fp32 online softmax vs one-pass softmax, another summation order")}
     g1: dict = {}
@@ -1827,14 +1996,21 @@ def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str 
     ssd_ms = sum(r[0] for r in rows if "ssd_scan_kernel" in r[2]) / 1e3
     flash_ms = sum(r[0] for r in rows if FLASH_KERNELS.search(r[2])) / 1e3
     own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
+    # one scan call's bound at this shape: x, dt, B, C, A read once, y and the fp32 state written once
+    cfg = model.cfg
+    nh, hd, s = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    ssd_bytes = 2 * L * nh * hd * 2 + L * nh * 4 + 2 * L * s * 2 + nh * 4 + nh * hd * s * 4
+    ssd_bound, ssd_by = bound(ssd_bytes, ssd_ops(1, L, nh, hd, s), "bfloat16")
     say(f"[{tag}] one monolithic (1, {L}) prefill: host {wall * 1e3:.3f} ms (profiler off, mean of {calls}); "
         f"device busy {device_ms:.3f} ms (profiler): ssd_scan {ssd_ms:.3f} ms ({ssd_ms / device_ms:.3f}, "
-        f"{model.cfg.n_layers} launches), flash_attention {flash_ms:.3f} ms ({flash_ms / device_ms:.4f}), all "
+        f"{cfg.n_layers} launches, {ssd_ms / cfg.n_layers:.4f} ms a launch against a bound of {ssd_bound:.4f} ms "
+        f"({ssd_by})), flash_attention {flash_ms:.3f} ms ({flash_ms / device_ms:.4f}), all "
         f"hand-written kernels {own_ms:.3f} ms; idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
     for us, n, key in rows[:10]:
         say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
     return {"prefill_host_ms": wall * 1e3, "prefill_device_ms": device_ms, "prefill_ssd_ms": ssd_ms,
-            "prefill_ssd_share": ssd_ms / device_ms, "prefill_flash_ms": flash_ms,
+            "prefill_ssd_share": ssd_ms / device_ms, "prefill_ssd_launches": cfg.n_layers,
+            "prefill_ssd_bound_ms": ssd_bound, "prefill_flash_ms": flash_ms,
             "prefill_flash_share": flash_ms / device_ms}
 
 
@@ -1847,6 +2023,10 @@ def main() -> int:
         fail("torch is not installed")
     if "--lowrank-only" in sys.argv:
         return phase_lowrank_only()
+    if "--ssd-only" in sys.argv:
+        return phase_ssd_only()
+    if "--prefill-only" in sys.argv:
+        return phase_prefill_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -1916,10 +2096,9 @@ def main() -> int:
                                                     if model.cfg.family == "hybrid" else ("sketch_matmul",))
         eng = phase_engine(model, params, tag=f"{tag} engine", on_path=on_path, dense_ok=dense_ok)
         runs[f"{arch} engine"], runs[f"{arch} flat engine"] = eng["launches"], eng["launches_flat_engine"]
-        prof = {}
+        prof = phase_prefill_profile(model, params, tag=f"{tag} prefill")
         if model.cfg.family == "hybrid":
-            prof = {**phase_block_profile(model, params, tag=f"{tag} block"),
-                    **phase_prefill_profile(model, params, tag=f"{tag} prefill")}
+            prof.update(phase_block_profile(model, params, tag=f"{tag} block"))
         say(f"[{tag} engine] " + json.dumps({"tok_s": eng["tok_s"], "prefill_batches": eng["prefill_batches"],
                                              **prof, **summary, "phases_s": time.perf_counter() - t}))
         del model, params, batch
@@ -1945,7 +2124,9 @@ def main() -> int:
                 ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"),
                 ("m8", records, f"{name} M 8"), ("m256", records, f"{name} M 256"),
                 ("m1024", records, f"{name} M 1024"), ("decode_occupancy", records, f"{name} decode"),
-                ("skewed_occupancy", records, f"{name} skewed"))
+                ("skewed_occupancy", records, f"{name} skewed"),
+                ("zamba2_4x256", records, f"{name} 4x256 nh 64 s 64 x̄ rounded"),
+                ("mamba2_1x512", records, f"{name} 1x512 nh 24 s 128 x̄ rounded"))
         for key, sub, rec_key in subs:
             if rec_key in sub:
                 entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",

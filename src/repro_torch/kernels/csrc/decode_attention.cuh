@@ -72,6 +72,10 @@
 namespace repro {
 namespace decode {
 
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::cp_async_wait_all;
 using hopper::ldmatrix_x4;
 using hopper::ldmatrix_x4_trans;
 using hopper::mma_16816;
@@ -100,20 +104,6 @@ inline size_t smem_bytes(int warps, int stages, int hd, int vd, int esz) {
     const size_t parts = (size_t)(warps + 1) * HN * (vw + 2) * sizeof(float);
     return (ring > parts ? ring : parts) + (size_t)HN * tile_stride(hd, esz) * esz + (size_t)warps * WARP_EXTRA;
 }
-
-// ---------------------------------------------------------------------------
-// cp.async (ldmatrix and mma.sync are hopper.cuh's)
-// ---------------------------------------------------------------------------
-// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 __device__ __forceinline__ float warp_max(float x, int from) {
     for (int o = from; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels
 // (flash_attention.cu, the wgmma GEMM of gemm_wgmma.cuh, the skinny GEMM of
-// lowrank_matmul.cu, and the cluster combine of decode_attention.cuh):
-// shared-memory addresses,
-// mbarriers, TMA tile loads, cluster barriers and distributed shared memory,
-// wgmma descriptors and instructions, and the host-side tensor-map encoder.
+// lowrank_matmul.cu, the cluster combine of decode_attention.cuh, and the
+// chunk products of ssd_scan.cu): shared-memory addresses, mbarriers,
+// cp.async, TMA tile loads, cluster barriers and distributed shared memory,
+// ldmatrix and mma.sync, wgmma descriptors and instructions, and the
+// host-side tensor-map encoder.
 //
 // Conventions, as the PTX ISA and CUTLASS's cute/atom/mma_traits_sm90_gmma.hpp
 // define them:
@@ -129,6 +130,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ void cluster_sync() {
     asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// The two halves of cluster_sync, for work between them; each thread alternates them.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 
 // The address, in the cluster's shared window, of `addr` in CTA `rank`'s shared memory.
 __device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
@@ -162,6 +166,23 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void launch_dependents() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
 __device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
+// cp.async (16 bytes bypassing L1, or 4 bytes), in groups a thread waits on
+// ---------------------------------------------------------------------------
+// src_bytes 0 fills zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------------
 // ldmatrix, mma.sync (m16n8k16, bf16 in, fp32 accumulate)

@@ -15,7 +15,9 @@ may land one bf16 ulp, 2^-8, apart where sums in another order straddle a
 rounding boundary); fp32 1e-4 (summation order only).  The SSD scan: y
 as the GEMMs (bf16 1e-2, fp32 1e-4) and its fp32 final state 1e-4 in both
 (the kernel's fixed 64-step chunks against the reference's chunk rule
-change only the summation order; x̄ is formed by the same one multiply).
+change only the summation order; x̄ is formed by the same one multiply;
+the bf16 kernel's fp32-valued operands enter its tensor-core products as
+bf16 hi and lo parts, ~16 significant bits).
 """
 
 import numpy as np
@@ -466,6 +468,61 @@ def test_gpu_ssd_scan(cuda, B, L, nh, hd, s, round_xbar, dtype):
         seq_y, seq_s = ref.ssd_scan_ref(ref.ssd_xbar(x, dt, round_xbar), dt, Bm, Cm, A)
         _close(y, seq_y, 1e-4)
         _close(state, seq_s, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,nh,hd,s", [(1, 512, 64, 64, 64), (1, 512, 24, 64, 128), (2, 97, 4, 64, 256)])
+def test_gpu_ssd_scan_deterministic(cuda, B, L, nh, hd, s, dtype):
+    """Two calls on the same inputs return the same bits (a fixed summation
+    order, no atomics), under both x̄ contracts."""
+    x, dt, Bm, Cm, A = _ssd_inputs(B, L, nh, hd, s, dtype, cuda)
+    for round_xbar in (True, False):
+        y1, s1 = ssd_scan(x, dt, Bm, Cm, A, round_xbar=round_xbar)
+        y2, s2 = ssd_scan(x, dt, Bm, Cm, A, round_xbar=round_xbar)
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("round_xbar", [False, True])
+@pytest.mark.parametrize("case,B,L,nh,hd,s,dt_scale", [
+    ("long", 1, 2048, 64, 64, 64, 1.0),  # 32 chunks of state carry
+    ("long", 1, 2048, 24, 64, 128, 1.0),
+    ("steep", 2, 300, 8, 64, 128, 5.0),  # dt |A| ~3-60 a step on average: exp(l) underflows inside a chunk
+    ("steep", 1, 130, 4, 32, 256, 5.0),
+])
+def test_gpu_ssd_scan_long_and_steep(cuda, case, B, L, nh, hd, s, dt_scale, round_xbar, dtype):
+    """A long sequence (the state carried over 32 chunks), and steep decay
+    (the scores' t < u half, l_t - l_u > 0, would overflow if it were
+    exponentiated before the mask): finite, and within the tolerances of
+    test_gpu_ssd_scan."""
+    x, dt, Bm, Cm, A = _ssd_inputs(B, L, nh, hd, s, dtype, cuda)
+    dt = dt * dt_scale
+    y, state = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(state).all())
+    want_y, want_s = ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+    _close(y, want_y, GEMM_TOL[dtype])
+    _close(state, want_s, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,nh,hd,s", [(1, 130, 4, 64, 128), (2, 70, 3, 32, 100), (1, 64, 2, 64, 64)])
+def test_gpu_ssd_scan_wide_tiles(cuda, B, L, nh, hd, s, dtype, monkeypatch):
+    """The 32-column tile, which the plan takes where the call alone fills
+    the card (as if the card had one SM): TMA boxes at s 64 and 128, element
+    loads at s 100."""
+    import repro_torch.kernels.ssd_scan as ssd_mod
+
+    monkeypatch.setattr(ssd_mod, "sm_count", lambda index: 1)
+    assert ssd_mod.ssd_plan(B, L, nh, hd, s, DTYPES[dtype], 1).cols == 32
+    x, dt, Bm, Cm, A = _ssd_inputs(B, L, nh, hd, s, dtype, cuda)
+    for round_xbar in (True, False):
+        y, state = ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+        want_y, want_s = ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=round_xbar)
+        _close(y, want_y, GEMM_TOL[dtype])
+        _close(state, want_s, 1e-4)
 
 
 @pytest.mark.gpu
