@@ -9,6 +9,8 @@
                              # phase 2's SSD scan cases alone, likewise
     python3 chip_smoke.py --prefill-only [--src DIR]
                              # the SSM models' profiled 512-token prefill alone, likewise
+    python3 chip_smoke.py --paper-only
+                             # phase 18 (the paper's experiments) alone
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -123,15 +125,41 @@ Phases, in order; any failure exits non-zero before the last line:
    d 768, 24 SSD heads, state 128, tied head): its engine reserves zero
    pages (no cache leaf is paged), and only its w_dt (768 x 24, below
    min_dim) runs outside the low-rank kernels.
+18. The paper on the card, fp32, through ``repro_torch.experiments`` and
+   ``launch/compress.py`` with the kernels (backend auto).  First phase 2's
+   checks at this phase's shapes: the sketch GEMM on Fig 4.1's W (k 50 and
+   200, both orientations) and the low-rank kernel on Table 4.1's fc1.
+   Fig 4.1 at the paper's 4096 x 25088 (k 50/100/200, q 1-4, 3 trials):
+   gates err(q=4) < err(q=1) at every k, every error >= 0.99, sketch_matmul
+   launched 2q times per RSI call, and at (200, 4) from one Omega the error
+   under auto within 1e-3 (relative) of reference; one RSI call at (50, 1),
+   (50, 4) and (200, 4) profiled (the sketch kernel's share of the device
+   time).  Fig 4.2 (768 x 3072, k 100/300/500): the exact SVD's seconds,
+   each RSI's and the speedup, the same gates.  Table 4.1's whole grid:
+   the ratios equal the reference's (1.461, 1.101, 0.739, 0.380); at alpha
+   0.2 top-1(q=4) - top-1(q=1) >= 0.05 and top-1(q=4) >= baseline - 0.03;
+   lowrank_matmul launched on the compressed forwards.  Theorem 3.2: the
+   trained head (W = fc2^T, 10 x 512) at rank 4 (q 1 and 4; and ranks 8 and
+   9 at q 4): the certificate's ||W - W~||_2 within 1e-3 (relative) of the
+   exact norm s1 where the residual's (s2/s1)^64 <= 1e-4 (at least one rank
+   must be), else in [s2 (1 - 1e-2), s1 (1 + 1e-4)]; its measured largest
+   class-probability deviation over the test set <= the certificate's
+   bound + 1e-4, on the features as they are and scaled so that the bound
+   is 0.25; ``certify_tier`` on llama3.2-1b's w_gate
+   stack (compressed as in phase 3) at half its rank within 2% of max over
+   layers ||A[:, r']|| ||B[r', :]||.  The compression CLI on full-width
+   llama3.2-1b with ``--rank-rule alpha --errors`` and ``--rank-rule energy
+   --errors``: every compressed rank under break-even, every error finite.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
-every run's count beside it), bound and library time, the attention
-kernels' times at head_dim 128 and at G = 1, the sketch GEMM's at W^T @ X
-the tied logits and the untied head's logits, the low-rank kernel's at M 8,
-256 and 1024 and the batched kernel's at the decode and skewed
-occupancies.  The line before it gives, for the seven kernels redesigned for
-Hopper, their earlier times as ``PERF.md`` records them (``[earlier]``:
+every run's count beside it, phase 18's runs among them), bound and library
+time, the attention kernels' times at head_dim 128 and at G = 1, the sketch
+GEMM's at W^T @ X the tied logits, the untied head's logits and phase 18's
+fp32 shapes, the low-rank kernel's at M 8, 256, 1024 and Table 4.1's fc1,
+and the batched kernel's at the decode and skewed occupancies.  The line
+before it gives, for the seven kernels redesigned for Hopper, their earlier
+times as ``PERF.md`` records them (``[earlier]``:
 copied, not measured in the run; the parent's kernels are timed by
 ``--lowrank-only --src`` or ``--ssd-only --src`` in the same call).
 
@@ -1230,7 +1258,8 @@ def device_rows(prof, per: int = 1) -> list:
 
     rows = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        # a scheduled profile's step annotation spans its whole step: not device work
+        if getattr(e, "device_type", None) != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -1250,7 +1279,8 @@ def device_busy_ms(prof, per: int = 1) -> float:
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+                   if getattr(e, "device_type", None) == DeviceType.CUDA and e.time_range.end > e.time_range.start
+                   and not e.name.startswith("ProfilerStep"))
     if not spans:
         fail("the profiler trace holds no device event with a time range")
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
@@ -2014,6 +2044,336 @@ def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str 
             "prefill_flash_share": flash_ms / device_ms}
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the paper on the card (Fig 4.1, Fig 4.2, Table 4.1, Theorem 3.2, the CLI)
+# --------------------------------------------------------------------------- #
+PAPER_TRIALS = 3
+TABLE_RATIOS = (1.461, 1.101, 0.739, 0.380)  # the reference's, alpha 0.8, 0.6, 0.4, 0.2 (shapes only)
+SKETCH_SYMBOL = re.compile(r"\bgemm_f32_kernel\b")  # the fp32 sketch GEMM's FMA tiles
+
+
+def paper_counted(fn, runs: dict, run: str):
+    """``fn()`` with the sketch and low-rank counts set to 0 just before it
+    and read just after, into ``runs[run]``."""
+    import torch
+
+    from repro_torch.kernels import lowrank_matmul, sketch_matmul
+
+    kernels = {"sketch_matmul": sketch_matmul.KERNEL, "lowrank_matmul": lowrank_matmul.KERNEL}
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    runs[run] = {n: k.launches for n, k in kernels.items()}
+    return out
+
+
+def paper_error_gates(tag: str, rows) -> None:
+    """At every k, err(q=4) < err(q=1); every error >= 0.99 (the power method
+    is a lower bound, so an optimal error may read just under 1)."""
+    for k in sorted({r["k"] for r in rows}):
+        by_q = {r["q"]: r["normalized_error"] for r in rows if r["k"] == k}
+        if not by_q[4] < by_q[1]:
+            fail(f"{tag} k={k}: err(q=4) {by_q[4]:.4f} >= err(q=1) {by_q[1]:.4f}")
+    low = [r for r in rows if not r["normalized_error"] >= 0.99]
+    if low:
+        fail(f"{tag}: normalized errors under 0.99: {low}")
+
+
+def paper_sketch_gate(tag: str, rows, trials: int, launches: int) -> None:
+    """sketch_matmul launched 2q times per RSI call (a warm-up and ``trials``
+    timed calls a cell)."""
+    want = sum((trials + 1) * 2 * r["q"] for r in rows)
+    if launches != want:
+        fail(f"{tag}: sketch_matmul launched {launches} times, want 2q per RSI call = {want}")
+
+
+def paper_profile(W, k: int, q: int, calls: int = 2) -> dict:
+    """RSI calls at (k, q) under torch.profiler (one warm-up step unrecorded,
+    then ``calls`` recorded): device busy time a call, the sketch kernel's
+    share and the largest other kernels, against the host time of a call
+    with the profiler off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core import rsi
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rsi(W, k, q, generator=gen)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rsi(W, k, q, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+        for _ in range(calls + 1):
+            rsi(W, k, q, generator=gen)
+            torch.cuda.synchronize()
+            prof.step()
+    rows = device_rows(prof, calls)
+    if not rows:
+        fail(f"the RSI profile at k={k} q={q} holds no CUDA event: its device-time split is not measured")
+    busy = device_busy_ms(prof, calls)
+    sketch_us = sum(us for us, _, key in rows if SKETCH_SYMBOL.search(key))
+    sketch_n = sum(n for _, n, key in rows if SKETCH_SYMBOL.search(key))
+    out = {"k": k, "q": q, "wall_ms": wall * 1e3, "device_busy_ms": busy, "sketch_ms": sketch_us / 1e3,
+           "sketch_launches": sketch_n, "sketch_share": sketch_us / 1e3 / busy,
+           "idle_share": max(0.0, 1 - busy / (wall * 1e3))}
+    say(f"[paper] profile {json.dumps(out)}")
+    for us, n, key in rows[:10]:
+        say(f"[paper]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+    return out
+
+
+def paper_kernel_checks(W, records: dict) -> None:
+    """Phase 2's checks at phase 18's shapes, fp32: the sketch GEMM on Fig
+    4.1's W (W @ Y and W^T @ X at k 50 and 200, the operands in the storage
+    RSI gives them) and the low-rank kernel on Table 4.1's compressed fc1 at
+    alpha 0.2 (rank 103) over the 2048 test rows.  Comparison launches: not
+    counted on the paper's runs."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+    from repro_torch.kernels.sketch_matmul import sketch_matmul
+
+    rel = gemm_tolerances()[torch.float32][0]
+    why = "fp32 sums over up to 25088 terms in another order than cuBLAS"
+    g = torch.Generator(device="cuda").manual_seed(21)
+    C, D = W.shape
+    for k in (50, 200):
+        for trans in (False, True):
+            Y = aligned_rows(torch.randn((C if trans else D, k), generator=g, device="cuda"))
+            M_out = D if trans else C
+            check("sketch_matmul", [M_out, Y.shape[0], k, "trans_a" if trans else "plain", "fig4_1"], torch.float32,
+                  sketch_matmul(W, Y, trans_a=trans), ref.sketch_matmul_ref(W, Y, trans_a=trans), rel, why,
+                  kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
+                  plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
+                  library_fn=lambda: torch.matmul(W.T if trans else W, Y),
+                  bytes_moved=nbytes(W, Y) + M_out * k * 4, ops=2 * C * D * k, records=records,
+                  key=f"sketch_matmul fig4_1 k {k}" + (" trans_a" if trans else ""))
+            del Y
+    M, K, r, N = 2048, 512, 103, 512
+    x = torch.randn((M, K), generator=g, device="cuda")
+    A = aligned_rows(torch.randn((K, r), generator=g, device="cuda") / K**0.5)
+    B = aligned_rows(torch.randn((r, N), generator=g, device="cuda") / r**0.5)
+    check("lowrank_matmul", [M, K, r, N, "table4_1 fc1 alpha 0.2"], torch.float32, lowrank_matmul(x, A, B),
+          ref.lowrank_matmul_ref(x, A, B), rel, why, kernel_fn=lambda: lowrank_matmul(x, A, B),
+          plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B), library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
+          bytes_moved=nbytes(x, A, B) + M * N * 4, ops=2 * M * K * r + 2 * M * r * N, records=records,
+          key="lowrank_matmul table4_1")
+
+
+def phase_paper(runs: dict, records: dict) -> dict:
+    """Phase 18: the paper's experiments on the card, through the port's
+    entry points (``repro_torch.experiments``, ``launch/compress.py``), with
+    the kernels (backend ``auto``)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import (CompressionPolicy, certify_head, certify_tier, compress_tree, normalized_error,
+                                  rsi, rsi_factors, rsi_flops, spectralize_params, synth_spectrum_matrix,
+                                  vgg_like_spectrum)
+    from repro_torch.core.lowrank import break_even_rank
+    from repro_torch.experiments import fig4_1, fig4_2, table4_1
+    from repro_torch.launch import compress as compress_cli
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    card = card_line()
+    summary: dict = {"card": card}
+    t_phase = time.perf_counter()
+
+    # --- Fig 4.1 at the paper's 4096 x 25088, fp32 ---------------------------
+    C, D = 4096, 25088
+    s = vgg_like_spectrum(C, device="cuda")
+    t = time.perf_counter()
+    W = synth_spectrum_matrix(C, D, s, generator=gen(0), device="cuda")
+    torch.cuda.synchronize()
+    say(f"[paper] fig4_1 W {C}x{D} fp32 built in {time.perf_counter() - t:.1f}s ({card})")
+    paper_kernel_checks(W, records)
+    f41 = paper_counted(lambda: fig4_1.run(full=True, trials=PAPER_TRIALS, W=W), runs, "paper fig4_1")
+    for r in f41["rows"]:
+        say(f"[paper] fig4_1 k={r['k']} q={r['q']}: {r['seconds']:.6f} s, normalized error "
+            f"{r['normalized_error']:.4f} (std {r['err_std']:.4f}), {r['flops'] / r['seconds'] / 1e12:.3f} "
+            f"TFLOP/s (rsi_flops / seconds)")
+    paper_error_gates("fig4_1", f41["rows"])
+    paper_sketch_gate("fig4_1", f41["rows"], PAPER_TRIALS, runs["paper fig4_1"]["sketch_matmul"])
+    # auto against reference at (200, 4), one Omega and one start vector
+    omega = torch.randn((D, 200), generator=gen(5), device="cuda")
+    v0 = torch.randn((D,), generator=gen(6), device="cuda")
+    errs = {}
+    for backend in ("auto", "reference"):
+        with use_dispatch(backend=backend):
+            res = rsi(W, 200, 4, omega=omega)
+        errs[backend] = float(normalized_error(W, res.U, res.S, res.Vt, float(s[200]), v0=v0))
+    rel = abs(errs["auto"] - errs["reference"]) / errs["reference"]
+    say(f"[paper] fig4_1 k=200 q=4 one Omega: auto {errs['auto']:.6f}, reference {errs['reference']:.6f}, "
+        f"relative difference {rel:.2e} (tolerance 1e-3)")
+    if not rel <= 1e-3:
+        fail(f"fig4_1 auto vs reference: relative difference {rel:.2e} > 1e-3")
+    summary["fig4_1"] = {"rows": f41["rows"], "auto_vs_reference": errs,
+                         "profile": [paper_profile(W, k, q) for k, q in ((50, 1), (50, 4), (200, 4))]}
+    del W, omega
+    torch.cuda.empty_cache()
+
+    # --- Fig 4.2: ViT-B/32 FFN, 768 x 3072 ------------------------------------
+    f42 = paper_counted(lambda: fig4_2.run(trials=PAPER_TRIALS), runs, "paper fig4_2")
+    say(f"[paper] fig4_2 exact SVD (torch.linalg.svd on the card): {f42['svd_seconds']:.6f} s")
+    for r in f42["rows"]:
+        say(f"[paper] fig4_2 k={r['k']} q={r['q']}: {r['seconds']:.6f} s, normalized error "
+            f"{r['normalized_error']:.4f}, svd_speedup {r['svd_speedup']:.2f}x")
+    paper_error_gates("fig4_2", f42["rows"])
+    paper_sketch_gate("fig4_2", f42["rows"], PAPER_TRIALS, runs["paper fig4_2"]["sketch_matmul"])
+    summary["fig4_2"] = {"svd_seconds": f42["svd_seconds"], "rows": f42["rows"]}
+
+    # --- Table 4.1: the whole grid ---------------------------------------------
+    t = time.perf_counter()
+    t41 = paper_counted(lambda: table4_1.run(), runs, "paper table4_1")
+    b = t41["baseline"]
+    say(f"[paper] table4_1 baseline top1 {b['top1']:.4f} top5 {b['top5']:.4f} "
+        f"(train 400 + refit 200 steps and the grid in {time.perf_counter() - t:.1f}s)")
+    for r in t41["rows"]:
+        say(f"[paper] table4_1 alpha={r['alpha']} q={r['q']}: {r['seconds']:.6f} s, ratio {r['ratio']:.3f}, "
+            f"top1 {r['top1']:.4f}, top5 {r['top5']:.4f}")
+    ratios = tuple(round(r["ratio"], 3) for r in t41["rows"] if r["q"] == 1)
+    if ratios != TABLE_RATIOS:
+        fail(f"table4_1 ratios {ratios} != the reference's {TABLE_RATIOS}")
+    top1 = {r["q"]: r["top1"] for r in t41["rows"] if r["alpha"] == 0.2}
+    if not top1[4] - top1[1] >= 0.05:
+        fail(f"table4_1 alpha 0.2: top1 q=4 {top1[4]:.4f} - q=1 {top1[1]:.4f} < 0.05")
+    if not top1[4] >= b["top1"] - 0.03:
+        fail(f"table4_1 alpha 0.2: top1 q=4 {top1[4]:.4f} < baseline {b['top1']:.4f} - 0.03")
+    # two compressed linears (fc0, fc1) in each of the grid's 16 forwards
+    if runs["paper table4_1"]["lowrank_matmul"] < 2 * len(t41["rows"]):
+        fail(f"table4_1: lowrank_matmul launched {runs['paper table4_1']['lowrank_matmul']} times on "
+             f"{len(t41['rows'])} compressed forwards")
+    summary["table4_1"] = {"baseline": b, "rows": t41["rows"]}
+
+    # --- Theorem 3.2: the trained head, then one tier of llama's w_gate ------------
+    params = t41["params"]
+    Xte = torch.as_tensor(table4_1.datasets()[2], device="cuda")
+    with torch.no_grad():
+        h = table4_1.mlp_features(params, Xte)
+        Wh, bias = params["fc2"]["w"].T.contiguous(), params["fc2"]["b"]  # W = 10 x 512
+        p = torch.softmax(h @ Wh.T + bias, dim=-1)
+        heads = {}
+        strict = 0
+        # rank 4 at q 1 and 4; ranks 8 and 9 at q 4 show where the bound starts to say something
+        for rank, q in ((4, 1), (4, 4), (8, 4), (9, 4)):
+            A, B = rsi_factors(Wh, rank, q, generator=gen(11))
+            cert = certify_head(Wh, A @ B, h, gen(12), rank=rank, q=q)
+            dev_max = float(torch.max(torch.abs(torch.softmax(h @ (A @ B).T + bias, dim=-1) - p)))
+            # the certificate against the exact ||W - W~||_2: the power method's 32 steps are a lower
+            # bound that lies within 1e-3 of s1 where (s2/s1)^64 <= 1e-4, and above s2 (1 - 1e-2)
+            # elsewhere; the same R and W~ on features scaled so that the bound is 0.25
+            s1, s2 = (float(v) for v in torch.linalg.svdvals(Wh - A @ B)[:2])
+            converged = (s2 / s1) ** 64 <= 1e-4
+            strict += converged
+            lo = s1 * (1 - 1e-3) if converged else s2 * (1 - 1e-2)
+            hs = h * (0.5 / (cert.spectral_error * cert.feature_radius))
+            small = certify_head(Wh, A @ B, hs, gen(12), rank=rank, q=q)
+            ps = torch.softmax(hs @ Wh.T + bias, dim=-1)
+            dev_small = float(torch.max(torch.abs(torch.softmax(hs @ (A @ B).T + bias, dim=-1) - ps)))
+            heads[f"rank {rank} q {q}"] = {"spectral_error": cert.spectral_error, "exact_s1": s1, "exact_s2": s2,
+                                           "feature_radius": cert.feature_radius,
+                                           "bound": cert.prob_deviation_bound, "measured_max_deviation": dev_max,
+                                           "scaled_bound": small.prob_deviation_bound,
+                                           "scaled_measured_max_deviation": dev_small}
+            say(f"[paper] theorem 3.2 head 10x512 rank {rank} q={q}: ||W-W~||_2 {cert.spectral_error:.5f} "
+                f"(exact s1 {s1:.5f}, s2 {s2:.5f}; gate [{lo:.5f}, {s1 * (1 + 1e-4):.5f}]), "
+                f"R {cert.feature_radius:.3f}, bound {cert.prob_deviation_bound:.5f}, measured max deviation "
+                f"{dev_max:.5f} over {h.shape[0]} test rows; features scaled to R {small.feature_radius:.5f}: "
+                f"bound {small.prob_deviation_bound:.5f}, measured {dev_small:.5f}")
+            if not lo <= cert.spectral_error <= s1 * (1 + 1e-4):
+                fail(f"theorem 3.2 head rank {rank} q={q}: spectral error {cert.spectral_error:.6f} outside "
+                     f"[{lo:.6f}, {s1 * (1 + 1e-4):.6f}] (exact s1 {s1:.6f}, s2 {s2:.6f})")
+            for what, d, bound in (("", dev_max, cert.prob_deviation_bound),
+                                   (" scaled", dev_small, small.prob_deviation_bound)):
+                if not d <= bound + 1e-4:
+                    fail(f"theorem 3.2 head rank {rank} q={q}{what}: measured {d:.6f} > bound {bound:.6f} + 1e-4")
+        if not strict:
+            fail("theorem 3.2 head: no rank whose residual's power method converges; the 1e-3 gate held nothing")
+    del params, t41, h, Xte
+
+    model = build_model(get_arch("llama3.2-1b"))
+    t = time.perf_counter()
+    dense = spectralize_params(model.init(gen(0)), gen(9))
+    cp, _ = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    del dense
+    gate = cp["layers"]["mlp"]["w_gate"]
+    a, b_ = gate["a"], gate["b"]
+    tier = a.shape[-1] // 2
+    cert = certify_tier(a, b_, tier, gen(13), q=4)
+    col = max(float(torch.linalg.vector_norm(a[l, :, tier].float()) * torch.linalg.vector_norm(b_[l, tier, :].float()))
+              for l in range(a.shape[0]))
+    rel = abs(cert.spectral_error - col) / col
+    summary["certify_tier"] = {"shape_a": list(a.shape), "shape_b": list(b_.shape), "tier": tier,
+                               "spectral_error": cert.spectral_error, "max_column_product": col, "relative": rel}
+    say(f"[paper] certify_tier llama3.2-1b w_gate a {tuple(a.shape)} b {tuple(b_.shape)} tier {tier}: "
+        f"spectral error {cert.spectral_error:.6f}, max_l ||A[:, r']|| ||B[r', :]|| {col:.6f}, relative "
+        f"{rel:.2e} (tolerance 2e-2; {time.perf_counter() - t:.1f}s with the compression)")
+    if not rel <= 2e-2:
+        fail(f"certify_tier: spectral error {cert.spectral_error:.6f} not within 2% of {col:.6f}")
+    summary["theorem_3_2_head"] = heads
+    del model, cp, gate, a, b_
+    torch.cuda.empty_cache()
+
+    # --- the compression CLI at full width --------------------------------------
+    for rule in ("alpha", "energy"):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, rep = paper_counted(lambda: compress_cli.main(["--arch", "llama3.2-1b", "--rank-rule", rule,
+                                                              "--errors"]), runs, f"paper cli {rule}")
+        dt = time.perf_counter() - t
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say(f"[paper] cli {rule} | {line}")
+        errs_cli = [float(line.rsplit(":", 1)[1]) for line in text.splitlines() if "spectral err" in line]
+        done = [l for l in rep.layers if l.compressed]
+        over = [(l.path, l.rank) for l in done if not l.rank < break_even_rank(*l.shape[-2:])]
+        say(f"[paper] cli {rule}: {rep.summary()} in {dt:.1f}s; {len(errs_cli)} spectral errors")
+        if not done or len(errs_cli) != len(done) or not all(e == e and abs(e) != float("inf") for e in errs_cli):
+            fail(f"cli {rule}: {len(done)} compressed, errors {errs_cli}")
+        if over:
+            fail(f"cli {rule}: ranks at or over break-even: {over}")
+        summary[f"cli_{rule}"] = {"ratio": rep.ratio, "ranks": sorted({l.rank for l in done}), "seconds": dt}
+    summary["launches"] = {k: v for k, v in runs.items() if k.startswith("paper")}
+    summary["paper_phase_s"] = time.perf_counter() - t_phase
+    say("[paper] " + json.dumps(summary))
+    return summary
+
+
+def phase_paper_only() -> int:
+    """``--paper-only``: phase 18 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[paper-only] {card_line()}; package tree {SRC}")
+    build_all(["sketch_matmul", "lowrank_matmul"])
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    records: dict = {}
+    phase_paper({}, records)
+    say("[paper-only] " + json.dumps({k: {f: v[f] for f in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                            "bound_ms", "bound_by")} for k, v in records.items()}))
+    return 0
+
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2027,6 +2387,8 @@ def main() -> int:
         return phase_ssd_only()
     if "--prefill-only" in sys.argv:
         return phase_prefill_only()
+    if "--paper-only" in sys.argv:
+        return phase_paper_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -2105,8 +2467,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # `launches`: the kernel's count on the main run of the newest path that runs it
-    newest_first = ["zamba2-1.2b engine", "mamba2-130m engine", "zamba2-1.2b flat engine", "phi3.5-moe engine",
+    # phase 18: the paper's experiments (sketch_matmul on every power iteration, lowrank_matmul
+    # on Table 4.1's compressed forwards)
+    t = time.perf_counter()
+    phase_paper(runs, records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[paper] phase 18 in {time.perf_counter() - t:.1f}s")
+
+    # `launches`: the kernel's count on the main run of the newest engine path that runs it (the
+    # shape and dtype of its `ms`); phase 18's fp32 paper runs stand only in `launches_by_run`
+    newest_first = ["zamba2-1.2b engine", "mamba2-130m engine",
+                    "zamba2-1.2b flat engine", "phi3.5-moe engine",
                     "llama3.2-1b engine", "llama3.2-1b flat engine"]
     line = []
     for name in KERNELS:
@@ -2119,11 +2491,17 @@ def main() -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"], "dtype": r["dtype"]}
         # the attention kernels at phi's head_dim 128 and zamba2's G = 1; the sketch GEMM's
         # W^T @ X, tied logits and untied head; the low-rank kernel's w_gate at M 8, 256 and
-        # 1024; the batched kernel at the decode and the skewed occupancy
+        # 1024; the batched kernel at the decode and the skewed occupancy; phase 18's fp32
+        # shapes (the sketch GEMM on Fig 4.1's W, the low-rank kernel on Table 4.1's fc1)
         subs = (("hd128", phi, name), ("g1", g1, name), ("trans_a", records, f"{name} trans_a"),
                 ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"),
                 ("m8", records, f"{name} M 8"), ("m256", records, f"{name} M 256"),
                 ("m1024", records, f"{name} M 1024"), ("decode_occupancy", records, f"{name} decode"),
+                ("fig4_1_k50", records, f"{name} fig4_1 k 50"),
+                ("fig4_1_k50_trans_a", records, f"{name} fig4_1 k 50 trans_a"),
+                ("fig4_1_k200", records, f"{name} fig4_1 k 200"),
+                ("fig4_1_k200_trans_a", records, f"{name} fig4_1 k 200 trans_a"),
+                ("table4_1", records, f"{name} table4_1"),
                 ("skewed_occupancy", records, f"{name} skewed"),
                 ("zamba2_4x256", records, f"{name} 4x256 nh 64 s 64 x̄ rounded"),
                 ("mamba2_1x512", records, f"{name} 1x512 nh 24 s 128 x̄ rounded"))

@@ -8,13 +8,16 @@ dense leaves are replaced by factored ``{"a","b"}`` subtrees and (ii) a
 
 Stacked ``(L, d_in, d_out)`` leaves get one independent sketch per layer;
 the reference's ``vmap`` over layers is a loop here.  The rank rule is the
-paper's ``k = ceil(alpha * min(C, D))``; the reference's adaptive
-``energy`` rule is not yet ported, nor are sharding specs (the port has no
-mesh yet).
+paper's ``k = ceil(alpha * min(C, D))`` (``rank_rule="alpha"``) or the
+reference's adaptive ``energy`` rule: the smallest k whose singular values
+hold ``energy`` of the squared mass of one probe sketch.  Sharding specs are
+not ported (the port has no mesh yet).
 
 Randomness: Omega for every (leaf, layer) is drawn from ``generator`` in
 sorted-key leaf order, or supplied by ``omega_fn(path, layer, shape)`` —
 the parity tests use the latter to hand the port the reference's Omegas.
+The energy rule's probe asks for ``omega_fn(path, None, (D, ell_probe))``:
+the reference draws it from the leaf's own (unsplit) key.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from repro_torch.core import lowrank
-from repro_torch.core.rsi import rsi_factors
+from repro_torch.core.rsi import rsi, rsi_factors
 
 __all__ = ["CompressionPolicy", "LayerReport", "CompressionReport", "compress_tree"]
 
@@ -36,7 +39,8 @@ class CompressionPolicy:
     """What to compress and how hard (fields as in the reference).
 
     alpha: rank k = ceil(alpha * min dim); q: RSI iterations (1 == RSVD);
-    rank_rule: only 'alpha' is ported; min_dim: skip smaller matrices;
+    rank_rule: 'alpha' (k from alpha) or 'energy' (the smallest k holding
+    ``energy`` of the squared singular mass); min_dim: skip smaller matrices;
     include / exclude: regexes on the '/'-joined param path (exclude also
     catches stacked norm scales, see below);
     break_even_only: skip layers whose rank would not shrink them;
@@ -120,6 +124,27 @@ def _copy_tree(tree: Any) -> Any:
     return tree
 
 
+def _energy_rank(W2d: torch.Tensor, probe: int, policy: CompressionPolicy, omega: torch.Tensor) -> int:
+    """Adaptive rank: sketch the spectrum once at the ``probe`` (break-even)
+    rank with RSI at ``max(q, 2)``, then take the smallest k holding
+    ``energy`` of the squared mass (``searchsorted`` on the left, as the
+    reference), clamped to ``[1, probe]``.
+
+    Where the sketch is numerically rank-deficient (a spectrum far sharper
+    than the probe rank), CholeskyQR's Gram is not positive definite in
+    fp32: the reference's probe then returns NaN singular values and its
+    ``searchsorted`` lands on rank 1; the port redoes the probe from the same
+    Omega with Householder QR and reads the rank off real singular values."""
+    q = max(policy.q, 2)
+    try:
+        res = rsi(W2d, probe, q, omega=omega, oversample=policy.oversample)
+    except torch.linalg.LinAlgError:
+        res = rsi(W2d, probe, q, omega=omega, oversample=policy.oversample, qr_method="householder")
+    s2 = torch.cumsum(res.S.float() ** 2, dim=0)
+    k = int(torch.searchsorted(s2, (policy.energy * s2[-1]).reshape(1))[0]) + 1
+    return max(1, min(k, probe))
+
+
 def compress_tree(
     params: Any,
     policy: CompressionPolicy,
@@ -134,8 +159,8 @@ def compress_tree(
     ``generator``.  Returns ``(new_params, report)``; leaves not compressed
     are shared with ``params``.
     """
-    if policy.rank_rule != "alpha":
-        raise NotImplementedError(f"rank_rule {policy.rank_rule!r} is not yet ported (only 'alpha')")
+    if policy.rank_rule not in ("alpha", "energy"):
+        raise ValueError(f"rank_rule {policy.rank_rule!r}: 'alpha' or 'energy'")
     if generator is None and omega_fn is None:
         raise ValueError("compress_tree needs generator= or omega_fn=")
     inc, exc = re.compile(policy.include), re.compile(policy.exclude)
@@ -157,7 +182,14 @@ def compress_tree(
         if min(c, d) < policy.min_dim:
             entry.reason = f"min-dim {min(c, d)} < {policy.min_dim}"
             continue
-        rank = policy.rank_for(c, d)
+        if policy.rank_rule == "energy":
+            probe = min(lowrank.break_even_rank(c, d), min(c, d))
+            shape = (d, min(probe + policy.oversample, min(c, d)))
+            omega = (omega_fn(name, None, shape) if omega_fn is not None else
+                     torch.randn(shape, generator=generator, dtype=torch.float32, device=leaf.device))
+            rank = _energy_rank(leaf.reshape((-1, c, d))[0], probe, policy, omega)
+        else:
+            rank = policy.rank_for(c, d)
         if policy.break_even_only and rank >= lowrank.break_even_rank(c, d):
             entry.reason = f"rank {rank} >= break-even {lowrank.break_even_rank(c, d)}"
             continue

@@ -29,6 +29,7 @@ __all__ = [
     "cholesky_qr",
     "cholesky_qr2",
     "rsi_flops",
+    "matmul_count",
 ]
 
 
@@ -137,6 +138,11 @@ def rsi_factors(W: torch.Tensor, k: int, q: int, **kw) -> tuple[torch.Tensor, to
     res = rsi(W, k, q, **kw)
     root_s = torch.sqrt(torch.clamp(res.S.float(), min=0.0)).to(W.dtype)
     return res.U * root_s[None, :], root_s[:, None] * res.Vt
+
+
+def matmul_count(q: int) -> int:
+    """m of Eq. (3.14): number of multiplications with W or W^T."""
+    return 2 * q
 
 
 def rsi_flops(C: int, D: int, k: int, q: int, *, oversample: int = 0) -> int:

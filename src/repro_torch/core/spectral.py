@@ -14,10 +14,12 @@ import torch
 
 __all__ = [
     "spectral_norm",
+    "normalized_error",
     "normalized_error_factored",
     "synth_spectrum_matrix",
     "vgg_like_spectrum",
     "spectralize_params",
+    "effective_rank",
 ]
 
 
@@ -40,6 +42,14 @@ def spectral_norm(M: torch.Tensor, generator: Optional[torch.Generator] = None, 
         w = m32.T @ u
         v = w / (torch.linalg.vector_norm(w) + 1e-30)
     return torch.linalg.vector_norm(m32 @ v)
+
+
+def normalized_error(W, U, S, Vt, s_next, generator: Optional[torch.Generator] = None, *,
+                     iters: int = 32, v0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paper metric: ||W - U S Vt||_2 / s_{k+1}, the product rounded to W's
+    dtype before the subtraction, as the reference does."""
+    approx = torch.matmul(U * S[None, :], Vt).to(W.dtype)
+    return spectral_norm(W - approx, generator, iters=iters, v0=v0) / s_next
 
 
 def normalized_error_factored(W, A, B, s_next, generator: Optional[torch.Generator] = None, *,
@@ -105,3 +115,10 @@ def spectralize_params(params: Any, generator: torch.Generator, *, min_dim: int 
         return one(node)
 
     return walk(params)
+
+
+def effective_rank(s: torch.Tensor) -> torch.Tensor:
+    """Entropy-based effective rank of a spectrum (for rank-policy heuristics)."""
+    p = s / torch.sum(s)
+    p = torch.where(p > 0, p, torch.ones_like(p))
+    return torch.exp(-torch.sum(torch.where(s > 0, p * torch.log(p), torch.zeros_like(p))))

@@ -1,15 +1,15 @@
-"""Deterministic synthetic token streams (a copy of the reference's
-``repro/data/synthetic.py`` for the LM case).
+"""Deterministic synthetic data (a copy of the reference's
+``repro/data/synthetic.py`` for the LM case and the Table 4.1 classifier).
 
-Batch contents are a pure function of (seed, step), so the port and the
-reference build identical prompts.
+Contents are a pure function of the seed (and step), so the port and the
+reference build identical prompts and datasets.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "markov_tokens"]
+__all__ = ["SyntheticLM", "markov_tokens", "classification_dataset"]
 
 
 def markov_tokens(seed: int, step: int, batch: int, seq: int, vocab: int) -> np.ndarray:
@@ -45,3 +45,14 @@ class SyntheticLM:
         b = self.at_step(self.step)
         self.step += 1
         return b
+
+
+def classification_dataset(seed: int, n: int, dim: int, n_classes: int, *, margin: float = 1.5):
+    """Synthetic 10-class dataset for the Table-4.1 reproduction: Gaussian
+    clusters with controlled separation (margin) in `dim` dims.  Returns
+    (X (n,dim) fp32, y (n,) int32, class_means)."""
+    rng = np.random.default_rng(seed)
+    means = rng.standard_normal((n_classes, dim)).astype(np.float32) * margin
+    y = rng.integers(0, n_classes, size=(n,))
+    X = means[y] + rng.standard_normal((n, dim)).astype(np.float32)
+    return X.astype(np.float32), y.astype(np.int32), means

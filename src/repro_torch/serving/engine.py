@@ -61,6 +61,7 @@ prefix sharing and the session cache (``share_prefix``,
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 from collections import Counter
@@ -658,7 +659,10 @@ class Engine:
         (mamba conv tails and states), which would corrupt the live slots'
         states, so the cache is saved before the warm-up and restored after
         it.  Launches and dispatch calls made during capture are recorded
-        per graph and counted per replay."""
+        per graph and counted per replay.  Python's cyclic garbage collector
+        is off during the capture: a dead engine's graph freed inside it
+        (its destructor destroys a graph exec, which a capture does not
+        permit) would invalidate the capture."""
         entry = self._graphs.get(greedy)
         if entry is not None:
             return entry
@@ -677,8 +681,14 @@ class Engine:
         libs = kernel_libs()
         before = [lib.captured for lib in libs]
         graph = torch.cuda.CUDAGraph()
-        with dispatch.recording_capture() as calls, torch.cuda.graph(graph, stream=side):
-            self._block_body(greedy)
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with dispatch.recording_capture() as calls, torch.cuda.graph(graph, stream=side):
+                self._block_body(greedy)
+        finally:
+            if gc_on:
+                gc.enable()
         launches = {lib: lib.captured - b for lib, b in zip(libs, before) if lib.captured > b}
         entry = (graph, Counter(calls), launches)
         self._graphs[greedy] = entry

@@ -684,6 +684,38 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
 
 
 @pytest.mark.gpu
+def test_gpu_engine_capture_runs_with_the_cyclic_gc_off(cuda):
+    """The decode block is captured with Python's cyclic garbage collector off
+    (a dead engine's graph freed inside a capture invalidates it), and the
+    collector is on again after it."""
+    import gc
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Engine, Request
+
+    model = build_model(get_arch("llama3.2-1b", reduced=True), device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    eng = Engine(model, params, n_slots=2, max_len=24, decode_block=4, cuda_graph=True)
+    seen = []
+    body = eng._block_body
+
+    def spy(greedy):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return body(greedy)
+
+    eng._block_body = spy
+    assert gc.isenabled()
+    reqs = [eng.submit(Request(prompt=np.arange(1, n + 1), max_new_tokens=6)) for n in (5, 9)]
+    while eng.has_work:
+        eng.step()
+    assert all(r.status == "ok" and len(r.tokens) == 6 for r in reqs)
+    assert eng.graph_replays > 0 and seen == [False]
+    assert gc.isenabled()
+
+
+@pytest.mark.gpu
 def test_gpu_engine_graph_capture_in_a_fresh_process(cuda):
     """The captured decode block's engine tests alone, in a fresh interpreter:
     nothing else of this file has captured a graph or used cuBLAS there
@@ -700,3 +732,76 @@ def test_gpu_engine_graph_capture_in_a_fresh_process(cuda):
                          cwd=root, env=env, capture_output=True, text=True, timeout=1800)
     # exit 0: every selected test ran and passed (pytest exits 5 when it selects none)
     assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-3000:]
+
+
+# --------------------------------------------------------------------------- #
+# the paper's experiments and the rest of the core on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.gpu
+def test_gpu_fig4_1_auto_matches_reference(cuda):
+    """Fig 4.1 at its default 1024 x 6272, fp32: the sketch kernel (auto)
+    against the plain GEMMs (reference) from the same Omegas (the same
+    generator seeds on the card) and start vector: errors rtol 1e-3."""
+    from repro_torch.experiments import fig4_1
+    from repro_torch.kernels import sketch_matmul as sketch_mod
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    before = sketch_mod.KERNEL.launches
+    got = fig4_1.run(trials=1, qs=(1, 4), device=cuda)
+    # a warm-up and one trial per cell, 2q sketch launches each
+    assert sketch_mod.KERNEL.launches - before == sum(2 * 2 * q for q in (1, 4)) * 3
+    with use_dispatch(backend="reference"):
+        want = fig4_1.run(trials=1, qs=(1, 4), device=cuda)
+    for g, w in zip(got["rows"], want["rows"]):
+        assert (g["k"], g["q"]) == (w["k"], w["q"])
+        assert abs(g["normalized_error"] - w["normalized_error"]) <= 1e-3 * w["normalized_error"], (g, w)
+        assert g["normalized_error"] >= 0.99
+    for k in (50, 100, 200):
+        by_q = {r["q"]: r["normalized_error"] for r in got["rows"] if r["k"] == k}
+        assert by_q[4] < by_q[1]
+
+
+@pytest.mark.gpu
+def test_gpu_certify_head_matches_cpu(cuda):
+    """A Theorem 3.2 certificate computed on the card equals the CPU's on
+    the same inputs and start vector (fields rtol 1e-4: fp32 power method,
+    summation order only)."""
+    from repro_torch.core import certify_head, certify_tier, rsi_factors
+
+    g = torch.Generator().manual_seed(0)
+    W = torch.randn((10, 512), generator=g) * 0.3
+    calib = torch.randn((2048, 512), generator=g)
+    omega = torch.randn((512, 4), generator=g)
+    v0 = torch.randn((512,), generator=g)
+    certs = {}
+    for dev in ("cpu", cuda):
+        A, B = rsi_factors(W.to(dev), 4, 4, omega=omega)
+        head = certify_head(W.to(dev), A @ B, calib.to(dev), rank=4, q=4, v0=v0)
+        tier = certify_tier(A, B, 2, q=4, v0=v0)
+        certs[str(dev)] = (head, tier)
+    for (cpu_c, gpu_c) in zip(certs["cpu"], certs[str(cuda)]):
+        for f in ("spectral_error", "feature_radius", "prob_deviation_bound"):
+            np.testing.assert_allclose(getattr(gpu_c, f), getattr(cpu_c, f), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_energy_rank_matches_cpu(cuda):
+    """The energy rule's rank on the card equals the CPU's on a stated
+    matrix (s_i = 2^(-i/16) on 256 x 1024, whose cumulative energy lies far
+    from each threshold), and both equal the exact answer."""
+    from repro_torch.core import CompressionPolicy, compress_tree, synth_spectrum_matrix
+
+    s = 2.0 ** (-torch.arange(256, dtype=torch.float32) / 16.0)
+    W = synth_spectrum_matrix(256, 1024, s, generator=torch.Generator().manual_seed(3))
+    probe = (256 * 1024 - 1) // (256 + 1024)
+    c2 = torch.cumsum(s[:probe].double() ** 2, 0)
+    c2 = c2 / c2[-1]
+    for energy in (0.6, 0.9, 0.97):
+        assert float(torch.min(torch.abs(c2 - energy))) > 5e-4  # no rank within rounding of the threshold
+        exact = int(torch.searchsorted(c2, torch.tensor([energy], dtype=torch.float64))[0]) + 1
+        ranks = []
+        for dev in ("cpu", cuda):
+            pol = CompressionPolicy(rank_rule="energy", energy=energy, q=2, min_dim=8, break_even_only=False)
+            _, rep = compress_tree({"w": W.to(dev)}, pol, generator=torch.Generator(device=dev).manual_seed(1))
+            ranks.append(rep.layers[0].rank)
+        assert ranks == [exact, exact], (energy, ranks, exact)
