@@ -29,7 +29,7 @@ from typing import Any, Callable, Mapping, Optional
 import torch
 
 from repro_torch.core import lowrank
-from repro_torch.core.rsi import rsi, rsi_factors
+from repro_torch.core.rsi import QR_FALLBACKS, rsi, rsi_factors
 
 __all__ = ["CompressionPolicy", "LayerReport", "CompressionReport", "compress_tree"]
 
@@ -56,7 +56,7 @@ class CompressionPolicy:
     # the reference's pattern plus any segment ENDING in "norm": the stacked
     # (L, d) norm scales (layers/attn_norm/scale) are vectors, not matrices,
     # and at min_dim <= L the reference compresses their all-ones rank-1 stack
-    # (CholeskyQR's Gram is then singular: NaN there, an error here)
+    # (CholeskyQR's Gram is then singular: NaN factors there)
     exclude: str = r"(?:^|/)(embed|embedding|router|gate_w|conv|dt_|A_log|D_param|norm)|norm(?:/|$)"
     break_even_only: bool = True
     oversample: int = 0
@@ -78,6 +78,7 @@ class LayerReport:
     params_after: int
     compressed: bool
     reason: str = ""
+    qr_fallbacks: int = 0  # sketches Householder QR orthonormalized (rsi.QR_FALLBACKS)
 
 
 @dataclasses.dataclass
@@ -133,13 +134,10 @@ def _energy_rank(W2d: torch.Tensor, probe: int, policy: CompressionPolicy, omega
     Where the sketch is numerically rank-deficient (a spectrum far sharper
     than the probe rank), CholeskyQR's Gram is not positive definite in
     fp32: the reference's probe then returns NaN singular values and its
-    ``searchsorted`` lands on rank 1; the port redoes the probe from the same
-    Omega with Householder QR and reads the rank off real singular values."""
-    q = max(policy.q, 2)
-    try:
-        res = rsi(W2d, probe, q, omega=omega, oversample=policy.oversample)
-    except torch.linalg.LinAlgError:
-        res = rsi(W2d, probe, q, omega=omega, oversample=policy.oversample, qr_method="householder")
+    ``searchsorted`` lands on rank 1; the port's RSI orthonormalizes that
+    sketch by Householder QR instead, and the rank is read off real singular
+    values."""
+    res = rsi(W2d, probe, max(policy.q, 2), omega=omega, oversample=policy.oversample)
     s2 = torch.cumsum(res.S.float() ** 2, dim=0)
     k = int(torch.searchsorted(s2, (policy.energy * s2[-1]).reshape(1))[0]) + 1
     return max(1, min(k, probe))
@@ -182,6 +180,7 @@ def compress_tree(
         if min(c, d) < policy.min_dim:
             entry.reason = f"min-dim {min(c, d)} < {policy.min_dim}"
             continue
+        fallbacks = QR_FALLBACKS.count
         if policy.rank_rule == "energy":
             probe = min(lowrank.break_even_rank(c, d), min(c, d))
             shape = (d, min(probe + policy.oversample, min(c, d)))
@@ -190,6 +189,7 @@ def compress_tree(
             rank = _energy_rank(leaf.reshape((-1, c, d))[0], probe, policy, omega)
         else:
             rank = policy.rank_for(c, d)
+        entry.qr_fallbacks = QR_FALLBACKS.count - fallbacks
         if policy.break_even_only and rank >= lowrank.break_even_rank(c, d):
             entry.reason = f"rank {rank} >= break-even {lowrank.break_even_rank(c, d)}"
             continue
@@ -212,6 +212,7 @@ def compress_tree(
 
         _set(new_params, name, lowrank.lowrank_params(A, B))
         entry.rank = rank
+        entry.qr_fallbacks = QR_FALLBACKS.count - fallbacks
         entry.params_after = A.numel() + B.numel()
         entry.compressed = True
         report.params_after += entry.params_after - entry.params_before

@@ -30,7 +30,23 @@ __all__ = [
     "cholesky_qr2",
     "rsi_flops",
     "matmul_count",
+    "QR_FALLBACKS",
 ]
+
+
+class _FallbackCount:
+    """Sketches that CholeskyQR2 could not orthonormalize (its Gram not
+    positive definite in fp32) and Householder QR did, since import or the
+    last :meth:`reset`."""
+
+    def __init__(self):
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+QR_FALLBACKS = _FallbackCount()
 
 
 class RSIResult(NamedTuple):
@@ -61,7 +77,17 @@ def cholesky_qr2(X: torch.Tensor) -> torch.Tensor:
 
 def _orthonormalize(X: torch.Tensor, method: str) -> torch.Tensor:
     if method == "cholesky_qr2":
-        return cholesky_qr2(X)
+        try:
+            return cholesky_qr2(X)
+        except torch.linalg.LinAlgError:
+            # From the second iteration on cond(X) ~ (s_1 / s_k)^2, and past
+            # ~1/sqrt(eps) the fp32 Gram loses positive definiteness
+            # (qwen2-72b's 8192-wide layers at k = 2458 on spectralized
+            # weights).  The reference's CholeskyQR returns NaN factors there;
+            # the port orthonormalizes the same X by Householder QR instead,
+            # and counts it in QR_FALLBACKS.
+            QR_FALLBACKS.count += 1
+            return _orthonormalize(X, "householder")
     if method == "householder":
         q, _ = torch.linalg.qr(X.float())
         return q.to(X.dtype)

@@ -5,7 +5,8 @@ engine (default) or one static batched prefill + greedy decode.
         [--engine continuous|static] [--compress-alpha 0.3 --q 4] \\
         [--batch 4 --prompt-len 16 --gen 32] [--seed 0] [--device cuda|cpu] \\
         [--n-slots N --decode-block 8 --page-size P --kv-pages K \\
-         --prefill-chunk C --temperature T --top-k K]
+         --prefill-chunk C --temperature T --top-k K] \\
+        [--share-prefix [--warm-cache-pages N] [--close-sessions]]
 
 The port's counterpart of ``repro/launch/serve.py``.  Runs on the card
 unless ``--device cpu`` is given.  ``--engine continuous`` serves ``--batch``
@@ -15,8 +16,11 @@ block is a captured CUDA graph) and prints the engine's counters;
 per-site counters at the end, so every linear, attention and SSD scan call
 shows the path it took.  ``--prefill-chunk`` is inert for the ssm and
 hybrid families (``--arch mamba2-130m``, ``zamba2-1.2b``), which prefill
-monolithically, as in the reference.  The reference's prefix-sharing,
-overload, cluster and event flags are not ported yet.
+monolithically, as in the reference.  ``--share-prefix`` maps repeated
+prompt-prefix pages read-only (a ``[shared]`` line of its counters);
+``--close-sessions`` then drops each request's cached branch and prints a
+``[sessions]`` line.  The reference's overload, cluster and event flags are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +46,16 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prefill prompts longer than this in page-backed chunks interleaved with "
                          "decode; 0 = monolithic (requires --page-size)")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="refcounted copy-on-write prompt-prefix sharing: requests repeating an earlier "
+                         "prompt's leading full pages map them read-only and prefill only the unshared tail "
+                         "(requires --page-size; inert for families without mid-prompt prefill)")
+    ap.add_argument("--warm-cache-pages", type=int, default=0,
+                    help="cap on released pages kept matchable in the prefix index (LRU eviction); "
+                         "0 = unbounded (requires --page-size)")
+    ap.add_argument("--close-sessions", action="store_true",
+                    help="after the run, drop each prompt's cached prefix branch (the session-close hook) "
+                         "and report the pages freed (requires --share-prefix)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -98,7 +112,8 @@ def main(argv=None):
         n_slots = args.n_slots or args.batch
         eng = Engine(model, params, n_slots=n_slots, max_len=max_len, dispatch=dcfg,
                      decode_block=args.decode_block, page_size=args.page_size or None,
-                     kv_pages=args.kv_pages or None, prefill_chunk=args.prefill_chunk or None)
+                     kv_pages=args.kv_pages or None, prefill_chunk=args.prefill_chunk or None,
+                     share_prefix=args.share_prefix, warm_cache_pages=args.warm_cache_pages or None)
         # one seed per request, so sampled continuations are not correlated across the batch
         reqs = [Request(prompt=prompts[b], max_new_tokens=args.gen,
                         sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -124,6 +139,15 @@ def main(argv=None):
                   f"peak_pages={eng.peak_pages_in_use} peak_active={eng.peak_active} "
                   f"prefill_chunks={eng.prefill_chunks} kv_bytes_cap={eng.kv_bytes_capacity} "
                   f"kv_bytes_peak={eng.kv_bytes_peak}")
+            if args.share_prefix:
+                print(f"[shared] shared_pages={eng.shared_page_hits} cow_forks={eng.cow_forks} "
+                      f"matched_admissions={eng.shared_admissions} "
+                      f"prefill_tok_skipped={eng.skipped_prefill_tokens} "
+                      f"cached_pages={eng.prefix_cached_pages} evictions={eng.prefix_evictions}")
+        if args.close_sessions and args.share_prefix:
+            freed = sum(eng.drop_session(r.prompt) for r in done)
+            print(f"[sessions] closed {len(done)}, freed {freed} cached pages "
+                  f"(cached now {eng.prefix_cached_pages})")
         if done and done[0].tokens:
             print("first sequence:", done[0].tokens[:12])
         out = done

@@ -24,6 +24,7 @@ __all__ = [
     "decode_attention",
     "paged_decode_attention",
     "trash_page",
+    "copy_page",
     "gqa_init_cache_paged",
     "gqa_decode_paged",
     "gqa_prefill_chunk",
@@ -153,6 +154,21 @@ def trash_page(pool) -> int:
     block-table entries beyond a slot's allocation point there.  Its
     contents are never attended: every read masks by ``n_valid`` first."""
     return pool.shape[0] - 1
+
+
+def copy_page(pool, src: int, dst: int, *, axis: int = 0):
+    """Copy physical page ``src`` onto ``dst`` along the pool's page
+    ``axis``, IN PLACE: the copy-on-write fork of shared-prefix serving.
+
+    Shared block-table entries are read-only: when a slot's prefill must
+    re-enter the last matched prefix page (the whole prompt was covered,
+    but its last token still runs to produce the sampling logits), the
+    engine forks that page with this and points the slot's table at the
+    copy, so the writer never mutates storage other slots read.  One
+    indexed ``copy_`` on the current stream (an XLA scatter in the
+    reference, not a Pallas kernel).  Returns ``pool``."""
+    pool.select(axis, dst).copy_(pool.select(axis, src))
+    return pool
 
 
 def _paged_write(pool, block_table, pos_v, rows, *, live=None):

@@ -321,12 +321,15 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
 
 
 def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
-    """One page-aligned chunk of one slot's prompt prefill (paged cache only).
+    """One chunk of one slot's prompt prefill (paged cache only).
 
-    tokens: (1, C) — the chunk at absolute positions ``start + [0, C)``,
-    right-padded when fewer than C real tokens remain (``n_real`` are
-    real; padded rows write to the trash page).  ``bt_row``: the slot's
-    (n_tbl,) page ids, passed EXPLICITLY rather than read from
+    tokens: (1, C) — the chunk at absolute positions ``start + [0, C)``.
+    ``start`` may be any position: page-aligned for a prompt's own chunks,
+    mid-page where a shared prefix re-enters (the copy-on-write fork at
+    ``L - 1``) or a finished request's reply is rewritten from its prompt's
+    end.  The chunk is right-padded when fewer than C real tokens remain
+    (``n_real`` are real; padded rows write to the trash page).  ``bt_row``:
+    the slot's (n_tbl,) page ids, passed EXPLICITLY rather than read from
     ``cache["block_table"]``: the engine keeps the slot's table row on
     trash until the last chunk lands, so the decode block's frozen-slot
     re-feeds cannot write into a half-prefilled slot's pages.

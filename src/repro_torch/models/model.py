@@ -38,7 +38,8 @@ class ModelApi:
     # pools plus a block table, for the paged serving engine
     init_cache_paged: Any = None
     # (params, cache, tokens (1, C), bt_row, start, n_real) -> (logits, cache):
-    # one page-aligned prefill chunk through the slot's block-table row; None
+    # one prefill chunk at any start (page-aligned, or mid-page where a shared
+    # prefix re-enters) through the slot's block-table row; None
     # where prefill carries state across the whole prompt (ssm, hybrid: the
     # engine prefills those monolithically)
     prefill_chunk: Any = None

@@ -52,10 +52,29 @@ and the rest of the batch decodes on.
 Greedy determinism contract: with temperature 0 the engine emits, per
 request, the tokens ``greedy_generate`` produces for that prompt alone.
 
-Not in this slice of the port (each raises ``NotImplementedError``):
-prefix sharing and the session cache (``share_prefix``,
-``warm_cache_pages``), and the overload layer (``tiers``/``tier_q``,
-``admission``, ``injector``, ``preempt``, ``watchdog``, ``on_event``).
+Prefix sharing (``share_prefix=True``, paged mode, the dense and moe
+families): admission matches a new prompt's leading FULL pages against a
+:class:`PrefixIndex` of pages whose K/V has landed, live or cached
+(released, refcount 0, contents intact on the free list).  Matched pages
+are mapped read-only into the slot's block table (one allocator reference
+each); only the tail is allocated and prefilled, entering the model
+mid-prompt through the chunk program.  When the whole prompt is covered,
+the last prompt token re-runs at ``start = L - 1`` after its page is
+COW-forked (``attention.copy_page``) onto a private page.  Finished
+requests register their decode-filled pages too (the session cache), after
+rewriting them through the chunk program, so a follow-up turn that extends
+(prompt + reply) matches past its first prompt.  The COW copy, the
+rewrites and the prompt chunks all run on the engine's current stream,
+where the captured decode block replays, and a block-table row reaches the
+device state only after its last chunk has landed.  Sharing relocates
+bytes and never changes what is attended: with every prompt longer than
+one chunk, shared and unshared engines compute every position through one
+program at one shape, and emit the same greedy tokens bit for bit.
+
+Not in this slice of the port (each raises ``NotImplementedError``): the
+overload layer (``tiers``/``tier_q``, ``admission``, ``injector``,
+``preempt``, ``watchdog``, ``on_event``).  The reference keeps one prefix
+index per rank tier; with one tier the port keeps one.
 """
 
 from __future__ import annotations
@@ -74,7 +93,7 @@ from repro_torch.kernels._build import kernel_libs
 from repro_torch.runtime import dispatch
 from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
 from repro_torch.serving.sampling import SamplingParams, sample_tokens, token_salts
-from repro_torch.serving.scheduler import PageAllocator, PageGrant, Scheduler, SlotAllocator
+from repro_torch.serving.scheduler import PageAllocator, PageGrant, PrefixIndex, Scheduler, SlotAllocator
 
 __all__ = ["Request", "Engine", "SamplingParams", "percentile"]
 
@@ -92,8 +111,6 @@ _TOK, _POS, _ACT, _EMIT, _MAXNEW, _SEED, _TOPK, _TEMP, _BT = range(9)
 _EXACT_LEN_FAMILIES = ("ssm", "hybrid")
 
 _LATER = {
-    "share_prefix": "the prefix-sharing and session-cache slice",
-    "warm_cache_pages": "the prefix-sharing and session-cache slice",
     "tiers": "the overload slice (rank tiers)",
     "tier_q": "the overload slice (rank tiers)",
     "admission": "the overload slice (tiered admission)",
@@ -126,6 +143,7 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    prefill_skipped: int = 0  # prompt tokens covered by shared prefix pages
     status: str = "ok"  # "ok" | "error"
     error: Optional[str] = None  # set when status == "error"
 
@@ -215,7 +233,11 @@ class Engine:
     gated on each request's whole footprint ``ceil((prompt + max_new) /
     page_size)`` reserved up front.  ``prefill_chunk`` (paged mode) prefills
     prompts longer than the chunk one (1, chunk) piece per step.
-    ``cuda_graph``: capture the decode block as a CUDA graph (default: on a
+    ``share_prefix`` (paged mode) maps repeated prompt-prefix pages
+    read-only instead of prefilling them again; inert for the ssm and hybrid
+    families, whose prefill cannot enter mid-prompt.  ``warm_cache_pages``
+    caps how many released pages stay matchable (None: until a writer needs
+    them).  ``cuda_graph``: capture the decode block as a CUDA graph (default: on a
     CUDA device; the CPU runs it eagerly and refuses ``True``).
     """
 
@@ -243,8 +265,7 @@ class Engine:
         watchdog=None,
         on_event=None,
     ):
-        later = {"share_prefix": share_prefix, "warm_cache_pages": warm_cache_pages,
-                 "tiers": tiers not in (None, (1.0,), [1.0]), "tier_q": tier_q, "admission": admission,
+        later = {"tiers": tiers not in (None, (1.0,), [1.0]), "tier_q": tier_q, "admission": admission,
                  "injector": injector, "preempt": preempt, "watchdog": watchdog, "on_event": on_event}
         for name, value in later.items():
             if value not in (None, False, 0):
@@ -271,6 +292,11 @@ class Engine:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
+        if share_prefix and not self.paged:
+            raise ValueError("share_prefix requires page_size (paged mode)")
+        if warm_cache_pages is not None and not self.paged:
+            raise ValueError("warm_cache_pages requires page_size (paged mode)")
+        self.share_prefix = share_prefix
         if self.paged:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -283,7 +309,15 @@ class Engine:
             self._has_pages = any(m for sub in self._paged_mask.values() for m in sub.values())
             self._trash = self.kv_pages  # the trash page id (attention.trash_page)
             self._bt = np.full((n_slots, self.max_pages), self._trash, np.int32)
-            self.page_pool = PageAllocator(self.kv_pages)
+            # sharing needs something paged to share and a mid-prompt entry
+            # (the chunk program); otherwise the flag is inert, not an error
+            self._share = share_prefix and self._has_pages and model.prefill_chunk is not None
+            self._prefix = PrefixIndex(page_size) if self._share else None
+            # one chunk shape for long prompts, shared tails and rewrites alike
+            self._chunk_C = prefill_chunk if prefill_chunk is not None else (page_size if self._share else None)
+            # the allocator owns the warm cache's lifetime: its on_evict is the
+            # only place index keys die outside an explicit reset
+            self.page_pool = PageAllocator(self.kv_pages, cache_budget=warm_cache_pages, on_evict=self._on_evict)
             self.scheduler = Scheduler(SlotAllocator(n_slots), reserve=self._reserve,
                                        release_grant=self._release_grant)
         else:
@@ -291,6 +325,7 @@ class Engine:
             self._paged_mask = None
             self._has_pages = False
             self._bt = np.zeros((n_slots, 0), np.int32)
+            self._share, self._prefix, self._chunk_C = False, None, None
             self.page_pool = None
             self.scheduler = Scheduler(SlotAllocator(n_slots))
             self.cache = model.init_cache(n_slots, max_len)
@@ -334,6 +369,10 @@ class Engine:
         # one (rows, padded length, prompt lengths) per prefill micro-batch
         self.prefill_batches: List[tuple] = []
         self.quarantined = 0  # requests ended on non-finite logits
+        # prefix sharing: pages mapped instead of allocated and prefilled,
+        # admissions that matched, COW forks, and the prompt tokens skipped
+        self.shared_page_hits = self.shared_admissions = self.cow_forks = 0
+        self.skipped_prefill_tokens = 0
 
     # ------------------------------------------------------------------ #
     # submission / introspection
@@ -347,14 +386,81 @@ class Engine:
         return -(-(int(request.prompt.size) + request.max_new_tokens) // self.page_size)
 
     def _reserve(self, request) -> Optional[PageGrant]:
-        """All-or-nothing page reservation for one request (Scheduler hook)."""
-        pages = self.page_pool.alloc(self._page_need(request))
-        return None if pages is None else PageGrant(pages=pages)
+        """All-or-nothing page reservation for one request (Scheduler hook).
+
+        Matches the prompt's leading full pages in the prefix index, takes
+        one reference on each (reviving cached ones) and allocates only the
+        rest.  A fully covered prompt re-enters at ``L - 1`` with its last
+        matched page COW-forked onto a fresh page; where the pool cannot fit
+        that extra page, the boundary page is un-shared instead (retrying the
+        same transaction on a full pool could never succeed).  On failure
+        every reference is given back and the peak restored, so admission
+        stays atomic and strictly FIFO
+        (``repro/serving/engine.py::_reserve``)."""
+        need = self._page_need(request)
+        L = int(request.prompt.size)
+        peak0 = self.page_pool.peak_used
+        acquired: List[int] = []
+        if self._share and L >= 2:  # L >= 2 keeps the mid-prompt entry at start >= 1
+            for p in self._prefix.match(request.prompt):
+                if len(acquired) >= need or not self.page_pool.acquire(p):
+                    break
+                acquired.append(p)
+        k = len(acquired)
+        start = k * self.page_size
+        if k and start == L:
+            start = L - 1  # the last prompt token still runs: its logits seed sampling
+        fork = bool(k) and start // self.page_size < k
+        fresh = self.page_pool.alloc(need - k + (1 if fork else 0))
+        if fresh is None and fork:
+            self.page_pool.free([acquired.pop()])
+            k -= 1
+            start, fork = k * self.page_size, False
+            fresh = self.page_pool.alloc(need - k)
+        if fresh is None:
+            if acquired:
+                self.page_pool.free(acquired)
+            self.page_pool.rollback_peak(peak0)
+            return None
+        if fork:
+            grant = PageGrant(pages=acquired[:-1] + fresh, n_shared=k - 1, start=start,
+                              cow=(acquired[-1], fresh[0]), refs=acquired + fresh)  # the source pinned
+        else:
+            grant = PageGrant(pages=acquired + fresh, n_shared=k, start=start)
+        if k:
+            self.shared_admissions += 1
+            self.shared_page_hits += grant.n_shared
+            self.skipped_prefill_tokens += grant.start
+            request.prefill_skipped = grant.start
+            self.page_pool.record_saved(acquired[: grant.n_shared])  # only a grant that sticks
+        return grant
+
+    def _on_evict(self, pages: List[int]) -> None:
+        """The allocator's eviction callback: a cached page goes to a writer
+        (or the budget sweeps it), so its index keys die with it."""
+        if self._prefix is not None:
+            self._prefix.drop_pages(pages)
 
     def _release_grant(self, grant: PageGrant) -> None:
-        """Free every page the grant holds (Scheduler hook)."""
-        if grant.pages:
-            self.page_pool.free(grant.pages)
+        """Drop one reference on every page the grant holds (Scheduler hook);
+        an indexed page whose last reader leaves becomes a warm-cache entry."""
+        if grant.refs:
+            self.page_pool.free(grant.refs)
+
+    def reset_prefix_cache(self) -> None:
+        """Forget every prefix-index entry (a benchmark's warm-up boundary);
+        live slots keep their shared pages, and no eviction is counted."""
+        if self._prefix is not None:
+            self._prefix.clear()
+            self.page_pool.flush_cache()
+
+    def drop_session(self, prompt) -> int:
+        """Close a conversation branch now: drop the prompt's chain and every
+        registered extension from the index, and release their cached pages
+        for clean reuse.  Returns the cached pages freed."""
+        if self._prefix is None:
+            return 0
+        return self.page_pool.drop_cached(self._prefix.drop_branch(np.asarray(prompt).reshape(-1)))
 
     def submit(self, request: Request) -> Request:
         if request.prompt.size + request.max_new_tokens > self.max_len:
@@ -400,6 +506,16 @@ class Engine:
         return self.page_pool.peak_used if self.paged else 0
 
     @property
+    def prefix_evictions(self) -> int:
+        """Warm-cache pages evicted (a writer's grant or the budget's sweep)."""
+        return self.page_pool.evictions if self.paged else 0
+
+    @property
+    def prefix_cached_pages(self) -> int:
+        """Released pages still matchable in the prefix index."""
+        return self.page_pool.n_cached if self.paged else 0
+
+    @property
     def kv_bytes_in_use(self) -> int:
         """Cache bytes backing admitted work: allocated pages in paged mode;
         the whole pool in flat mode, committed up front.  The transient
@@ -419,11 +535,14 @@ class Engine:
         re-arm to CURRENT usage."""
         self.steps = self.host_syncs = self.graph_replays = self.decoded_tokens = 0
         self.prefill_chunks = self.quarantined = 0
+        self.shared_page_hits = self.shared_admissions = self.cow_forks = 0
+        self.skipped_prefill_tokens = 0
         self.prefill_batches = []
         self.decode_seconds = 0.0
         self.peak_active = self.scheduler.allocator.n_active
         if self.paged:
             self.page_pool.reset_peak()
+            self.page_pool.evictions = 0
 
     # ------------------------------------------------------------------ #
     # admission + prefill
@@ -475,6 +594,11 @@ class Engine:
             bt_dev = torch.from_numpy(bt_rows).to(dev)
             for sub in self._subtrees:
                 _scatter_mixed(self.cache[sub], part[sub], self._paged_mask[sub], slot_idx, bt_dev, self.page_size)
+            if self._share:
+                # registered only now that the pages' K/V is written (on this
+                # stream): same-round admissions just miss the chance once
+                for slot, req in group:
+                    self.page_pool.mark_indexed(self._prefix.register(req.prompt, self._bt[slot]))
         else:
             for sub in self._subtrees:
                 _scatter_slots(self.cache[sub], part[sub], slot_idx)
@@ -549,9 +673,26 @@ class Engine:
         hit_eos = self.eos_token is not None and req.tokens and req.tokens[-1] == self.eos_token
         if req.done or hit_eos:
             req.t_done = time.perf_counter()
+            if self._share:
+                self._register_session(slot, req)
             self._clear_slot(slot)
             return req
         return None
+
+    def _register_session(self, slot: int, req: Request) -> None:
+        """Register the finished slot's DECODE-FILLED full pages (the session
+        cache), before release, so that ``free`` caches them: a follow-up
+        turn extending (prompt + reply) matches them and prefills only its
+        new suffix.  The sequence stops one token short of the reply: the
+        last token's K/V is written only by frozen re-feeds.  The generated
+        span is first rewritten through the chunk program (decode and
+        prefill round differently), so indexed pages hold the bytes a cold
+        prefill of the same tokens writes."""
+        seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int64)])
+        full_end = (seq.size // self.page_size) * self.page_size
+        if full_end > req.prompt.size:
+            self._rematerialize(slot, seq, int(req.prompt.size), full_end)
+        self.page_pool.mark_indexed(self._prefix.register(seq, self._bt[slot]))
 
     def _quarantine_slot(self, slot: int) -> Request:
         """End one request whose decode went non-finite.  The fused block
@@ -575,15 +716,8 @@ class Engine:
         the slot joins the decode batch at the next block."""
         slot = next(iter(self._chunking))  # dicts keep admission order
         req, start, row = self._chunking[slot]
-        C = self.prefill_chunk
         plen = int(req.prompt.size)
-        n = min(C, plen - start)
-        toks = np.zeros((1, C), np.int64)
-        toks[0, :n] = req.prompt[start : start + n]
-        dev = self.device
-        logits, _ = self.model.prefill_chunk(self.params, self.cache, torch.from_numpy(toks).to(dev),
-                                             torch.from_numpy(row).to(dev), start, n)
-        self.prefill_chunks += 1
+        logits, n = self._run_chunk(req.prompt, row, start, plen)
         start += n
         if start < plen:
             self._chunking[slot][1] = start
@@ -592,10 +726,48 @@ class Engine:
         # the last chunk landed: publish the row, so the decode block (and
         # its page writes) see the slot's pages from here on
         self._bt[slot] = row
+        if self._share:  # the prompt's full pages are written: offer them
+            self.page_pool.mark_indexed(self._prefix.register(req.prompt, row))
         first = self._sample(logits, [req], [0])
         self._activate_slot(slot, req, plen, int(first[0]), time.perf_counter())
         done = self._maybe_finish(slot)
         return ([done] if done is not None else []), n
+
+    def _run_chunk(self, seq: np.ndarray, row: np.ndarray, start: int, end: int):
+        """One (1, C) chunk of ``seq[start:end]`` (at most C real tokens,
+        right-padded) through the chunk program into the pages of ``row``;
+        returns (logits at its last real token, tokens run)."""
+        C = self._chunk_C
+        n = min(C, end - start)
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :n] = seq[start : start + n]
+        dev = self.device
+        logits, _ = self.model.prefill_chunk(self.params, self.cache, torch.from_numpy(toks).to(dev),
+                                             torch.from_numpy(row).to(dev), start, n)
+        self.prefill_chunks += 1
+        return logits, n
+
+    def _rematerialize(self, slot: int, seq: np.ndarray, start: int, end: int) -> None:
+        """Rewrite positions ``[start, end)`` of the slot's pages through the
+        chunk program, the logits discarded: decode wrote them with the
+        single-query path, whose sums round differently, and indexed pages
+        must hold what a cold prefill writes
+        (``repro/serving/engine.py::_rematerialize``)."""
+        row = self._bt[slot]
+        while start < end:
+            start += self._run_chunk(seq, row, start, end)[1]
+
+    def _cow_fork(self, src: int, dst: int) -> None:
+        """Copy physical page ``src`` onto ``dst`` in every paged leaf of every
+        cache subtree, before the forked slot writes its last prompt token
+        into ``dst``; ``src`` stays pinned by the grant until release."""
+        from repro_torch.models.attention import copy_page
+
+        for sub in self._subtrees:
+            for name, pool in self.cache[sub].items():
+                if self._paged_mask[sub][name]:
+                    copy_page(pool, src, dst, axis=1)  # stacked (L, P, page, ...) pools
+        self.cow_forks += 1
 
     # ------------------------------------------------------------------ #
     # the fused decode block
@@ -759,12 +931,19 @@ class Engine:
         chunking = self.paged and self.prefill_chunk is not None and self.model.prefill_chunk is not None
         direct = []
         for slot, req in placed:
-            row = None
+            row = grant = None
             if self.paged:
                 grant = self.scheduler.slot_pages[slot]
                 row = np.full((self.max_pages,), self._trash, np.int32)
                 row[: len(grant.pages)] = grant.pages
-            if chunking and req.prompt.size > self.prefill_chunk:
+            if grant is not None and grant.start > 0:
+                # a shared prefix: its K/V is resident, so the tail enters the
+                # model mid-prompt through the chunk program, after the COW
+                # copy of the page it re-writes (if any)
+                if grant.cow is not None:
+                    self._cow_fork(*grant.cow)
+                self._chunking[slot] = [req, grant.start, row]
+            elif chunking and req.prompt.size > self.prefill_chunk:
                 # The slot's DEVICE table row stays on trash until the last
                 # chunk lands: the decode block's frozen-slot re-feeds write
                 # through the table at position 0, and a published row would
@@ -780,8 +959,9 @@ class Engine:
             finished.extend(self._prefill_group(group))
         if self._chunking:
             # a prefill budget of ~one chunk of REAL tokens per step, so a
-            # long prefill never stalls the running decodes for long
-            budget = self.prefill_chunk
+            # long prefill never stalls the running decodes for long, while
+            # short shared tails pack into one step
+            budget = self._chunk_C
             while self._chunking and budget > 0:
                 done, n_real = self._chunk_step()
                 finished.extend(done)

@@ -123,8 +123,9 @@ def test_energy_rule_sharp_spectrum():
     eight large singular values of 256 hold 95% of the energy, so the rule
     picks a tiny rank.  The probe (rank 170) is numerically rank 8, so
     CholeskyQR fails in fp32: the reference's probe gives NaN singular
-    values and rank 1; the port's redoes it with Householder QR and finds
-    the true rank, 8, from the reference's Omega and from its own."""
+    values and rank 1; the port's RSI orthonormalizes that sketch by
+    Householder QR, counts it in the layer's report, and finds the true
+    rank, 8, from the reference's Omega and from its own."""
     s = jnp.concatenate([jnp.full((8,), 100.0), jnp.full((248,), 0.01)])
     W = jspectral.synth_spectrum_matrix(jax.random.PRNGKey(0), 256, 512, s).T
     jp = {"layer": {"wq": W}}
@@ -140,6 +141,7 @@ def test_energy_rule_sharp_spectrum():
         tcp, rep = compress.compress_tree(tp, policy, **kw)
         assert rep.layers[0].compressed
         assert rep.layers[0].rank == 8, rep.layers[0]
+        assert rep.layers[0].qr_fallbacks > 0, rep.layers[0]
         approx = lowrank.materialize(tcp["layer"]["wq"])
         assert float(torch.linalg.matrix_norm(_t(W) - approx, ord=2)) < 0.02
 

@@ -259,9 +259,8 @@ def test_non_finite_logits_freeze_only_that_request(bf16_model):
 
 def test_options_of_later_slices_raise(bf16_model):
     tm, tp = bf16_model
-    for kw in (dict(share_prefix=True), dict(warm_cache_pages=4), dict(tiers=(1.0, 0.5)), dict(preempt=True),
-               dict(injector=object()), dict(admission=object()), dict(watchdog=object()),
-               dict(on_event=print), dict(tier_q=2)):
+    for kw in (dict(tiers=(1.0, 0.5)), dict(preempt=True), dict(injector=object()), dict(admission=object()),
+               dict(watchdog=object()), dict(on_event=print), dict(tier_q=2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine(tm, tp, n_slots=1, max_len=8, **kw)
     with pytest.raises(ValueError, match="CUDA device"):

@@ -805,3 +805,74 @@ def test_gpu_energy_rank_matches_cpu(cuda):
             _, rep = compress_tree({"w": W.to(dev)}, pol, generator=torch.Generator(device=dev).manual_seed(1))
             ranks.append(rep.layers[0].rank)
         assert ranks == [exact, exact], (energy, ranks, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,H", [(3, 24), (8, 64)])  # minitron-4b's 24/8 heads, qwen2-72b's 64/8
+def test_gpu_flash_attention_dense_archs(cuda, G, H, dtype):
+    """The prefill at minitron-4b's and qwen2-72b's heads, head_dim 128: G = 3
+    packs one head a tile row block (GP = 1), G = 8 packs all eight."""
+    B, S, hd = 2, 200, 128
+    KV = H // G
+    q = _rand((B, S, H, hd), 40, dtype, cuda)
+    k, v = _rand((B, S, KV, hd), 41, dtype, cuda), _rand((B, S, KV, hd), 42, dtype, cuda)
+    _close(flash_attention(q, k, v, causal=True), ref.chunked_attention_ref(q, k, v, causal=True), ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "paged_decode_attention"])
+def test_gpu_decode_attention_g3_hd128(cuda, kernel, dtype):
+    """Flat and paged decode at minitron-4b's G = 3, head_dim 128, against the
+    plain versions; at page 64 the paged kernel is the flat one bit for bit."""
+    q, k, v, bt, n_valid = _paged_case(64, 10, 3, dtype, cuda, hd=128)
+    flat_k, flat_v = ref.gather_pages(k, bt), ref.gather_pages(v, bt)
+    valid = torch.arange(flat_k.shape[1], device=cuda)[None, :] < n_valid[:, None]
+    flat = decode_attention(q, flat_k, flat_v, valid)
+    if kernel == "decode_attention":
+        _close(flat, ref.decode_attention_ref(q, flat_k, flat_v, valid), ATTN_TOL[dtype])
+        return
+    got = paged_decode_attention(q, k, v, bt, n_valid)
+    _close(got, ref.paged_decode_attention_ref(q, k, v, bt, n_valid), ATTN_TOL[dtype])
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graph", [True, False])
+def test_gpu_engine_shared_prefix_equals_unshared(cuda, graph):
+    """Reduced minitron-4b (G = 3) on the card, prefill chunk = the page, every
+    prompt longer than one chunk: shared and unshared engines emit the same
+    greedy tokens, with pages shared, a COW fork (a follower whose whole
+    prompt is the indexed prefix) and a session follow-up that matches past
+    its first prompt."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Engine, Request
+
+    model = build_model(get_arch("minitron-4b", reduced=True), device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    sys = rng.integers(0, 512, size=8)
+    prompts = [np.concatenate([sys, rng.integers(0, 512, size=n)]) for n in (3, 6, 0)]
+    extra = rng.integers(0, 512, size=5)
+    out = {}
+    for share in (False, True):
+        eng = Engine(model, params, n_slots=3, max_len=40, page_size=4, prefill_chunk=4, decode_block=4,
+                     share_prefix=share, cuda_graph=graph)
+        first = eng.submit(Request(prompt=prompts[0], max_new_tokens=9))
+        while not first.tokens:
+            eng.step()
+        rest = [eng.submit(Request(prompt=p, max_new_tokens=6)) for p in prompts[1:]]
+        while eng.has_work:
+            eng.step()
+        follow = np.concatenate([prompts[0], np.asarray(first.tokens), extra])
+        turn2 = eng.submit(Request(prompt=follow, max_new_tokens=5))
+        while eng.has_work:
+            eng.step()
+        out[share] = [r.tokens for r in [first, *rest, turn2]]
+        if share:
+            assert eng.shared_page_hits > 0 and eng.cow_forks >= 1
+            assert turn2.prefill_skipped > prompts[0].size
+        assert eng.pages_in_use == 0
+    assert out[True] == out[False]

@@ -191,7 +191,7 @@ def test_gqa_decode_paged_matches_reference_and_flat(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("start,n_real", [(0, 5), (4, 3)])
+@pytest.mark.parametrize("start,n_real", [(0, 5), (4, 3), (7, 1), (6, 5)])  # mid-page: a COW re-entry, a rewrite
 def test_gqa_prefill_chunk_matches_reference(dtype, start, n_real):
     jcfg, tcfg, jl, tl = _layer0(dtype)
     C, page, n_tbl = 5, 4, 4

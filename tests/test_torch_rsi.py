@@ -98,6 +98,29 @@ def test_cholesky_qr2_orthonormal():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_rsi_falls_back_to_householder_where_cholesky_qr_breaks_down():
+    """From the second iteration on cond(X) ~ (s_1 / s_k)^2: past fp32's reach
+    the Gram is not positive definite and CholeskyQR2 raises (the reference
+    returns NaN factors there).  The port orthonormalizes that X by
+    Householder QR, counted in QR_FALLBACKS, so RSI returns finite factors
+    near the best rank k."""
+    C, D, k = 160, 240, 48
+    s = torch.tensor([10.0 ** (-i / 12) for i in range(C)])  # s_k = 1e-4: cond(X) ~ 1e8
+    W = spectral.synth_spectrum_matrix(C, D, s, generator=torch.Generator().manual_seed(0))
+    Y = torch.randn((D, k), generator=torch.Generator().manual_seed(1))
+    X = W @ (W.T @ torch.linalg.qr(W @ Y)[0])  # the second iteration's sketch
+    with pytest.raises(torch.linalg.LinAlgError):
+        rsi.cholesky_qr2(X)
+    before = rsi.QR_FALLBACKS.count
+    Q = rsi._orthonormalize(X, "cholesky_qr2")
+    assert rsi.QR_FALLBACKS.count == before + 1
+    np.testing.assert_allclose((Q.T @ Q).numpy(), np.eye(k), atol=1e-5)
+    A, B = rsi.rsi_factors(W, k, 3, omega=Y)
+    assert bool(torch.isfinite(A).all() and torch.isfinite(B).all())
+    err = float(torch.linalg.matrix_norm(W - A @ B, ord=2)) / float(s[k])
+    assert err < 1.5, err
+
+
 def test_synth_spectrum_and_spectralize():
     s = spectral.vgg_like_spectrum(40)
     W = spectral.synth_spectrum_matrix(40, 72, s, generator=torch.Generator().manual_seed(0))
