@@ -13,6 +13,10 @@
                              # phase 18 (the paper's experiments) alone
     python3 chip_smoke.py --sharing-only
                              # phases 19-20 (the dense archs, prefix sharing) alone
+    python3 chip_smoke.py --overload-only
+                             # phase 21 (engine stage 4) alone, on the q = 4 llama3.2-1b
+    python3 chip_smoke.py --chunk-only [--src DIR]
+                             # each dense model's profiled (1, 256) prefill chunk, on DIR
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -32,7 +36,9 @@ Phases, in order; any failure exits non-zero before the last line:
    first, what the timing reads for one and two empty launches).  The
    low-rank kernel runs at every main-path M (4 and 8 decode, 256 the
    engine's chunk, 1024 the static prefill) on the four llama shapes, and
-   at M 8 on phi3.5-moe's untied head and zamba2's w_x.  The
+   at M 8 on phi3.5-moe's untied head and zamba2's w_x, and on the
+   w_gate of llama3.2-1b, minitron-4b and qwen2-72b at the prefill M 16,
+   64, 256 and 1024 (``[prefill plan]``: the batch-invariant plan's cost).  The
    sketch GEMM runs on operands in the storage RSI and the logits give it
    (``aligned_rows``), the library call on the same strided views; once
    more on an unaligned Y as a correctness case only; and at phi3.5-moe's
@@ -77,7 +83,9 @@ Phases, in order; any failure exits non-zero before the last line:
    prompts of 32-512 tokens with 16-64 new tokens each, all submitted at
    once.  Gates: every request finishes with its requested token count;
    the graph's tokens equal an eager (``cuda_graph=False``) run's; a paged
-   engine's tokens equal a flat engine's (no chunking); a chunked long
+   engine's tokens on half the flat pool's pages (other micro-batches: a
+   prompt row's bits do not depend on its call's M) equal a flat engine's
+   (no chunking; a moe model at the flat pool's capacity); a chunked long
    prompt's first-token logits lie within phase 5's tolerance of the
    monolithic prefill's; every kernel of the engine's path launched, and
    decode_attention in the flat run.  Counts are reset just before each
@@ -168,8 +176,8 @@ Phases, in order; any failure exits non-zero before the last line:
    fed the same token: through 32 layers of random spectralized weights
    each bf16 run lies ~8% of max |logit| from the fp32 one, so phase 5's 5%
    between two bf16 runs is printed, not gated); phase 7's engine gates
-   (graph == eager, paged == flat with the paged pool at the flat pool's
-   capacity, every kernel of the path launched).  Then the
+   (graph == eager, paged on half the flat pool == flat, every kernel of
+   the path launched) and its profiled (1, 256) prefill chunk.  Then the
    sharing runs, two engines differing only in ``share_prefix`` (page 64,
    8 slots, 40 pages, prefill chunk 64 = the page, every prompt longer than
    one chunk): shared == unshared greedy tokens bit for bit is a gate in
@@ -188,6 +196,35 @@ Phases, in order; any failure exits non-zero before the last line:
    head_dim 128, d_ff 29568, untied 152064-word head, QKV bias drawn
    N(0, 0.02) from seed 5) with n_layers cut 80 -> 8 (the dense 80 layers,
    ~145 GB in bf16, do not fit one card): phase 19's gates and run (a).
+21. Engine stage 4 on phase 3's q = 4 llama3.2-1b (bf16 unless said;
+   it runs right after phase 8, before the model is freed).  (a) Tiers
+   (1.0, 0.5) at once on one paged, prefix-sharing engine (phase 7's 16
+   requests, every other one at tier 1): each tier's tokens equal a
+   single-tier engine's on ``slice_rank(params, f)`` bit for bit; every
+   tier-1 factor shares its stored storage; lowrank_matmul ran at the
+   tier-1 ranks, no factored apply on two GEMMs; the certificates
+   finite, tier 0's 0, tier 1's no smaller; tok/s per tier (single-tier
+   runs, host clock); informational, two tiers at once against one: the
+   16 requests' tok/s on a two-tier and a single-tier engine, alternated,
+   and one 8-slot decode step's host and device time on each.  (b) Preemption on a 5-page pool that holds one of
+   two requests (prompts of 200 and 210 tokens, 96 new), the priority-1
+   one arriving after three blocks, with ``share_prefix`` True and False:
+   one preemption, no page left; fp32 streams equal the uninterrupted
+   runs bit for bit; bf16 the equal count, and each divergence only where
+   the uninterrupted run's top-2 margin is within the bf16 spread (the
+   plain versions' bf16 logits against their fp32 ones on the same
+   tokens, at that token).  (c) Overload: two tiers, an AdmissionPolicy degrading below
+   half the pages free, 800 ms deadlines on every odd uid, pages denied in
+   steps 6-12 and 400 ms slow steps 10-12 under a StepWatchdog: ok + shed
+   + error = 16, shed > 0 each with its RejectedOverload, degraded
+   admissions > 0 each with the single-tier tier-1 run's tokens, steps
+   10-12 flagged.  (d) nan_logits on one request under the captured
+   block: that uid alone errors, every other request has the clean run's
+   tokens, graphs replayed, as many captures armed as unarmed.  (e)
+   ``run(stop=...)`` after two blocks sheds the queue ("shutdown") and
+   finishes the rest with the clean tokens; ``export_inflight`` +
+   ``take_queue`` after three steps, resubmitted to a second engine, give
+   the uninterrupted tokens (fp32 bit for bit; bf16 under (b)'s rule).
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -421,6 +458,11 @@ def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn
 LOWRANK_LLAMA = [(2048, 615, 8192), (2048, 615, 2048), (2048, 154, 512), (8192, 615, 2048)]
 LOWRANK_M = (4, 8, 256, 1024)  # the static decode, the engine's decode, its prefill chunk, the static prefill
 LOWRANK_OTHER = [(8, 4096, 1229, 32064, "phi3.5-moe untied head"), (8, 2048, 615, 4096, "zamba2 w_x")]
+# the prefill plan's cost: each dense model's w_gate (K, rank, N) at the prefill M (16 a short
+# prompt, 64 and 256 the chunks, 1024 the static prefill)
+PREFILL_W_GATE = (("llama3.2-1b", (2048, 615, 8192)), ("minitron-4b", (3072, 922, 9216)),
+                  ("qwen2-72b", (8192, 2458, 29568)))
+PREFILL_M = (16, 64, 256, 1024)
 # the batched kernel at phi3.5-moe's shapes: 16 experts, rank 1229 (ceil(0.3 * 4096)); (C, K, N)
 BATCHED_SHAPES = [(128, 4096, 6400, "decode w_gate"), (128, 6400, 4096, "decode w_down"), (640, 4096, 6400, "prefill")]
 MOE_E, MOE_R, MOE_SLOTS, MOE_TOPK = 16, 1229, 8, 2
@@ -466,13 +508,19 @@ def phase_lowrank_kernels(rnd, gemm_tol, records):
     cases = [(torch.bfloat16, M, K, r, N, None) for M in LOWRANK_M for K, r, N in LOWRANK_LLAMA]
     cases += [(torch.bfloat16, M, K, r, N, label) for M, K, r, N, label in LOWRANK_OTHER]
     cases += [(torch.float32, M, K, r, N, None) for M in (4, 1024) for K, r, N in LOWRANK_LLAMA]
+    cases += [(torch.bfloat16, M, K, r, N, f"{arch} w_gate") for arch, (K, r, N) in PREFILL_W_GATE
+              for M in PREFILL_M]
+    plan_ms = {}
     for dtype, M, K, r, N, label in cases:
         rel, why = gemm_tol[dtype]
         x, A, B = rnd((M, K), dtype), aligned_rows(rnd((K, r), dtype)), aligned_rows(rnd((r, N), dtype))
         got = lowrank_matmul(x, A, B)
-        # each M's w_gate case is its summary row (M 4 under the kernel's own name)
+        # each M's w_gate case is its summary row (M 4 under the kernel's own name); the prefill
+        # plan's w_gate rows under their model's name
         key = None if dtype != torch.bfloat16 or (K, r, N) != LOWRANK_LLAMA[0] or label else (
             "lowrank_matmul" if M == LOWRANK_M[0] else f"lowrank_matmul M {M}")
+        if label and label.endswith("w_gate"):
+            key = f"lowrank_matmul {label} M {M}"
         check("lowrank_matmul", [M, K, r, N] + ([label] if label else []), dtype, got,
               ref.lowrank_matmul_ref(x, A, B), rel, why,
               kernel_fn=lambda: lowrank_matmul(x, A, B),
@@ -480,7 +528,10 @@ def phase_lowrank_kernels(rnd, gemm_tol, records):
               library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
               bytes_moved=nbytes(x, A, B) + M * N * x.element_size(),
               ops=2 * M * K * r + 2 * M * r * N, records=records if key else {}, key=key)
+        if key and label:
+            plan_ms[f"{label} M {M}"] = {f: records[key][f] for f in ("ms", "library_ms", "bound_ms")}
         del x, A, B, got
+    say(f"[prefill plan] w_gate at the prefill M, the plans of {SRC}: " + json.dumps(plan_ms))
     torch.cuda.empty_cache()
 
 
@@ -1562,12 +1613,12 @@ def count_drops(model, seen) -> int:
 
 def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul", "sketch_matmul",
                                                                     "flash_attention", "paged_decode_attention"),
-                 dense_ok=frozenset(), equal_pool: bool = False):
+                 dense_ok=frozenset()):
     """The engine's gates on ``model``.  ``dense_ok``: the (K, N) of linears
     the compression policy left dense (below min_dim), the only products
-    allowed outside the low-rank kernels.  ``equal_pool``: paged == flat
-    with the paged pool at the flat pool's capacity (a moe model always).
-    For the ssm and hybrid families also: every prefill micro-batch holds
+    allowed outside the low-rank kernels.  Paged == flat runs the paged
+    engine on half the flat pool's pages, a moe model on the flat pool's
+    capacity.  For the ssm and hybrid families also: every prefill micro-batch holds
     one prompt length, unpadded; the SSD kernel launched once per layer per
     prefill call; mamba2 (no paged leaf) reserved zero pages.  Their prefill is monolithic (the chunk is
     inert), so the chunked-vs-monolithic check is the attention families'."""
@@ -1615,21 +1666,18 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     if eager_tok != main_tok:
         fail(f"{tag}: CUDA-graph tokens differ from the eager run's")
     say(f"[{tag}] CUDA-graph tokens == eager tokens: True")
-    # A dense model's rows never meet in a product, but a row's rounding
-    # follows the micro-batch it is prefilled in: the low-rank kernel's tile
-    # and K split follow M (kernels/lowrank_matmul.py::tile_plan).  Where the
-    # greedy tokens meet no near-tie that this flips (llama3.2-1b), the paged
-    # run admits on half the flat pool's pages (other micro-batches, other
-    # decode batches) and must still emit the flat run's tokens.  A moe
-    # layer's capacity drops depend on which rows share a call, so there the
-    # paged pool gets the flat pool's capacity, the two runs form the same
-    # micro-batches, and what differs is only where the bytes live;
-    # ``equal_pool`` asks the same for minitron-4b and qwen2-72b, whose
-    # tokens do meet such ties (ROADMAP queue 3).
+    # A dense or recurrent model's rows never meet in a product, and a prompt
+    # row is computed the same way whichever rows share its prefill call (the
+    # low-rank kernel's prefill plan: no skinny kernel, a K split fixed by K
+    # and N; kernels/lowrank_matmul.py).  So the paged run admits on half the
+    # flat pool's pages (other micro-batches, other decode batches) and must
+    # still emit the flat run's tokens.  A moe layer's capacity drops depend
+    # on which rows share a call, so there the paged pool gets the flat
+    # pool's capacity, the two runs form the same micro-batches, and what
+    # differs is only where the bytes live.
     moe = model.cfg.family == "moe"
-    equal = moe or equal_pool
-    paged_tok, *_ = serve(model, params, "paged, no chunking" + (", flat-equal pool" if equal else ""), libs=libs,
-                          tag=tag, prefill_chunk=None, **({"kv_pages": None} if equal else {}))
+    paged_tok, *_ = serve(model, params, "paged, no chunking" + (", flat-equal pool" if moe else ""), libs=libs,
+                          tag=tag, prefill_chunk=None, **({"kv_pages": None} if moe else {}))
     flat_tok, _, flat_launches, _ = serve(model, params, "flat, no chunking", libs=libs, tag=tag, page_size=None,
                                           kv_pages=None, prefill_chunk=None)  # counts reset again inside
     if paged_tok != flat_tok:
@@ -1787,7 +1835,7 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     return out
 
 
-def phase_chunk_profile(model, params, calls: int = 5):
+def phase_chunk_profile(model, params, calls: int = 5, tag: str = "chunk"):
     """Host and device time of one chunked-prefill call at the main path's
     shape: the second (1, 256) chunk of a 512-token prompt, so its attention
     covers 512 positions.  Device time is split between the hand-written
@@ -1820,13 +1868,442 @@ def phase_chunk_profile(model, params, calls: int = 5):
     own_ms = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
     n_launch = sum(r[1] for r in rows)
     cpu_ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
-    say(f"[chunk] one prefill chunk (1, {C}) at position {C} of a {2 * C}-token prompt: host {wall * 1e3:.3f} ms "
+    say(f"[{tag}] one prefill chunk (1, {C}) at position {C} of a {2 * C}-token prompt: host {wall * 1e3:.3f} ms "
         f"(profiler off, mean of {calls}); device busy {device_ms:.3f} ms (profiler): hand-written kernels "
         f"{own_ms:.3f} ms, other torch kernels {device_ms - own_ms:.3f} ms; {n_launch} device kernels, "
         f"{cpu_ops} aten ops; idle share {max(0.0, 1 - device_ms / (wall * 1e3)):.3f}")
     for us, n, key in rows[:10]:
-        say(f"[chunk]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
+        say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
     return {"chunk_host_ms": wall * 1e3, "chunk_device_ms": device_ms, "chunk_own_kernels_ms": own_ms}
+
+
+# --------------------------------------------------------------------------- #
+# phase 21: engine stage 4 (rank tiers, preemption, overload, faults, the drain)
+# --------------------------------------------------------------------------- #
+TIERS = (1.0, 0.5)
+# preemption: a pool of 5 pages of 64 holds one request of ~200 + 96 tokens, not two
+PREEMPT = dict(n_slots=2, max_len=320, page_size=64, kv_pages=5, prefill_chunk=256, decode_block=8)
+PREEMPT_LENS, PREEMPT_GEN = (200, 210), 96
+
+
+def params_fp32(params):
+    """The params tree in fp32, factors in the storage the model keeps them in
+    (``lowrank_params``: row-padded, so the kernels read them in place)."""
+    from repro_torch.core.lowrank import is_lowrank, lowrank_params
+
+    if is_lowrank(params):
+        return lowrank_params(params["a"].float(), params["b"].float())
+    if isinstance(params, dict):
+        return {k: params_fp32(v) for k, v in params.items()}
+    return params.float()
+
+
+def fresh(reqs, **kw):
+    """New requests with the same prompts and budgets (and ``kw``)."""
+    from repro_torch.serving import Request
+
+    return [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens, **kw) for r in reqs]
+
+
+def timed_run(eng, reqs, **kw):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = eng.run(reqs, **kw)
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t
+
+
+def phase_tiers(model, params) -> dict:
+    """(a) Tiers (1.0, 0.5) at once on one paged, prefix-sharing engine (the 16
+    requests, every other one at tier 1): each tier's greedy tokens equal a
+    single-tier engine's on ``slice_rank(params, f)`` bit for bit; every tier-1
+    factor shares its storage with the tier-0 one; lowrank_matmul ran at the
+    tier-1 ranks and no factored apply fell to two GEMMs; the
+    certificates are finite, tier 0's 0 and tier 1's no smaller."""
+    import math
+
+    from repro_torch.core.lowrank import is_lowrank, slice_rank
+    from repro_torch.kernels import lowrank_matmul
+    from repro_torch.runtime import dispatch
+    from repro_torch.serving import Engine
+
+    reqs = engine_requests(model.cfg)
+    for i, r in enumerate(reqs):
+        r.tier = i % 2
+    eng = Engine(model, params, **ENGINE, share_prefix=True, tiers=TIERS, tier_q=2)
+    shared = []
+
+    def walk(a, b):
+        if is_lowrank(a):
+            shared.extend(a[n].untyped_storage().data_ptr() == b[n].untyped_storage().data_ptr() for n in "ab")
+        elif isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k])
+
+    walk(eng._tier_params[1], params)
+    tier1 = {math.ceil(TIERS[1] * r) for r in stored_ranks(params)}
+    if not shared or not all(shared):
+        fail(f"tiers: {shared.count(False)} of {len(shared)} tier-1 factors do not share the stored storage")
+    dispatch.reset_counters()
+    lowrank_matmul.KERNEL.reset()
+    _, dt = timed_run(eng, reqs)
+    launches = lowrank_matmul.KERNEL.launches
+    ranks = {s[3] for (op, path, s) in dispatch.counters() if op == "lowrank_matmul" and path == "fused"}
+    two = {s for (op, path, s) in dispatch.counters() if op == "lowrank_matmul" and path == "two_gemm"}
+    say(f"[tiers] mixed engine: {sum(len(r.tokens) for r in reqs)} tokens in {dt:.3f}s; lowrank_matmul launches "
+        f"{launches} at ranks {sorted(ranks)}; two_gemm calls: {len(two)}; "
+        f"graphs captured {sorted(eng._graphs)}")
+    if launches <= 0 or not tier1 <= ranks or two:
+        fail(f"tiers: lowrank_matmul at ranks {sorted(ranks)} (tier 1's {sorted(tier1)} expected), two_gemm {two}")
+    out = {"mixed_s": dt, "launches": launches}
+    for t, f in enumerate(TIERS):
+        mine = [r for r in reqs if r.tier == t]
+        solo = Engine(model, slice_rank(params, f), **ENGINE, share_prefix=True)
+        done, dt = timed_run(solo, fresh(mine))
+        n_tok = sum(len(r.tokens) for r in done)
+        equal = sum(a.tokens == b.tokens for a, b in zip(mine, sorted(done, key=lambda r: r.uid)))
+        cert = eng.tier_certificates[t]
+        say(f"[tiers] tier {t} (rank fraction {f}): {equal}/{len(mine)} requests equal the single-tier engine's "
+            f"tokens; single-tier {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s (host clock); certificate "
+            f"||tail||_2 {cert.spectral_error:.4e}, bound {cert.prob_deviation_bound:.4e}")
+        if equal != len(mine) or any(r.tier != t or r.certificate is not cert for r in mine):
+            fail(f"tiers: tier {t}: {equal}/{len(mine)} equal the single-tier run's tokens")
+        out[f"tier{t}"] = {"equal": equal, "tok_s": n_tok / dt, "bound": cert.prob_deviation_bound,
+                           "spectral_error": cert.spectral_error}
+    c0, c1 = eng.tier_certificates
+    if not (math.isfinite(c1.prob_deviation_bound) and c0.prob_deviation_bound == 0.0
+            and c1.prob_deviation_bound >= c0.prob_deviation_bound):
+        fail(f"tiers: certificates {c0} / {c1}")
+    out["cost"] = tier_cost(model, params)
+    return out
+
+
+def tier_cost(model, params, blocks: int = 6) -> dict:
+    """What serving two tiers at once costs against one (informational): a
+    step with slots on both tiers runs one decode block a tier over all the
+    slots.  End to end: the 16 requests (every other one at tier 1) on a
+    two-tier engine and, all at tier 0, on a single-tier engine, each
+    engine warmed by one run, then timed single, two, two, single (host
+    clock; no prefix sharing, so no run reuses another's pages).  Per
+    block: 8 slots decoding (4 a tier on the two-tier engine), host time of
+    ``blocks`` steps and the profiled device time of one."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Engine, Request
+
+    base = engine_requests(model.cfg)
+    engines = {"single": Engine(model, params, **ENGINE), "two": Engine(model, params, **ENGINE, tiers=TIERS)}
+    tiers = {"single": [0] * len(base), "two": [i % 2 for i in range(len(base))]}
+
+    def batch(name):
+        reqs = fresh(base)
+        for r, t in zip(reqs, tiers[name]):
+            r.tier = t
+        return reqs
+
+    for name, eng in engines.items():
+        eng.run(batch(name))  # the warm-up run: captures, allocator
+    runs = {"single": [], "two": []}
+    for name in ("single", "two", "two", "single"):
+        done, dt = timed_run(engines[name], batch(name))
+        runs[name].append(sum(len(r.tokens) for r in done) / dt)
+    out = {f"{name}_tok_s": v for name, v in runs.items()}
+    # as in phase 8: 64 + 256 tokens = 5 pages each, so all 8 requests fit the 40 pages
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, model.cfg.vocab, size=64) for _ in range(ENGINE["n_slots"])]
+    for name in ("single", "two"):
+        eng = Engine(model, params, **ENGINE, tiers=TIERS if name == "two" else None)
+        for i, q in enumerate(prompts):
+            eng.submit(Request(prompt=q, max_new_tokens=256, tier=tiers[name][i]))
+        eng.step()
+        eng.step()
+        if eng.n_active != ENGINE["n_slots"]:
+            fail(f"tier cost: {eng.n_active} of {ENGINE['n_slots']} slots active")
+        torch.cuda.synchronize()
+        tok0, t = eng.decoded_tokens, time.perf_counter()
+        for _ in range(blocks):
+            eng.step()
+        wall = (time.perf_counter() - t) / blocks
+        tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+        out[f"{name}_step_host_ms"], out[f"{name}_step_device_ms"] = wall * 1e3, device_busy_ms(prof)
+        out[f"{name}_step_tok_s"] = tok_s
+    say(f"[tiers] cost of two tiers at once, {card_line()}: the {N_REQUESTS} requests at "
+        f"{', '.join(f'{v:.1f}' for v in runs['two'])} tok/s on the two-tier engine (half at tier 1) against "
+        f"{', '.join(f'{v:.1f}' for v in runs['single'])} tok/s on a single-tier one (host clock, runs alternated); "
+        f"one step of {ENGINE['n_slots']} decoding slots: two-tier {out['two_step_host_ms']:.3f} ms host, "
+        f"{out['two_step_device_ms']:.3f} ms device (profiler), {out['two_step_tok_s']:.1f} tok/s; single-tier "
+        f"{out['single_step_host_ms']:.3f} ms host, {out['single_step_device_ms']:.3f} ms device, "
+        f"{out['single_step_tok_s']:.1f} tok/s")
+    return out
+
+
+def stored_ranks(params) -> set:
+    from repro_torch.core.lowrank import is_lowrank
+
+    if is_lowrank(params):
+        return {params["a"].shape[-1]}
+    return set().union(*(stored_ranks(v) for v in params.values())) if isinstance(params, dict) else set()
+
+
+def divergence(model, m32, params, p32, prompt, want, got, tag):
+    """Where a bf16 stream ``got`` first leaves the uninterrupted ``want``: the
+    top-2 margin of the uninterrupted run's logits there (the kernels'
+    teacher-forced bf16 forward of prompt + want) against the bf16 spread
+    at that token (the plain versions' bf16 logits against their fp32 ones
+    on the same tokens, max over that row alone, so only a flip that the
+    rounding at that token explains passes).  Fails if the margin exceeds
+    the spread."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(want[:-1], np.int64)])[None], device=model.device)
+    L = prompt.size
+    logits = model.forward(params, {"tokens": seq})[0][0, L - 1:].float()
+    with use_dispatch(backend="reference"):
+        ref16 = model.forward(params, {"tokens": seq})[0][0, L - 1:].float()
+        ref32 = m32.forward(p32, {"tokens": seq})[0][0, L - 1:].float()
+    spread = float((ref16[j] - ref32[j]).abs().max())
+    top = torch.topk(logits[j], 2)
+    margin = float(top.values[0] - top.values[1])
+    lead = float((ref16[j] - ref32[j])[top.indices].abs().sum())
+    say(f"[{tag}] diverges at token {j} of {len(want)}: the uninterrupted run's top-2 margin there {margin:.4e}, "
+        f"bf16 spread at that token {spread:.4e} (the two leading tokens' errors sum to {lead:.4e})")
+    if margin > spread:
+        fail(f"{tag}: a divergence at token {j} where the top-2 margin {margin:.4e} exceeds the bf16 spread "
+             f"{spread:.4e}")
+    return {"token": j, "margin": margin, "spread": spread, "lead_err": lead}
+
+
+def phase_preempt(model, m32, params, p32) -> dict:
+    """(b) Preemption on a pool that holds one of two requests (page 64, 5
+    pages, prompts of 200 and 210 tokens, 96 new each): the priority-1
+    request arrives after three decode blocks of the first; with
+    ``share_prefix`` True and False.  Gates: one preemption, no page left;
+    fp32: both streams equal the uninterrupted runs bit for bit; bf16: the
+    count of equal streams, and a divergence only where the uninterrupted
+    run's top-2 margin is within the bf16 spread."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serving import Engine, Request
+
+    toks = SyntheticLM(model.cfg, batch=2, seq=max(PREEMPT_LENS), kind="serve", seed=3).at_step(0)["tokens"]
+    prompts = [np.asarray(toks[i, :n], np.int64) for i, n in enumerate(PREEMPT_LENS)]
+    out = {}
+    for dtype, m, p in (("fp32", m32, p32), ("bf16", model, params)):
+        base = Engine(m, p, **PREEMPT)
+        want = [base.run([Request(prompt=q, max_new_tokens=PREEMPT_GEN)])[0].tokens for q in prompts]
+        for share in (True, False):
+            eng = Engine(m, p, **PREEMPT, share_prefix=share, preempt=True)
+            r0 = eng.submit(Request(prompt=prompts[0], max_new_tokens=PREEMPT_GEN))
+            for _ in range(3):
+                eng.step()
+            emitted = len(r0.tokens)
+            r1 = eng.submit(Request(prompt=prompts[1], max_new_tokens=PREEMPT_GEN, priority=1))
+            while eng.has_work:
+                eng.step()
+            equal = [r0.tokens == want[0], r1.tokens == want[1]]
+            say(f"[preempt] {dtype} share_prefix={share}: preempted after {emitted} tokens; preemptions "
+                f"{eng.preemptions}, pages in use at the end {eng.pages_in_use}, shared admissions "
+                f"{eng.shared_admissions}; streams equal to the uninterrupted runs {equal}")
+            if eng.preemptions != 1 or eng.pages_in_use != 0 or r0.status != "ok" or len(r0.tokens) != PREEMPT_GEN:
+                fail(f"preempt {dtype} share={share}: preemptions {eng.preemptions}, pages {eng.pages_in_use}, "
+                     f"status {r0.status}, {len(r0.tokens)} tokens")
+            res = {"emitted_before": emitted, "equal": sum(equal)}
+            if dtype == "fp32" and not all(equal):
+                fail(f"preempt fp32 share={share}: streams equal {equal}")
+            for i, ok in enumerate(equal):
+                if not ok:
+                    res[f"stream{i}"] = divergence(model, m32, params, p32, prompts[i], want[i],
+                                                   (r0, r1)[i].tokens, f"preempt bf16 share={share} stream {i}")
+            out[f"{dtype}_share{int(share)}"] = res
+    return out
+
+
+def phase_overload(model, params) -> dict:
+    """(c) The 16 requests on a two-tier engine under an admission policy
+    (degrade to tier 1 below half the pages free; every odd uid has an
+    800 ms deadline; every request accepts tier 1), a page-denial window
+    (steps 6-12) and 400 ms slow steps (10-12) watched by a StepWatchdog.
+    Gates: ok + shed + error = 16, shed > 0, each shed request's
+    RejectedOverload, degraded admissions > 0, each degraded request's
+    tokens the single-tier tier-1 run's, the slow steps flagged."""
+    from collections import Counter
+
+    from repro_torch.core.lowrank import slice_rank
+    from repro_torch.serving import AdmissionPolicy, Engine, FaultInjector, StepWatchdog
+
+    reqs = engine_requests(model.cfg)
+    for i, r in enumerate(reqs):
+        r.min_tier, r.deadline_ms = 1, (800.0 if i % 2 else None)
+    inj = FaultInjector(deny_pages=(6, 13), slow_steps=(10, 13), slow_ms=400.0)
+    events = Counter()
+    eng = Engine(model, params, **ENGINE, tiers=TIERS, tier_q=2, injector=inj,
+                 admission=AdmissionPolicy(n_tiers=2, degrade_free_frac=0.5),
+                 watchdog=StepWatchdog(straggler_factor=3.0), on_event=lambda k, f: events.update([k]))
+    done, dt = timed_run(eng, reqs)
+    by = Counter(r.status for r in done)
+    shed = [r for r in done if r.status == "shed"]
+    degraded = [r for r in done if r.status == "ok" and r.tier == 1]
+    say(f"[overload] {len(done)} of {len(reqs)} requests in {dt:.3f}s: {dict(by)}; degraded admissions "
+        f"{eng.degraded_admissions}; faults fired {inj.fired}; watchdog straggler steps "
+        f"{eng.watchdog.straggler_steps} (median {eng.watchdog.median * 1e3:.1f} ms); events {dict(events)}")
+    for r in shed:
+        say(f"[overload]   shed uid {r.uid}: {r.rejected}")
+    if len(done) != len(reqs) or by["ok"] + by["shed"] + by["error"] != len(reqs) or not shed:
+        fail(f"overload: statuses {dict(by)} of {len(reqs)} (ok + shed + error = submitted, shed > 0)")
+    if any(r.rejected is None or r.rejected.reason != "deadline-expired" or r.rejected.uid != r.uid for r in shed):
+        fail("overload: a shed request without its RejectedOverload")
+    if eng.degraded_admissions <= 0 or not degraded:
+        fail(f"overload: {eng.degraded_admissions} degraded admissions")
+    if not {10, 11, 12} <= set(eng.watchdog.straggler_steps) or eng.straggler_flags != len(eng.watchdog.straggler_steps):
+        fail(f"overload: the watchdog flagged steps {eng.watchdog.straggler_steps}, not the slow steps 10-12")
+    solo = Engine(model, slice_rank(params, TIERS[1]), **ENGINE)
+    again = sorted(solo.run(fresh(degraded)), key=lambda r: r.uid)
+    equal = sum(a.tokens == b.tokens for a, b in zip(degraded, again))
+    say(f"[overload] degraded requests equal to the single-tier tier-1 run's tokens: {equal}/{len(degraded)}")
+    if equal != len(degraded):
+        fail(f"overload: {equal}/{len(degraded)} degraded requests equal the tier-1 run's tokens")
+    return {"statuses": dict(by), "degraded": eng.degraded_admissions, "stragglers": eng.watchdog.straggler_steps,
+            "events": dict(events), "s": dt}
+
+
+def first_admitted(cfg, reqs) -> list:
+    """The requests the engine admits at its first step (FIFO, slots and pages
+    permitting), in order."""
+    pages, out = 0, []
+    for r in reqs[: ENGINE["n_slots"]]:
+        need = -(-(r.prompt.size + r.max_new_tokens) // ENGINE["page_size"])
+        if pages + need > ENGINE["kv_pages"]:
+            break
+        pages += need
+        out.append(r)
+    return out
+
+
+def phase_nan(model, params) -> tuple:
+    """(d) nan_logits under the captured block: the 16 requests on an engine
+    with an unarmed injector, then with one armed at the third block of a
+    request admitted at the first step and prefilled whole.  Gates: exactly
+    that uid errors, with the clean run's tokens before the fault; every
+    other request's tokens are the clean run's; both engines replayed their
+    graph and captured the same number of graphs."""
+    from repro_torch.serving import Engine, FaultInjector
+
+    reqs = engine_requests(model.cfg)
+    clean_eng = Engine(model, params, **ENGINE, injector=FaultInjector())
+    clean = {r.uid: r.tokens for r in clean_eng.run(reqs)}
+    cand = [r for r in first_admitted(model.cfg, reqs) if r.prompt.size <= ENGINE["prefill_chunk"]]
+    if not cand:
+        fail("nan: no request is prefilled whole at the first step")
+    victim = max(cand, key=lambda r: r.max_new_tokens)
+    at = 2 * ENGINE["decode_block"] + 3  # the third block's fourth step
+    if victim.max_new_tokens <= at + 2:
+        fail(f"nan: uid {victim.uid} ends before step {at}")
+    inj = FaultInjector(nan_logits=(victim.uid, at))
+    eng = Engine(model, params, **ENGINE, injector=inj)
+    by = {r.uid: r for r in eng.run(fresh(reqs))}
+    bad = by[victim.uid]
+    others = sum(by[u].tokens == clean[u] for u in by if u != victim.uid)
+    say(f"[nan] poisoned uid {victim.uid} at decode step {at}: fired {inj.fired}; status {bad.status} "
+        f"({bad.error}) after {len(bad.tokens)} tokens, a prefix of the clean run's: "
+        f"{bad.tokens == clean[victim.uid][: len(bad.tokens)]}; others equal to the clean run "
+        f"{others}/{len(by) - 1}; quarantined {eng.quarantined}; graphs captured armed {len(eng._graphs)} / "
+        f"unarmed {len(clean_eng._graphs)}; replays {eng.graph_replays} / {clean_eng.graph_replays}")
+    errored = [u for u, r in by.items() if r.status == "error"]
+    if inj.fired.get("nan_logits") != 1 or errored != [victim.uid] or others != len(by) - 1:
+        fail(f"nan: errored {errored}, others equal {others}/{len(by) - 1}, fired {inj.fired}")
+    if bad.tokens != clean[victim.uid][: len(bad.tokens)] or not 0 < len(bad.tokens) < victim.max_new_tokens:
+        fail("nan: the poisoned request's tokens before the fault differ from the clean run's")
+    if (len(eng._graphs) != len(clean_eng._graphs) or eng.graph_replays <= 0 or clean_eng.graph_replays <= 0
+            or not eng.cuda_graph):
+        fail(f"nan: graphs {len(eng._graphs)} armed vs {len(clean_eng._graphs)} unarmed, replays {eng.graph_replays}")
+    return clean, {"victim": victim.uid, "at": at, "tokens_before": len(bad.tokens), "graphs": len(eng._graphs),
+                   "replays": eng.graph_replays}
+
+
+def phase_drain(model, m32, params, p32, clean) -> dict:
+    """(e) ``run(stop=...)`` after two decode blocks sheds the queue with
+    "shutdown" and finishes the in-flight requests with the clean run's
+    tokens (bf16); then ``export_inflight`` and ``take_queue`` after three
+    steps, resubmitted to a second engine, give the uninterrupted tokens
+    (fp32, bit for bit; bf16 reported, a divergence held to the margin
+    rule of (b))."""
+    from repro_torch.serving import Engine
+
+    eng = Engine(model, params, **ENGINE)
+    done = eng.run(engine_requests(model.cfg), stop=lambda: eng.steps >= 2 * ENGINE["decode_block"])
+    ok = [r for r in done if r.status == "ok"]
+    shed = [r for r in done if r.status == "shed"]
+    equal = sum(r.tokens == clean[r.uid] for r in ok)
+    say(f"[drain] stop after 2 blocks: {len(ok)} finished ({equal} with the clean run's tokens), {len(shed)} shed "
+        f"({sorted({r.rejected.reason for r in shed})}); pages in use {eng.pages_in_use}")
+    if (not shed or len(ok) + len(shed) != N_REQUESTS or equal != len(ok) or eng.pages_in_use
+            or any(r.rejected.reason != "shutdown" for r in shed)):
+        fail(f"drain: {len(ok)} ok ({equal} equal), {len(shed)} shed of {N_REQUESTS}")
+    out = {"drain_ok": len(ok), "drain_shed": len(shed)}
+    for dtype, m, p in (("fp32", m32, p32), ("bf16", model, params)):
+        reqs = engine_requests(model.cfg)[:6]
+        want = [r.tokens for r in sorted(Engine(m, p, **ENGINE).run(fresh(reqs)), key=lambda r: r.uid)]
+        first = Engine(m, p, **ENGINE)
+        for r in reqs:
+            first.submit(r)
+        for _ in range(3):
+            first.step()
+        queued = first.take_queue()
+        moved = first.export_inflight()
+        second = Engine(m, p, **ENGINE)
+        for r in moved + queued:
+            second.submit(r)
+        while second.has_work:
+            second.step()
+        equal = [r.tokens == w for r, w in zip(reqs, want)]  # resubmission renumbers uids
+        say(f"[export] {dtype}: {first.exported} exported after 3 steps ({sum(len(r.tokens) for r in reqs)} tokens "
+            f"at the end), {len(queued)} queued moved; pages left on the first engine {first.pages_in_use}; "
+            f"streams equal to the uninterrupted runs {sum(equal)}/{len(reqs)}")
+        if first.pages_in_use or first.has_work or any(r.status != "ok" for r in reqs):
+            fail(f"export {dtype}: the first engine kept work or pages, or a request failed")
+        if dtype == "fp32" and not all(equal):
+            fail(f"export fp32: streams equal {equal}")
+        for i, (r, e) in enumerate(zip(reqs, equal)):
+            if not e:
+                divergence(model, m32, params, p32, r.prompt, want[i], r.tokens, f"export bf16 request {i}")
+        out[f"export_{dtype}_equal"] = sum(equal)
+    return out
+
+
+def phase_stage4(model, params) -> dict:
+    """Phase 21: engine stage 4 on the q = 4 llama3.2-1b, items (a)-(e)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    t = time.perf_counter()
+    out = {"tiers": phase_tiers(model, params)}
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"), device=model.device)
+    p32 = params_fp32(params)
+    out["preempt"] = phase_preempt(model, m32, params, p32)
+    out["overload"] = phase_overload(model, params)
+    clean, out["nan"] = phase_nan(model, params)
+    out.update(phase_drain(model, m32, params, p32, clean))
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t
+    say("[stage4] phase 21 " + json.dumps(out))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2794,8 +3271,9 @@ def phase_dense(runs: dict) -> dict:
         runs[f"{arch} compression"] = summary["compress_launches"]
         # the compressed head's logits are a low-rank apply: the sketch GEMM is RSI's, above
         eng = phase_engine(model, params, tag=f"{tag} engine",
-                           on_path=("lowrank_matmul", "flash_attention", "paged_decode_attention"), equal_pool=True)
+                           on_path=("lowrank_matmul", "flash_attention", "paged_decode_attention"))
         runs[f"{arch} engine"], runs[f"{arch} flat engine"] = eng["launches"], eng["launches_flat_engine"]
+        summary.update(phase_chunk_profile(model, params, tag=f"{tag} chunk"))
         summary["sharing"] = phase_sharing(model, params, tag=f"{tag} sharing",
                                            runs=("a", "b", "c", "d", "a256") if i == 0 else ("a",))
         summary.update({"tok_s": eng["tok_s"], "phase_s": time.perf_counter() - t})
@@ -2824,6 +3302,80 @@ def phase_sharing_only() -> int:
     runs: dict = {}
     phase_dense(runs)
     say(f"[sharing-only] phases 19-20 in {time.perf_counter() - t:.1f}s; launches " + json.dumps(runs))
+    return 0
+
+
+def stage4_model():
+    """The q = 4 compressed llama3.2-1b of phase 3 (same seeds), without the
+    dense and q = 1 runs around it."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, spectralize_params
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_arch("llama3.2-1b"))
+    gen = lambda seed: torch.Generator(device=model.device).manual_seed(seed)  # noqa: E731
+    params = spectralize_params(model.init(gen(0)), gen(9))
+    params, _ = compress_tree(params, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    return model, params
+
+
+def phase_overload_only() -> int:
+    """``--overload-only``: phase 21 alone, on the q = 4 llama3.2-1b."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[overload-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    build_all()
+    model, params = stage4_model()
+    phase_stage4(model, params)
+    say(f"[overload-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
+def phase_chunk_only() -> int:
+    """``--chunk-only [--src DIR]``: phase 8's profiled (1, 256) prefill chunk
+    on each dense model (llama3.2-1b, minitron-4b, qwen2-72b at 8 layers),
+    random weights (seed 0) compressed at alpha 0.3, q = 1, on the package
+    tree ``--src`` names: the chunk's device time under another tree's
+    low-rank plans, in the same call."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.kernels._build import build_all
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"[chunk-only] {card_line()}; package tree {SRC}")
+    build_all()
+    out = {}
+    for arch, n_layers in (("llama3.2-1b", None),) + DENSE_ARCHS:
+        cfg = get_arch(arch)
+        if n_layers is not None:
+            import dataclasses
+
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        model = build_model(cfg)
+        gen = torch.Generator(device=model.device)
+        params, _ = compress_tree(model.init(gen.manual_seed(0)), CompressionPolicy(alpha=ALPHA, q=1, min_dim=32),
+                                  generator=gen.manual_seed(1))
+        out[arch] = phase_chunk_profile(model, params, tag=f"{arch} chunk")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"[chunk-only] {SRC}: " + json.dumps(out))
     return 0
 
 
@@ -2864,6 +3416,10 @@ def main() -> int:
         return phase_paper_only()
     if "--sharing-only" in sys.argv:
         return phase_sharing_only()
+    if "--overload-only" in sys.argv:
+        return phase_overload_only()
+    if "--chunk-only" in sys.argv:
+        return phase_chunk_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -2903,6 +3459,10 @@ def main() -> int:
     block = phase_block_profile(model, params_q4)
     chunk = phase_chunk_profile(model, params_q4)
     say("[engine] " + json.dumps({"tok_s": engine["tok_s"], **block, **chunk}))
+    # phase 21 (engine stage 4) runs here, on the same q = 4 model, before it is freed
+    t = time.perf_counter()
+    phase_stage4(model, params_q4)
+    say(f"[stage4] phase 21 in {time.perf_counter() - t:.1f}s")
     del model, params_q4, batch  # the llama phases' model, before the MoE phases
     gc.collect()
     torch.cuda.empty_cache()

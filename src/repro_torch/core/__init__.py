@@ -14,7 +14,9 @@ from repro_torch.core.lowrank import (  # noqa: F401
     is_lowrank,
     lowrank_params,
     materialize,
+    min_rank,
     param_count,
+    slice_rank,
 )
 from repro_torch.core.rsi import (  # noqa: F401
     RSIResult,

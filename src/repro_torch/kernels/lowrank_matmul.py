@@ -11,20 +11,42 @@ Each stage is one launch under a plan computed here from the shapes and the
 card's SM count alone (never from the data), so a captured CUDA graph
 replays the same grid:
 
-* M <= 8 (decode): the skinny kernel (bf16 on mma.sync, fp32 on the FMA
-  units).  A block owns ``bn`` columns of the factor and one of ``splits``
-  runs of its 64-row k-blocks; the runs of a column tile form a
-  thread-block cluster that sums its partials in rank order, so a stage is
-  one launch with no workspace.  The plan keeps every block of the launch
-  resident in one wave where any plan can.
-* M > 8 (prefill), and every batched call, bf16: the wgmma + TMA GEMM
-  (``csrc/gemm_wgmma.cuh``) on a ``bm`` x ``bn`` tile with K split over a
-  cluster of ``splits`` blocks; fp32: ``gemm_tile.cuh``'s 64 x 64 FMA tiles
-  (:data:`FMA_TILES`).
+* M <= 8 outside a prefill (decode): the skinny kernel (bf16 on mma.sync,
+  fp32 on the FMA units).  A block owns ``bn`` columns of the factor and
+  one of ``splits`` runs of its 64-row k-blocks; the runs of a column tile
+  form a thread-block cluster that sums its partials in rank order, so a
+  stage is one launch with no workspace.  The plan keeps every block of
+  the launch resident in one wave where any plan can.
+* Every other 2-D call, bf16: the wgmma + TMA GEMM (``csrc/gemm_wgmma.cuh``)
+  on a ``bm`` x ``bn`` tile with K split over a cluster of ``splits``
+  blocks (:func:`row_plan`); fp32: ``gemm_tile.cuh``'s 64 x 64 FMA tiles
+  (:data:`FMA_TILES`).  Batched calls: the wgmma GEMM under
+  :func:`tile_plan`.
+
+Batch invariance of prompt rows.  A row's bits depend only on the order
+its sums run in: the K split (which k-blocks each cluster rank sums, the
+partials then added in rank order) and the kernel (the skinny kernel's
+mma.sync order is not the wgmma GEMM's).  A tile's height and width only
+say which rows and columns a block owns.  So the 2-D wgmma plan takes its
+split from ``(K, N)`` and the SM count alone (:func:`split_plan`) and only
+its tile from M, and a prefill call (``prefill=True``: the engine's
+micro-batches, its ``(1, C)`` chunks and rewrites, and the static path's
+prompt, through ``dispatch.prefill_rows``) never takes the skinny kernel,
+whatever its M.  A row prefilled alone, beside other prompts, or chunk by
+chunk is then computed bit for bit the same way.  The prefill entry is
+explicit rather than a padded M: the ssm and hybrid families prefill
+unpadded exact-length groups, and a chunk of C <= 8 tokens has M = C, so
+no padding rule at the engine would cover every prefill call, and padding
+would spend rows of work on zeros.  Decode keeps the skinny kernel: it is
+a separate compute path (decode-written K/V already differs from
+prefill-written K/V in the low bits), and its M is the engine's slot count
+at every step.
 
 The plan of a stage picks the candidate with the least modelled time: the
 bytes of the factor (skinny) or of both tiles (wgmma) that a block pulls per
-k-block, times its k-blocks plus a fixed cost, against the card's SMs.
+k-block, times its k-blocks plus a fixed cost, against the card's SMs.  The
+2-D wgmma split is the one whose modelled time, with the best tile at each
+M, is nearest the best plan's over :data:`PLAN_M` (the least worst ratio).
 
 TMA reads the factors (and, bf16 at M > 8, x) in place when their bases
 and row strides lie on 16 bytes; any other operand is copied into aligned rows
@@ -52,6 +74,9 @@ __all__ = [
     "batched_plans",
     "skinny_plan",
     "tile_plan",
+    "split_plan",
+    "row_plan",
+    "PLAN_M",
     "skinny_smem",
     "skinny_per_sm",
     "tile_smem",
@@ -89,7 +114,10 @@ class GemmPlan(NamedTuple):
     splits: int  # blocks a cluster, each one run of K's 64-row k-blocks, summed in rank order
 
 
-FMA_TILES = GemmPlan(64, 64, 1)  # fp32 at M > 8: gemm_tile.cuh's 64 x 64 FMA tiles, no split
+FMA_TILES = GemmPlan(64, 64, 1)  # fp32 off the skinny kernel: gemm_tile.cuh's 64 x 64 FMA tiles, no split
+# the M over which a 2-D wgmma split is chosen: a lone short prompt, the engine's chunks and
+# micro-batches, the static prefill, long monolithic prompts
+PLAN_M = (8, 16, 64, 256, 1024, 4096)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -155,27 +183,40 @@ def skinny_plan(K: int, N: int, sms: int, esz: int = 2) -> GemmPlan:
     return (best_one_wave or best)[1]
 
 
-@functools.lru_cache(maxsize=None)
-def tile_plan(M: int, K: int, N: int, sms: int, L: int = 1) -> GemmPlan:
-    """The wgmma GEMM's plan for L stacked (M, K) @ (K, N) products on ``sms``
-    SMs: the tile and split with the least modelled time.  A stack (the
-    expert capacity, L > 1) takes a tile at least as tall as M where one
-    exists, so each expert's factor tiles are read by one block (cluster)."""
-    nkb = max(1, _cdiv(K, BK))
+def _tile_time(M: int, nkb: int, N: int, sms: int, L: int, bm: int, bn: int, s: int) -> float:
+    """Modelled time of L stacked (M, K) @ (K, N) products on the tile bm x bn
+    split s ways over K's ``nkb`` k-blocks: each block's k-blocks plus the
+    fixed cost, times the rows and columns of tile it pulls, over the SMs."""
     rows = _cdiv(M, 64) * 64  # rows past M are zero-filled by TMA: no bytes
-    best = None
+    blocks = L * _cdiv(M, bm) * _cdiv(N, bn) * s
+    work = (_cdiv(nkb, s) + TILE_OVERHEAD) * (min(bm, rows) + bn)
+    return max(blocks * work / sms, work)
+
+
+def _tiles(M: int, N: int, L: int):
+    """The wgmma tiles a call may take: for a stack (the expert capacity,
+    L > 1) one at least as tall as M where one exists, so each expert's
+    factor tiles are read by one block (cluster)."""
     for bm, bn in TILES:
         if L > 1 and M <= max(b for b, _ in TILES) and bm < M:
             continue
-        mt, nt = _cdiv(M, bm), _cdiv(N, bn)
-        if mt > MAX_GRID_YZ:
+        if _cdiv(M, bm) > MAX_GRID_YZ:
             continue
+        yield bm, bn
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(M: int, K: int, N: int, sms: int, L: int = 1) -> GemmPlan:
+    """The wgmma GEMM's plan for L stacked (M, K) @ (K, N) products on ``sms``
+    SMs (the batched kernel's): the tile and split with the least modelled
+    time."""
+    nkb = max(1, _cdiv(K, BK))
+    best = None
+    for bm, bn in _tiles(M, N, L):
         for s in range(1, min(MAX_SPLITS, nkb) + 1):
             if L * s > MAX_GRID_YZ:
                 break
-            blocks = L * mt * nt * s
-            work = (_cdiv(nkb, s) + TILE_OVERHEAD) * (min(bm, rows) + bn)
-            key = (max(blocks * work / sms, work), s, -bm * bn)
+            key = (_tile_time(M, nkb, N, sms, L, bm, bn, s), s, -bm * bn)
             if best is None or key < best[0]:
                 best = (key, GemmPlan(bm, bn, s))
     if best is None:
@@ -183,14 +224,42 @@ def tile_plan(M: int, K: int, N: int, sms: int, L: int = 1) -> GemmPlan:
     return best[1]
 
 
-def lowrank_plans(M: int, K: int, r: int, N: int, sms: int, esz: int = 2) -> Tuple[GemmPlan, GemmPlan]:
+def _best_tile(M: int, nkb: int, N: int, sms: int, s: int) -> Tuple[float, GemmPlan]:
+    return min(((_tile_time(M, nkb, N, sms, 1, bm, bn, s), -bm * bn), GemmPlan(bm, bn, s))
+               for bm, bn in _tiles(M, N, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(K: int, N: int, sms: int) -> int:
+    """The K split of a 2-D (M, K) @ (K, N) wgmma stage, from K, N and the SM
+    count alone (a row's sums then run in one order at every M): the split
+    whose modelled time, with the best tile at each M of :data:`PLAN_M`, is
+    the least worst multiple of that M's best plan (fewer splits on a tie)."""
+    nkb = max(1, _cdiv(K, BK))
+    splits = range(1, min(MAX_SPLITS, nkb) + 1)
+    best = {M: min(_best_tile(M, nkb, N, sms, s)[0][0] for s in splits) for M in PLAN_M}
+    return min(splits, key=lambda s: (max(_best_tile(M, nkb, N, sms, s)[0][0] / best[M] for M in PLAN_M), s))
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(M: int, K: int, N: int, sms: int) -> GemmPlan:
+    """The 2-D wgmma plan of an (M, K) @ (K, N) stage: the split of
+    :func:`split_plan` (independent of M) and, at that split, the tile with
+    the least modelled time at M."""
+    return _best_tile(M, max(1, _cdiv(K, BK)), N, sms, split_plan(K, N, sms))[1]
+
+
+def lowrank_plans(M: int, K: int, r: int, N: int, sms: int, esz: int = 2, *,
+                  prefill: bool = False) -> Tuple[GemmPlan, GemmPlan]:
     """The two stages' plans of a 2-D call on ``esz``-byte elements (2 bf16,
-    4 fp32): x (M, K) @ A (K, r), then t @ B (r, N)."""
-    if M <= SKINNY_MAX_M:
+    4 fp32): x (M, K) @ A (K, r), then t @ B (r, N).  ``prefill``: the call
+    computes prompt rows, which never take the skinny kernel (see the module
+    docstring)."""
+    if M <= SKINNY_MAX_M and not prefill:
         return skinny_plan(K, r, sms, esz), skinny_plan(r, N, sms, esz)
     if esz == 4:
         return FMA_TILES, FMA_TILES
-    return tile_plan(M, K, r, sms), tile_plan(M, r, N, sms)
+    return row_plan(M, K, r, sms), row_plan(M, r, N, sms)
 
 
 def batched_plans(L: int, M: int, K: int, r: int, N: int, sms: int) -> Tuple[GemmPlan, GemmPlan]:
@@ -198,8 +267,9 @@ def batched_plans(L: int, M: int, K: int, r: int, N: int, sms: int) -> Tuple[Gem
     return tile_plan(M, K, r, sms, L), tile_plan(M, r, N, sms, L)
 
 
-def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """x: (M, K); A: (K, r); B: (r, N) -> (M, N) in x's dtype."""
+def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, prefill: bool = False) -> torch.Tensor:
+    """x: (M, K); A: (K, r); B: (r, N) -> (M, N) in x's dtype.  ``prefill``:
+    x holds prompt rows, computed the same way at every M (no skinny kernel)."""
     devs = {x.device.type, A.device.type, B.device.type}
     if devs == {"cpu"}:
         return ref.lowrank_matmul_ref(x, A, B)
@@ -216,12 +286,12 @@ def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.T
         raise ValueError(f"lowrank_matmul: x {tuple(x.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}")
     t = padded_rows(M, r, x.dtype, x.device)  # scratch for the rounded x @ A
     y = padded_rows(M, N, x.dtype, x.device)
-    skinny = M <= SKINNY_MAX_M
+    skinny = M <= SKINNY_MAX_M and not prefill
     if skinny or x.dtype == torch.bfloat16:  # TMA reads the factors (the FMA tiles need not)
         A, B = tma_ready(A, "lowrank_matmul A"), tma_ready(B, "lowrank_matmul B")
     if not skinny and x.dtype == torch.bfloat16:  # the wgmma tiles load x by TMA too
         x = tma_ready(x, "lowrank_matmul x")
-    p1, p2 = lowrank_plans(M, K, r, N, sm_count(x.device.index or 0), x.element_size())
+    p1, p2 = lowrank_plans(M, K, r, N, sm_count(x.device.index or 0), x.element_size(), prefill=prefill)
     entry = "lowrank_matmul_f32" if x.dtype == torch.float32 else "lowrank_matmul_bf16"
     KERNEL.launch(entry, x.device, x.data_ptr(), A.data_ptr(), B.data_ptr(), t.data_ptr(), y.data_ptr(),
                   M, K, r, N, row_stride(x, "lowrank_matmul x"), row_stride(A, "lowrank_matmul A"), t.stride(0),

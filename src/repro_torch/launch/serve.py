@@ -6,7 +6,9 @@ engine (default) or one static batched prefill + greedy decode.
         [--batch 4 --prompt-len 16 --gen 32] [--seed 0] [--device cuda|cpu] \\
         [--n-slots N --decode-block 8 --page-size P --kv-pages K \\
          --prefill-chunk C --temperature T --top-k K] \\
-        [--share-prefix [--warm-cache-pages N] [--close-sessions]]
+        [--share-prefix [--warm-cache-pages N] [--close-sessions]] \\
+        [--tiers 1.0,0.5 --tier-q 2 --deadline-ms MS --degrade-queue-depth N \\
+         --degrade-free-frac F --preempt]
 
 The port's counterpart of ``repro/launch/serve.py``.  Runs on the card
 unless ``--device cpu`` is given.  ``--engine continuous`` serves ``--batch``
@@ -19,13 +21,20 @@ hybrid families (``--arch mamba2-130m``, ``zamba2-1.2b``), which prefill
 monolithically, as in the reference.  ``--share-prefix`` maps repeated
 prompt-prefix pages read-only (a ``[shared]`` line of its counters);
 ``--close-sessions`` then drops each request's cached branch and prints a
-``[sessions]`` line.  The reference's overload, cluster and event flags are
-not ported yet.
+``[sessions]`` line.  The overload flags (``--tiers``, ``--tier-q``,
+``--deadline-ms``, ``--degrade-queue-depth``, ``--degrade-free-frac``,
+``--preempt``) configure the engine's rank tiers, admission policy and
+preemption, and print an ``[overload]`` line and one ``[shed]`` line per
+shed request.  The first SIGINT or SIGTERM drains gracefully: the queue
+sheds with ``"shutdown"``, in-flight requests finish, and the default
+handlers come back (a second signal ends the process).  The reference's
+cluster and event-log flags are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 import time
 
 
@@ -63,6 +72,20 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0, help="0 = full vocab (continuous engine)")
     ap.add_argument("--compress-alpha", type=float, default=0.0)
     ap.add_argument("--q", type=int, default=4)
+    ap.add_argument("--tiers", default="",
+                    help="comma-separated rank fractions, the first 1.0 (e.g. '1.0,0.5,0.25'): nested rank tiers "
+                         "served from prefix views of the compressed factors (continuous engine; needs "
+                         "--compress-alpha to slice anything)")
+    ap.add_argument("--tier-q", type=int, default=2, help="power iterations recorded in each tier's certificate")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="shed requests not admitted within this many ms (structured rejection; 0 = none)")
+    ap.add_argument("--degrade-queue-depth", type=int, default=0,
+                    help="queue depth at which admission degrades new requests to a deeper tier; 0 = off")
+    ap.add_argument("--degrade-free-frac", type=float, default=0.0,
+                    help="free-page fraction below which admission degrades new requests to a deeper tier; 0 = off")
+    ap.add_argument("--preempt", action="store_true",
+                    help="a queue head of higher priority may preempt a running request, which resumes as a "
+                         "continuation (with --share-prefix, from its own indexed pages)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -107,27 +130,72 @@ def main(argv=None):
               f"kernels={dcfg.backend}, device={dev})")
         print("first sequences:", out[: min(2, args.batch), :12].tolist())
     else:
-        from repro_torch.serving import Engine, Request, SamplingParams, percentile
+        from repro_torch.serving import AdmissionPolicy, Engine, Request, SamplingParams, percentile
 
+        tiers = tuple(float(f) for f in args.tiers.split(",") if f) or None
+        admission = None
+        if args.deadline_ms > 0 or args.degrade_queue_depth > 0 or args.degrade_free_frac > 0:
+            admission = AdmissionPolicy(n_tiers=len(tiers) if tiers else 1,
+                                        degrade_queue_depth=args.degrade_queue_depth or None,
+                                        degrade_free_frac=args.degrade_free_frac or None)
         n_slots = args.n_slots or args.batch
         eng = Engine(model, params, n_slots=n_slots, max_len=max_len, dispatch=dcfg,
                      decode_block=args.decode_block, page_size=args.page_size or None,
                      kv_pages=args.kv_pages or None, prefill_chunk=args.prefill_chunk or None,
-                     share_prefix=args.share_prefix, warm_cache_pages=args.warm_cache_pages or None)
+                     share_prefix=args.share_prefix, warm_cache_pages=args.warm_cache_pages or None,
+                     tiers=tiers, tier_q=args.tier_q, admission=admission, preempt=args.preempt)
         # one seed per request, so sampled continuations are not correlated across the batch
         reqs = [Request(prompt=prompts[b], max_new_tokens=args.gen,
                         sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                                                seed=args.seed + b))
+                                                seed=args.seed + b),
+                        deadline_ms=args.deadline_ms or None, min_tier=(len(tiers) - 1) if tiers else 0)
                 for b in range(args.batch)]
+
+        # graceful drain: the first SIGINT/SIGTERM sheds the queue and lets the
+        # in-flight requests finish; the previous handlers then come back, so a
+        # second signal acts as usual
+        draining = {"on": False}
+
+        def _drain(signum, frame):
+            draining["on"] = True
+            print(f"\n[drain] caught {signal.Signals(signum).name}: shedding the queue, finishing active slots")
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+
+        prev_handlers = {}
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _drain)
+            except ValueError:  # not the main thread
+                break
         t0 = time.perf_counter()
-        done = eng.run(reqs)
+        try:
+            done = eng.run(reqs, stop=lambda: draining["on"])
+        finally:
+            for sig, handler in prev_handlers.items():
+                if signal.getsignal(sig) == _drain:
+                    signal.signal(sig, handler)
         dt = time.perf_counter() - t0
         n_tok = sum(len(r.tokens) for r in done)
+        ok = [r for r in done if r.status == "ok"]
+        shed = [r for r in done if r.status == "shed"]
         errored = [r for r in done if r.status == "error"]
         print(f"[continuous] {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
               f"({n_tok / dt:.1f} tok/s, slots={n_slots}, params {n0/1e6:.1f}M, "
               f"kernels={dcfg.backend}, device={dev}, cuda_graph={eng.cuda_graph})")
-        lats = sorted(r.latency for r in done if r.status == "ok")
+        if shed or errored or admission is not None or tiers:
+            by_tier = [0] * len(eng.tiers)
+            for r in ok:
+                by_tier[r.tier] += 1
+            certs = " ".join(f"t{i}<= {c.prob_deviation_bound:.3g}" for i, c in enumerate(eng.tier_certificates)
+                             if c is not None)
+            print(f"[overload] ok={len(ok)} shed={len(shed)} errored={len(errored)} "
+                  f"degraded={eng.degraded_admissions} preemptions={eng.preemptions} "
+                  f"quarantined={eng.quarantined} tier_counts={by_tier}" + (f" cert_bounds[{certs}]" if certs else ""))
+            for r in shed:
+                print(f"[shed] uid={r.rejected.uid} reason={r.rejected.reason} waited={r.rejected.waited_ms:.0f}ms "
+                      f"queue_depth={r.rejected.queue_depth}")
+        lats = sorted(r.latency for r in ok)
         lat_s = (f"p50={percentile(lats, 0.5) * 1e3:.0f}ms p95={percentile(lats, 0.95) * 1e3:.0f}ms"
                  if lats else "p50=n/a p95=n/a (0 completed)")
         print(f"latency {lat_s} decode_steps={eng.steps} host_syncs={eng.host_syncs} "
@@ -148,8 +216,9 @@ def main(argv=None):
             freed = sum(eng.drop_session(r.prompt) for r in done)
             print(f"[sessions] closed {len(done)}, freed {freed} cached pages "
                   f"(cached now {eng.prefix_cached_pages})")
-        if done and done[0].tokens:
-            print("first sequence:", done[0].tokens[:12])
+        first = next((r for r in done if r.status == "ok" and r.tokens), None)
+        if first is not None:
+            print("first sequence:", first.tokens[:12])
         out = done
 
     print("[dispatch] per-site kernel paths:")

@@ -283,8 +283,11 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     return cache, mask
 
 
+@dispatch.prefill_rows()
 def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor] = None):
-    """Run the prompt through the model, building the decode cache.
+    """Run the prompt through the model, building the decode cache.  Its
+    linears compute prompt rows (``dispatch.prefill_rows``): a row's bits do
+    not depend on the other rows of the batch.
 
     Returns (last_token_logits (B, Vp) fp32, cache).  ``last_index``:
     optional (B,) index of each sequence's last valid prompt token (for
@@ -320,8 +323,10 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     return _logits(p, last, cfg)[:, 0], cache
 
 
+@dispatch.prefill_rows()
 def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
-    """One chunk of one slot's prompt prefill (paged cache only).
+    """One chunk of one slot's prompt prefill (paged cache only), its linears
+    on prompt rows like the monolithic prefill's.
 
     tokens: (1, C) — the chunk at absolute positions ``start + [0, C)``.
     ``start`` may be any position: page-aligned for a prompt's own chunks,

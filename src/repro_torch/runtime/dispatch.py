@@ -14,6 +14,11 @@ here, in one place:
 * ``backend="reference"``: the plain version everywhere.  Only chosen
   explicitly (tests, ``chip_smoke.py``'s comparison phase).
 
+Prompt rows (:func:`prefill_rows`, entered by the model's prefill and chunk
+programs) reach the low-rank kernel with ``prefill=True``: its batch-
+invariant plan, so a row's bits do not depend on which rows share its call
+(``kernels/lowrank_matmul.py``).
+
     from repro_torch.runtime.dispatch import use_dispatch
 
     with use_dispatch(backend="reference"):
@@ -56,6 +61,7 @@ __all__ = [
     "DispatchConfig",
     "active_dispatch",
     "use_dispatch",
+    "prefill_rows",
     "choose_lowrank_path",
     "lowrank_apply",
     "dense_apply",
@@ -123,6 +129,21 @@ def use_dispatch(config: Optional[DispatchConfig] = None, **kw):
         yield config
     finally:
         _state.dispatch = prev
+
+
+@contextlib.contextmanager
+def prefill_rows():
+    """Mark the calls of this extent (this thread) as prompt rows: the model's
+    prefill and chunk programs.  The low-rank kernel then computes every row
+    the same way at every M (no skinny kernel, a K split fixed by K and N),
+    so a prompt's bits do not depend on which prompts share its micro-batch.
+    Usable as a decorator."""
+    prev = getattr(_state, "prefill", False)
+    _state.prefill = True
+    try:
+        yield
+    finally:
+        _state.prefill = prev
 
 
 # --------------------------------------------------------------------------- #
@@ -223,8 +244,10 @@ def choose_lowrank_path(
     """The auto table: on ``cuda`` under ``auto`` the fused kernel (the
     batched one for stacked factors), for every rank; otherwise
     (``reference``, or the CPU) the plain two-GEMM form.  The reference's
-    dense-rematerialization path is not carried over: no rank that
-    ``compress_tree`` emits reaches break-even.  Nor is its VMEM fit test:
+    rank floor (``fused_min_rank``, 2) is not carried over: the kernel runs
+    rank 1, which a rank tier (``core.lowrank.slice_rank``) can reach.  Nor
+    is its dense-rematerialization path: no rank that ``compress_tree``
+    emits reaches break-even.  Nor is its VMEM fit test:
     at phi3.5-moe's expert ranks (``fused_vmem_bytes(1229, 6400, bf16)``,
     ~28 MB > 14 MiB) the reference falls back to two GEMMs, the port runs
     its kernel."""
@@ -274,7 +297,7 @@ def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Te
         return y.reshape(out_shape)
     x2 = x.reshape(M, K)
     if path == PATH_FUSED:
-        y = _lowrank_kernel(x2, A, B)
+        y = _lowrank_kernel(x2, A, B, prefill=getattr(_state, "prefill", False))
     else:
         y = _ref.lowrank_matmul_ref(x2, A, B)
     return y.reshape(out_shape)

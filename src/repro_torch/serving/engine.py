@@ -71,10 +71,33 @@ bytes and never changes what is attended: with every prompt longer than
 one chunk, shared and unshared engines compute every position through one
 program at one shape, and emit the same greedy tokens bit for bit.
 
-Not in this slice of the port (each raises ``NotImplementedError``): the
-overload layer (``tiers``/``tier_q``, ``admission``, ``injector``,
-``preempt``, ``watchdog``, ``on_event``).  The reference keeps one prefix
-index per rank tier; with one tier the port keeps one.
+Rank tiers (``tiers``, the reference's elastic ranks): tier 0 serves the
+stored factors, tier t their prefix views ``slice_rank(params, tiers[t])``
+(no parameter memory), each with a Theorem 3.2 certificate of the head's
+dropped tail (``tier_certificates``, ``Request.certificate``).  Prefill
+micro-batches split by tier; decode runs one fused block per active tier,
+the other tiers' slots riding along frozen (their re-feeds write their
+frozen position with this tier's params, which their own next block
+rewrites before anything reads it; recurrent state would not repair, so
+the ssm and hybrid families take one tier only).  Each tier keeps its own
+prefix index: a page's bytes depend on the params that wrote them.  On the
+card each (tier, sampling variant) is captured once.
+
+Overload and faults: an :class:`AdmissionPolicy` sheds deadline-expired
+waiters (``status="shed"`` with a :class:`RejectedOverload`) and degrades
+admissions to a cheaper tier under queue or page pressure; ``preempt``
+lets a higher-priority waiter evict the cheapest running request, whose
+continuation (prompt + tokens so far) re-queues right behind it and, with
+``share_prefix``, matches its own rematerialized pages; a
+:class:`FaultInjector` denies page reservations, slows steps and poisons a
+request's logits with NaN (the poison is a row of the packed device state,
+so one captured block serves armed and unarmed runs, and the poisoned
+slot takes the quarantine path); a :class:`StepWatchdog` flags slow
+steps; ``on_event(kind, fields)`` receives shed, degrade, preempt,
+quarantine and straggler events.  ``run(stop=...)`` drains gracefully: the
+queue sheds with ``"shutdown"``, in-flight requests finish;
+``export_inflight`` evicts every in-flight request as a continuation that
+another engine resumes.
 """
 
 from __future__ import annotations
@@ -84,41 +107,38 @@ import gc
 import math
 import time
 from collections import Counter
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.bounds import CompressionCertificate, certify_tier
+from repro_torch.core.lowrank import is_lowrank, slice_rank
 from repro_torch.kernels._build import kernel_libs
 from repro_torch.runtime import dispatch
 from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+from repro_torch.runtime.fault_tolerance import FaultInjector, StepWatchdog
 from repro_torch.serving.sampling import SamplingParams, sample_tokens, token_salts
-from repro_torch.serving.scheduler import PageAllocator, PageGrant, PrefixIndex, Scheduler, SlotAllocator
+from repro_torch.serving.scheduler import (AdmissionPolicy, PageAllocator, PageGrant, PrefixIndex, RejectedOverload,
+                                           Scheduler, SlotAllocator)
 
-__all__ = ["Request", "Engine", "SamplingParams", "percentile"]
+__all__ = ["Request", "Engine", "SamplingParams", "AdmissionPolicy", "RejectedOverload", "FaultInjector",
+           "StepWatchdog", "percentile"]
 
 # eos sentinel for the fused stop check when no eos token is configured:
 # sampled token ids are always >= 0, so -1 never matches.
 _NO_EOS = -1
 
 # rows of the packed per-slot state (one int64 (rows, n_slots) tensor); the
-# paged engine's block table follows, transposed, in rows _BT onwards
-_TOK, _POS, _ACT, _EMIT, _MAXNEW, _SEED, _TOPK, _TEMP, _BT = range(9)
+# paged engine's block table follows, transposed, in rows _BT onwards.
+# _POISON: the step within the block at which a slot's logits turn NaN
+# (the fault injector's), -1 for none
+_TOK, _POS, _ACT, _EMIT, _MAXNEW, _SEED, _TOPK, _TEMP, _POISON, _BT = range(10)
 
 # Families whose decode state integrates every prefill token (recurrent and
 # convolutional state): right-padding would corrupt it, so their admission
 # micro-batches group by EXACT prompt length (repro/serving/engine.py:122-125).
 _EXACT_LEN_FAMILIES = ("ssm", "hybrid")
-
-_LATER = {
-    "tiers": "the overload slice (rank tiers)",
-    "tier_q": "the overload slice (rank tiers)",
-    "admission": "the overload slice (tiered admission)",
-    "injector": "the overload slice (fault injection)",
-    "preempt": "the overload slice (preemption)",
-    "watchdog": "the overload slice (step watchdog)",
-    "on_event": "the overload slice (event log)",
-}
 
 
 def percentile(sorted_vals, frac: float):
@@ -137,6 +157,11 @@ class Request:
     prompt: np.ndarray  # (S,) prompt tokens
     max_new_tokens: int
     sampling: SamplingParams = SamplingParams()
+    # the overload contract (the defaults are plain FIFO):
+    deadline_ms: Optional[float] = None  # shed if not admitted within this
+    min_tier: int = 0  # deepest rank tier the client accepts under pressure
+    tier: int = 0  # tier served (admission may raise it, never lower it)
+    priority: int = 0  # a higher-priority waiter may preempt a lower active
     # filled in by the engine:
     uid: int = -1
     tokens: List[int] = dataclasses.field(default_factory=list)
@@ -144,8 +169,13 @@ class Request:
     t_first: float = 0.0
     t_done: float = 0.0
     prefill_skipped: int = 0  # prompt tokens covered by shared prefix pages
-    status: str = "ok"  # "ok" | "error"
+    status: str = "ok"  # "ok" | "shed" | "error"
+    rejected: Optional[RejectedOverload] = None  # set when status == "shed"
     error: Optional[str] = None  # set when status == "error"
+    certificate: Optional[CompressionCertificate] = None  # the served tier's bound
+    # a preempted request's continuation points at the original request,
+    # whose token stream it extends (never set by callers)
+    _parent: Optional["Request"] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
@@ -239,6 +269,15 @@ class Engine:
     caps how many released pages stay matchable (None: until a writer needs
     them).  ``cuda_graph``: capture the decode block as a CUDA graph (default: on a
     CUDA device; the CPU runs it eagerly and refuses ``True``).
+
+    ``tiers``: rank fractions, strictly decreasing from 1.0 (tier 0); a
+    request's ``tier`` picks one, and ``tier_q`` is recorded in the tiers'
+    certificates.  ``admission``: an :class:`AdmissionPolicy` (deadline
+    shedding, degradation under pressure).  ``injector``: a
+    :class:`FaultInjector`.  ``preempt``: a waiter of higher priority may
+    evict the cheapest active request.  ``watchdog``: a
+    :class:`StepWatchdog` timing every ``step()``.  ``on_event(kind,
+    fields)``: the sink of overload events.
     """
 
     def __init__(
@@ -265,11 +304,6 @@ class Engine:
         watchdog=None,
         on_event=None,
     ):
-        later = {"tiers": tiers not in (None, (1.0,), [1.0]), "tier_q": tier_q, "admission": admission,
-                 "injector": injector, "preempt": preempt, "watchdog": watchdog, "on_event": on_event}
-        for name, value in later.items():
-            if value not in (None, False, 0):
-                raise NotImplementedError(f"Engine({name}=...) is not ported yet: it comes with {_LATER[name]}")
         self.model, self.params = model, params
         self.cfg = model.cfg
         self.device = model.device
@@ -283,6 +317,26 @@ class Engine:
         if cuda_graph and not on_card:
             raise ValueError(f"cuda_graph=True needs a CUDA device, the model runs on {self.device}")
         self.cuda_graph = on_card if cuda_graph is None else bool(cuda_graph)
+
+        # rank tiers: nested prefix views of the stored factors
+        tiers = tuple(float(f) for f in tiers) if tiers else (1.0,)
+        if tiers[0] != 1.0:
+            raise ValueError(f"tiers[0] must be 1.0 (the serving rank), got {tiers}")
+        if any(not 0.0 < f <= 1.0 for f in tiers) or any(a <= b for a, b in zip(tiers, tiers[1:])):
+            raise ValueError(f"tiers must be strictly decreasing in (0, 1]: {tiers}")
+        if len(tiers) > 1 and self.cfg.family in _EXACT_LEN_FAMILIES:
+            # a frozen slot's re-feeds integrate into its recurrent state with
+            # another tier's params during that tier's block, and never repair
+            raise ValueError(f"multi-tier serving is not supported for the {self.cfg.family} family "
+                             "(recurrent decode state)")
+        self.tiers = tiers
+        self._tier_params = [params] + [slice_rank(params, f) for f in tiers[1:]]
+        self.tier_certificates = self._build_tier_certificates(tier_q)
+        self.admission = admission
+        self.injector = injector
+        self.preempt = preempt
+        self.watchdog = watchdog
+        self.on_event = on_event
 
         self.paged = page_size is not None
         self.page_size = page_size
@@ -312,14 +366,16 @@ class Engine:
             # sharing needs something paged to share and a mid-prompt entry
             # (the chunk program); otherwise the flag is inert, not an error
             self._share = share_prefix and self._has_pages and model.prefill_chunk is not None
-            self._prefix = PrefixIndex(page_size) if self._share else None
+            # one index per tier: a page's bytes depend on the params that wrote them
+            self._prefix = [PrefixIndex(page_size) for _ in tiers] if self._share else None
             # one chunk shape for long prompts, shared tails and rewrites alike
             self._chunk_C = prefill_chunk if prefill_chunk is not None else (page_size if self._share else None)
             # the allocator owns the warm cache's lifetime: its on_evict is the
             # only place index keys die outside an explicit reset
             self.page_pool = PageAllocator(self.kv_pages, cache_budget=warm_cache_pages, on_evict=self._on_evict)
             self.scheduler = Scheduler(SlotAllocator(n_slots), reserve=self._reserve,
-                                       release_grant=self._release_grant)
+                                       release_grant=self._release_grant, policy=admission,
+                                       pressure=self._free_page_frac)
         else:
             self.kv_pages = self.max_pages = 0
             self._paged_mask = None
@@ -327,8 +383,9 @@ class Engine:
             self._bt = np.zeros((n_slots, 0), np.int32)
             self._share, self._prefix, self._chunk_C = False, None, None
             self.page_pool = None
-            self.scheduler = Scheduler(SlotAllocator(n_slots))
+            self.scheduler = Scheduler(SlotAllocator(n_slots), policy=admission)
             self.cache = model.init_cache(n_slots, max_len)
+        self.scheduler.on_event = on_event
         # byte accounting over every cache subtree (layers, shared_attn):
         # paged leaves are banked per PAGE (axis 1 of a stacked (L, P, page,
         # ...) pool), everything else is resident up front
@@ -356,7 +413,8 @@ class Engine:
         self._host_state = torch.zeros((_BT + self.max_pages, n_slots), dtype=torch.int64)
         self._state = torch.zeros_like(self._host_state, device=self.device)
         self._out = torch.zeros((2 * decode_block + 5, n_slots), dtype=torch.int64, device=self.device)
-        self._graphs: Dict[bool, tuple] = {}  # greedy? -> (graph, dispatch calls, {kernel lib: launches})
+        # (tier, greedy?) -> (graph, dispatch calls, {kernel lib: launches})
+        self._graphs: Dict[tuple, tuple] = {}
         self._next_uid = 0
         # perf accounting
         self.steps = 0  # device decode steps executed
@@ -373,6 +431,53 @@ class Engine:
         # admissions that matched, COW forks, and the prompt tokens skipped
         self.shared_page_hits = self.shared_admissions = self.cow_forks = 0
         self.skipped_prefill_tokens = 0
+        self.preemptions = 0  # slots preempted for higher-priority waiters
+        self.straggler_flags = 0  # steps the watchdog flagged
+        self.exported = 0  # in-flight requests evicted by export_inflight
+        self._step_idx = 0  # step() calls (the injector's clock)
+
+    def _free_page_frac(self) -> float:
+        """Free pages over the pool, in [0, 1]: the admission policy's
+        pressure signal (1.0 where no page pressure exists)."""
+        if not self.paged or self.kv_pages == 0:
+            return 1.0
+        return self.page_pool.n_free / self.kv_pages
+
+    def _build_tier_certificates(self, tier_q: int) -> list:
+        """One Theorem 3.2 certificate per tier, of the deviation the tier adds
+        over the stored rank: the spectral norm of the factor tail its slice
+        drops, on the compressed head (the factor pair projecting to the
+        vocabulary) or else the largest factor pair as a proxy.  A checkpoint
+        with nothing factored certifies zero (``repro/serving/engine.py::
+        _build_tier_certificates``)."""
+        if len(self.tiers) == 1:
+            return [None]
+        head = None
+
+        def walk(node):
+            nonlocal head
+            if is_lowrank(node):
+                a, b = node["a"], node["b"]
+                if b.dim() == 2 and b.shape[-1] == self.cfg.vocab:
+                    head = (a, b, True)
+                elif head is None or (not head[2] and a.numel() > head[0].numel()):
+                    head = (a, b, False)
+                return
+            if isinstance(node, dict):
+                for v in node.values():
+                    walk(v)
+
+        walk(self.params)
+        certs = []
+        for f in self.tiers:
+            if head is None:
+                certs.append(CompressionCertificate(0.0, 1.0, 0.0, rank=0, q=tier_q))
+                continue
+            a, b, _ = head
+            r = a.shape[-1]
+            gen = torch.Generator(device=a.device).manual_seed(0)
+            certs.append(certify_tier(a, b, max(1, min(r, int(math.ceil(f * r)))), gen, q=tier_q))
+        return certs
 
     # ------------------------------------------------------------------ #
     # submission / introspection
@@ -396,13 +501,16 @@ class Engine:
         same transaction on a full pool could never succeed).  On failure
         every reference is given back and the peak restored, so admission
         stays atomic and strictly FIFO
-        (``repro/serving/engine.py::_reserve``)."""
+        (``repro/serving/engine.py::_reserve``).  An armed injector's
+        ``deny_pages`` window fails it outright."""
+        if self.injector is not None and self.injector.deny_reserve(self._step_idx):
+            return None
         need = self._page_need(request)
         L = int(request.prompt.size)
         peak0 = self.page_pool.peak_used
         acquired: List[int] = []
         if self._share and L >= 2:  # L >= 2 keeps the mid-prompt entry at start >= 1
-            for p in self._prefix.match(request.prompt):
+            for p in self._prefix[request.tier].match(request.prompt):
                 if len(acquired) >= need or not self.page_pool.acquire(p):
                     break
                 acquired.append(p)
@@ -439,7 +547,8 @@ class Engine:
         """The allocator's eviction callback: a cached page goes to a writer
         (or the budget sweeps it), so its index keys die with it."""
         if self._prefix is not None:
-            self._prefix.drop_pages(pages)
+            for index in self._prefix:
+                index.drop_pages(pages)
 
     def _release_grant(self, grant: PageGrant) -> None:
         """Drop one reference on every page the grant holds (Scheduler hook);
@@ -451,16 +560,18 @@ class Engine:
         """Forget every prefix-index entry (a benchmark's warm-up boundary);
         live slots keep their shared pages, and no eviction is counted."""
         if self._prefix is not None:
-            self._prefix.clear()
+            for index in self._prefix:
+                index.clear()
             self.page_pool.flush_cache()
 
     def drop_session(self, prompt) -> int:
         """Close a conversation branch now: drop the prompt's chain and every
-        registered extension from the index, and release their cached pages
-        for clean reuse.  Returns the cached pages freed."""
+        registered extension from every tier's index, and release their
+        cached pages for clean reuse.  Returns the cached pages freed."""
         if self._prefix is None:
             return 0
-        return self.page_pool.drop_cached(self._prefix.drop_branch(np.asarray(prompt).reshape(-1)))
+        prompt = np.asarray(prompt).reshape(-1)
+        return sum(self.page_pool.drop_cached(index.drop_branch(prompt)) for index in self._prefix)
 
     def submit(self, request: Request) -> Request:
         if request.prompt.size + request.max_new_tokens > self.max_len:
@@ -534,7 +645,7 @@ class Engine:
         """Re-arm the perf counters (a benchmark's warm-up boundary); peaks
         re-arm to CURRENT usage."""
         self.steps = self.host_syncs = self.graph_replays = self.decoded_tokens = 0
-        self.prefill_chunks = self.quarantined = 0
+        self.prefill_chunks = self.quarantined = self.preemptions = self.straggler_flags = self.exported = 0
         self.shared_page_hits = self.shared_admissions = self.cow_forks = 0
         self.skipped_prefill_tokens = 0
         self.prefill_batches = []
@@ -548,15 +659,23 @@ class Engine:
     # admission + prefill
     # ------------------------------------------------------------------ #
     def _admission_groups(self, placed):
-        """Split (slot, request) placements into prefill micro-batches: one
-        for the attention families, one per prompt length for ssm and hybrid
+        """Split (slot, request) placements into prefill micro-batches: by
+        tier first (one params tree a call), then one group for the
+        attention families and one per prompt length for ssm and hybrid
         (``repro/serving/engine.py::_admission_groups``)."""
-        if self.cfg.family not in _EXACT_LEN_FAMILIES:
-            return [placed]
-        by_len: Dict[int, list] = {}
+        by_tier: Dict[int, list] = {}
         for slot, req in placed:
-            by_len.setdefault(int(req.prompt.size), []).append((slot, req))
-        return list(by_len.values())
+            by_tier.setdefault(req.tier, []).append((slot, req))
+        groups = []
+        for tier in sorted(by_tier):
+            if self.cfg.family not in _EXACT_LEN_FAMILIES:
+                groups.append(by_tier[tier])
+                continue
+            by_len: Dict[int, list] = {}
+            for slot, req in by_tier[tier]:
+                by_len.setdefault(int(req.prompt.size), []).append((slot, req))
+            groups.extend(by_len.values())
+        return groups
 
     def _prefill_shape(self, n_reqs: int, max_prompt: int):
         """Bucket the micro-batch shape: batch rows up to the next power of
@@ -583,7 +702,8 @@ class Engine:
         last_index[: len(reqs)] = lens - 1
         dev = self.device
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
-        logits, part = self.model.prefill(self.params, batch, self.max_len,
+        tier = reqs[0].tier  # _admission_groups splits by tier
+        logits, part = self.model.prefill(self._tier_params[tier], batch, self.max_len,
                                           last_index=torch.from_numpy(last_index).to(dev))
         slot_idx = torch.tensor(slots, dtype=torch.int64, device=dev)
         if self.paged:
@@ -598,7 +718,7 @@ class Engine:
                 # registered only now that the pages' K/V is written (on this
                 # stream): same-round admissions just miss the chance once
                 for slot, req in group:
-                    self.page_pool.mark_indexed(self._prefix.register(req.prompt, self._bt[slot]))
+                    self.page_pool.mark_indexed(self._prefix[tier].register(req.prompt, self._bt[slot]))
         else:
             for sub in self._subtrees:
                 _scatter_slots(self.cache[sub], part[sub], slot_idx)
@@ -624,6 +744,7 @@ class Engine:
         self._seeds[slot] = req.sampling.seed & 0xFFFFFFFF
         self._temps[slot] = req.sampling.temperature
         self._topks[slot] = req.sampling.top_k
+        req.certificate = self.tier_certificates[req.tier]
         req.t_first = now
         req.tokens.append(first_tok)
 
@@ -676,8 +797,21 @@ class Engine:
             if self._share:
                 self._register_session(slot, req)
             self._clear_slot(slot)
-            return req
+            return self._finalize(req)
         return None
+
+    def _finalize(self, req: Request) -> Request:
+        """Fold a finished continuation back into the original request, whose
+        object the client holds: its tokens extend the stream and its end
+        state carries over.  Any other request passes through."""
+        root = req._parent
+        if root is None:
+            return req
+        root.tokens.extend(req.tokens)
+        root.t_done = req.t_done
+        root.status = req.status
+        root.error = req.error
+        return root
 
     def _register_session(self, slot: int, req: Request) -> None:
         """Register the finished slot's DECODE-FILLED full pages (the session
@@ -691,20 +825,24 @@ class Engine:
         seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int64)])
         full_end = (seq.size // self.page_size) * self.page_size
         if full_end > req.prompt.size:
-            self._rematerialize(slot, seq, int(req.prompt.size), full_end)
-        self.page_pool.mark_indexed(self._prefix.register(seq, self._bt[slot]))
+            self._rematerialize(slot, seq, int(req.prompt.size), full_end, req.tier)
+        self.page_pool.mark_indexed(self._prefix[req.tier].register(seq, self._bt[slot]))
 
     def _quarantine_slot(self, slot: int) -> Request:
         """End one request whose decode went non-finite.  The fused block
         froze its row on the step the bad logits appeared, so no garbage
-        token was emitted or fed back; the rest of the batch decoded on."""
+        token was emitted or fed back; the rest of the batch decoded on.
+        Its pages are never indexed (possibly poisoned K/V must not back a
+        match): they free for clean reuse."""
         req = self._reqs[slot]
         req.t_done = time.perf_counter()
         req.status = "error"
         req.error = "non-finite logits during decode"
         self._clear_slot(slot)
         self.quarantined += 1
-        return req
+        if self.on_event is not None:
+            self.on_event("quarantine", {"uid": req.uid, "emitted": len(req.tokens), "slot": slot})
+        return self._finalize(req)
 
     # ------------------------------------------------------------------ #
     # chunked prefill (paged mode): one chunk per engine step
@@ -717,7 +855,7 @@ class Engine:
         slot = next(iter(self._chunking))  # dicts keep admission order
         req, start, row = self._chunking[slot]
         plen = int(req.prompt.size)
-        logits, n = self._run_chunk(req.prompt, row, start, plen)
+        logits, n = self._run_chunk(req.prompt, row, start, plen, req.tier)
         start += n
         if start < plen:
             self._chunking[slot][1] = start
@@ -727,27 +865,28 @@ class Engine:
         # its page writes) see the slot's pages from here on
         self._bt[slot] = row
         if self._share:  # the prompt's full pages are written: offer them
-            self.page_pool.mark_indexed(self._prefix.register(req.prompt, row))
+            self.page_pool.mark_indexed(self._prefix[req.tier].register(req.prompt, row))
         first = self._sample(logits, [req], [0])
         self._activate_slot(slot, req, plen, int(first[0]), time.perf_counter())
         done = self._maybe_finish(slot)
         return ([done] if done is not None else []), n
 
-    def _run_chunk(self, seq: np.ndarray, row: np.ndarray, start: int, end: int):
+    def _run_chunk(self, seq: np.ndarray, row: np.ndarray, start: int, end: int, tier: int):
         """One (1, C) chunk of ``seq[start:end]`` (at most C real tokens,
-        right-padded) through the chunk program into the pages of ``row``;
-        returns (logits at its last real token, tokens run)."""
+        right-padded) through the chunk program, with tier ``tier``'s params,
+        into the pages of ``row``; returns (logits at its last real token,
+        tokens run)."""
         C = self._chunk_C
         n = min(C, end - start)
         toks = np.zeros((1, C), np.int64)
         toks[0, :n] = seq[start : start + n]
         dev = self.device
-        logits, _ = self.model.prefill_chunk(self.params, self.cache, torch.from_numpy(toks).to(dev),
+        logits, _ = self.model.prefill_chunk(self._tier_params[tier], self.cache, torch.from_numpy(toks).to(dev),
                                              torch.from_numpy(row).to(dev), start, n)
         self.prefill_chunks += 1
         return logits, n
 
-    def _rematerialize(self, slot: int, seq: np.ndarray, start: int, end: int) -> None:
+    def _rematerialize(self, slot: int, seq: np.ndarray, start: int, end: int, tier: int) -> None:
         """Rewrite positions ``[start, end)`` of the slot's pages through the
         chunk program, the logits discarded: decode wrote them with the
         single-query path, whose sums round differently, and indexed pages
@@ -755,7 +894,7 @@ class Engine:
         (``repro/serving/engine.py::_rematerialize``)."""
         row = self._bt[slot]
         while start < end:
-            start += self._run_chunk(seq, row, start, end)[1]
+            start += self._run_chunk(seq, row, start, end, tier)[1]
 
     def _cow_fork(self, src: int, dst: int) -> None:
         """Copy physical page ``src`` onto ``dst`` in every paged leaf of every
@@ -772,14 +911,17 @@ class Engine:
     # ------------------------------------------------------------------ #
     # the fused decode block
     # ------------------------------------------------------------------ #
-    def _block_body(self, greedy: bool) -> None:
-        """``decode_block`` decode iterations over the device buffers: decode
-        step -> sample -> stop detection -> buffer update, then the packed
-        result into ``self._out``.  Reads ``self._state`` and never writes
-        it, so running it with every slot frozen changes nothing but K/V
-        rows the next real block rewrites with the same values, and the
-        frozen slots' recurrent rows (which drift)."""
+    def _block_body(self, tier: int, greedy: bool) -> None:
+        """``decode_block`` decode iterations over the device buffers, with
+        tier ``tier``'s params: decode step -> sample -> stop detection ->
+        buffer update, then the packed result into ``self._out``.  Reads
+        ``self._state`` and never writes it, so running it with every slot
+        frozen changes nothing but K/V rows the next real block rewrites
+        with the same values, and the frozen slots' recurrent rows (which
+        drift).  With an injector the state's poison row turns a slot's
+        logits NaN at one step (device data: the same ops armed or not)."""
         st, out, n = self._state, self._out, self.decode_block
+        params = self._tier_params[tier]
         if self.paged:
             self.cache["block_table"].copy_(st[_BT:].T)
         tokens, pos, emitted = st[_TOK], st[_POS], st[_EMIT]
@@ -788,8 +930,11 @@ class Engine:
         temps = st[_TEMP].to(torch.int32).view(torch.float32)
         eos = _NO_EOS if self.eos_token is None else int(self.eos_token)
         quar = torch.zeros_like(active)
+        poison = st[_POISON] if self.injector is not None else None
         for i in range(n):
-            logits, _ = self.model.decode_step(self.params, self.cache, tokens[:, None], pos)
+            logits, _ = self.model.decode_step(params, self.cache, tokens[:, None], pos)
+            if poison is not None:
+                logits = torch.where((poison == i)[:, None], torch.full_like(logits[:1, :1], math.nan), logits)
             if greedy:
                 nxt = torch.argmax(logits, dim=-1)
             else:
@@ -815,8 +960,9 @@ class Engine:
         out[2 * n + 3].copy_(emitted)
         out[2 * n + 4].copy_(quar.long())
 
-    def _graph(self, greedy: bool):
-        """The captured decode block for one sampling variant, built on first use.
+    def _graph(self, tier: int, greedy: bool):
+        """The captured decode block of one tier and sampling variant, built
+        on first use.
 
         ``self._state`` already holds this block's inputs.  One eager
         warm-up pass of the block runs with every slot frozen, on the side
@@ -835,7 +981,7 @@ class Engine:
         is off during the capture: a dead engine's graph freed inside it
         (its destructor destroys a graph exec, which a capture does not
         permit) would invalidate the capture."""
-        entry = self._graphs.get(greedy)
+        entry = self._graphs.get((tier, greedy))
         if entry is not None:
             return entry
         saved = [(t, t.clone()) for sub in self._subtrees for t in self.cache[sub].values()]
@@ -844,7 +990,7 @@ class Engine:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._block_body(greedy)
+            self._block_body(tier, greedy)
         torch.cuda.current_stream(self.device).wait_stream(side)
         for t, copy in saved:
             t.copy_(copy)
@@ -857,34 +1003,38 @@ class Engine:
         gc.disable()
         try:
             with dispatch.recording_capture() as calls, torch.cuda.graph(graph, stream=side):
-                self._block_body(greedy)
+                self._block_body(tier, greedy)
         finally:
             if gc_on:
                 gc.enable()
         launches = {lib: lib.captured - b for lib, b in zip(libs, before) if lib.captured > b}
         entry = (graph, Counter(calls), launches)
-        self._graphs[greedy] = entry
+        self._graphs[(tier, greedy)] = entry
         return entry
 
-    def _fused_pass(self, mask: np.ndarray) -> List[Request]:
-        """Run one fused decode block over the slots in ``mask``."""
+    def _fused_pass(self, tier: int, mask: np.ndarray, poison: tuple) -> List[Request]:
+        """Run one fused decode block over the slots in ``mask`` (one tier);
+        ``poison``: the injector's (slot, step within the block), or (-1, -1)."""
         t0 = time.perf_counter()
         greedy = not bool((self._temps[mask] > 0).any())
         hs = self._host_state.numpy()
         hs[_TOK], hs[_POS], hs[_ACT], hs[_EMIT] = self._tokens, self._pos, mask, self._emitted
         hs[_MAXNEW], hs[_SEED], hs[_TOPK] = self._max_new, self._seeds, self._topks
         hs[_TEMP] = self._temps.view(np.int32)
+        hs[_POISON] = -1
+        if poison[0] >= 0:
+            hs[_POISON, poison[0]] = poison[1]
         hs[_BT:] = self._bt.T
         self._state.copy_(self._host_state)  # THE copy in
         if self.cuda_graph:
-            graph, calls, launches = self._graph(greedy)
+            graph, calls, launches = self._graph(tier, greedy)
             graph.replay()
             self.graph_replays += 1
             dispatch.add_replays(calls)
             for lib, n in launches.items():
                 lib.replayed(n)
         else:
-            self._block_body(greedy)
+            self._block_body(tier, greedy)
         res = self._out.cpu().numpy()  # THE host sync: the whole packed result at once
         n = self.decode_block
         toks, emits = res[:n], res[n : 2 * n].astype(bool)
@@ -898,7 +1048,8 @@ class Engine:
         self.decoded_tokens += int(emits.sum())
 
         finished: List[Request] = []
-        for s in np.nonzero(emits.any(axis=0) | quar)[0]:
+        # only this pass's slots: the other tiers' rows ran frozen
+        for s in np.nonzero((emits.any(axis=0) | quar) & mask)[0]:
             s = int(s)
             req = self._reqs[s]
             req.tokens.extend(int(t) for t, e in zip(toks[:, s], emits[:, s]) if e)
@@ -917,15 +1068,32 @@ class Engine:
     @torch.no_grad()
     def step(self) -> List[Request]:
         """Admit waiting requests (paged mode: gated on free PAGES, long
-        prompts to the chunked-prefill queue), run up to ~one chunk's worth
-        of prefill chunks, then one fused decode block; returns the requests
-        that finished during this step."""
+        prompts to the chunked-prefill queue; shedding, degradation and
+        preemption where configured), run up to ~one chunk's worth of
+        prefill chunks, then one fused decode block per active tier; returns
+        the requests that finished (or were shed) during this step.  With a
+        watchdog, a step slower than its threshold bumps
+        ``straggler_flags`` and emits a ``"straggler"`` event."""
+        t0 = time.monotonic()
         with use_dispatch(self._dcfg):
-            return self._step()
+            finished = self._step()
+        if self.watchdog is not None and self.watchdog.observe(self._step_idx, time.monotonic() - t0):
+            self.straggler_flags += 1
+            if self.on_event is not None:
+                self.on_event("straggler", {"step": self._step_idx, "seconds": round(self.watchdog.durations[-1], 6),
+                                            "median_s": round(self.watchdog.median, 6)})
+        return finished
 
     def _step(self) -> List[Request]:
         finished: List[Request] = []
+        self._step_idx += 1
+        if self.injector is not None:
+            self.injector.on_step(self._step_idx)
         placed = self.scheduler.admit()
+        if self.preempt:
+            placed.extend(self._preempt_for_waiters())
+        # deadline-expired waiters come back as finished, status "shed"
+        finished.extend(self.scheduler.drain_shed())
         if placed:
             self.peak_active = max(self.peak_active, self.scheduler.allocator.n_active)
         chunking = self.paged and self.prefill_chunk is not None and self.model.prefill_chunk is not None
@@ -966,20 +1134,154 @@ class Engine:
                 done, n_real = self._chunk_step()
                 finished.extend(done)
                 budget -= max(n_real, 1)
-        if self._active.any():
-            finished.extend(self._fused_pass(self._active.copy()))
+        if not self._active.any():
+            return finished
+        # one fused block per active tier: a block's params must be every
+        # advancing row's, so the other tiers' slots ride along frozen
+        slot_tiers = np.array([r.tier if r is not None else 0 for r in self._reqs], np.int64)
+        poison = self._poison_for()
+        for tier in sorted({int(t) for t in slot_tiers[self._active]}):
+            finished.extend(self._fused_pass(tier, self._active & (slot_tiers == tier), poison))
         return finished
 
+    # ------------------------------------------------------------------ #
+    # overload: preemption, eviction, the drain
+    # ------------------------------------------------------------------ #
+    @property
+    def degraded_admissions(self) -> int:
+        """Admissions the policy moved to a cheaper tier under pressure."""
+        return self.scheduler.degraded
+
+    def _poison_for(self) -> tuple:
+        """The injector's NaN fault as (slot, step within the next block), or
+        (-1, -1)."""
+        if self.injector is None:
+            return -1, -1
+        return self.injector.poison_for(lambda s: self._reqs[s].uid if self._reqs[s] is not None else None,
+                                        self.n_slots, self.steps, self.decode_block)
+
+    def _pick_victim(self, head) -> Optional[int]:
+        """The cheapest active slot the queue head strictly outranks: lowest
+        priority, then fewest emitted tokens, then slot id.  Chunk-prefilling
+        slots are never victims (their pages are half written)."""
+        best, key = None, None
+        for s in range(self.n_slots):
+            req = self._reqs[s]
+            if req is None or not self._active[s] or s in self._chunking or req.priority >= head.priority:
+                continue
+            k = (req.priority, int(self._emitted[s]), s)
+            if key is None or k < key:
+                best, key = s, k
+        return best
+
+    def _preempt_for_waiters(self) -> list:
+        """While the queue head outranks a running request, preempt the
+        cheapest victim and admit again; stop once an eviction admits no one
+        (the victim's pages come back as warm cache, and its continuation
+        queues right behind the preemptor)."""
+        placed = []
+        while self.scheduler.queue:
+            victim = self._pick_victim(self.scheduler.queue[0])
+            if victim is None:
+                break
+            self._preempt_slot(victim)
+            more = self.scheduler.admit()
+            if not more:
+                break
+            placed.extend(more)
+        return placed
+
+    def _evict_slot(self, slot: int) -> Request:
+        """Evict one running request, keeping its work, and return the
+        continuation that resumes it: prompt + tokens so far as a new
+        prompt, the remaining budget, the original uid, submit time and
+        tier.  With sharing, its decode-filled full pages are rewritten by
+        the chunk program and indexed first, so the continuation matches
+        them and prefills only its tail.  Greedy streams resume with the
+        uninterrupted run's tokens where no argmax is a near tie between
+        the prefill and decode paths' roundings; sampled streams restart
+        their salt chain (``repro/serving/engine.py::_evict_slot``)."""
+        req = self._reqs[slot]
+        if self._share and len(req.tokens) > 1:
+            self._register_session(slot, req)
+        self._clear_slot(slot)
+        root = req._parent if req._parent is not None else req
+        if req._parent is not None:  # this segment's tokens join the root now
+            root.tokens.extend(req.tokens)
+        cont = Request(prompt=np.concatenate([req.prompt, np.asarray(req.tokens, np.int64)]),
+                       max_new_tokens=req.max_new_tokens - len(req.tokens), sampling=req.sampling,
+                       deadline_ms=req.deadline_ms, min_tier=req.min_tier, tier=req.tier, priority=req.priority)
+        cont.uid, cont.t_submit, cont._parent = req.uid, req.t_submit, root
+        return cont
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Preempt one running request for a higher-priority waiter: evict it
+        and queue its continuation right behind the preemptor."""
+        cont = self._evict_slot(slot)
+        self.scheduler.queue.insert(1, cont)
+        self.preemptions += 1
+        if self.on_event is not None:
+            self.on_event("preempt", {"uid": cont.uid, "emitted": len(cont._parent.tokens),
+                                      "remaining": cont.max_new_tokens})
+
+    def snapshot_inflight(self) -> List[dict]:
+        """A read-only view of every in-flight request (chunk-prefilling and
+        active slots)."""
+        out = [{"uid": e[0].uid, "slot": slot, "emitted": 0, "remaining": e[0].max_new_tokens, "tier": e[0].tier,
+                "chunking": True} for slot, e in self._chunking.items()]
+        for slot, req in enumerate(self._reqs):
+            if req is not None:
+                out.append({"uid": req.uid, "slot": slot, "emitted": len(req.tokens),
+                            "remaining": req.max_new_tokens - len(req.tokens), "tier": req.tier, "chunking": False})
+        return out
+
+    def take_queue(self) -> List[Request]:
+        """Remove and return every queued (never admitted) request; the
+        caller owns their completion from here."""
+        out = list(self.scheduler.queue)
+        self.scheduler.queue.clear()
+        return out
+
+    def export_inflight(self) -> List[Request]:
+        """Evict every in-flight request and return what resumes it elsewhere:
+        a chunk-prefilling request as it was submitted (it emitted nothing),
+        an active one as its continuation (:meth:`_evict_slot`).  Every slot
+        and page is released."""
+        out: List[Request] = []
+        for slot in list(self._chunking):
+            req = self._chunking.pop(slot)[0]
+            self._clear_slot(slot)
+            out.append(req)
+        for slot in range(self.n_slots):
+            if self._reqs[slot] is not None:
+                out.append(self._evict_slot(slot))
+        self.exported += len(out)
+        return out
+
+    def shed_queue(self, reason: str = "shutdown") -> List[Request]:
+        """Shed every queued request with a :class:`RejectedOverload`; the
+        in-flight ones are untouched (stop admitting, finish what runs)."""
+        while self.scheduler.queue:
+            self.scheduler.shed_request(self.scheduler.queue.popleft(), reason)
+        return self.scheduler.drain_shed()
+
     def run(self, requests: Sequence[Request], arrivals: Optional[Sequence[float]] = None, *,
-            max_idle_wait: float = 0.05) -> List[Request]:
+            max_idle_wait: float = 0.05, stop: Optional[Callable[[], bool]] = None) -> List[Request]:
         """Submit ``requests`` (optionally at wall-clock ``arrivals`` offsets,
         seconds) and step until all complete; returns them in finish order.
-        Idle until the next arrival in naps of at most ``max_idle_wait``."""
+        Idle until the next arrival in naps of at most ``max_idle_wait``.
+        ``stop``, polled once a loop: its first True starts a graceful drain
+        (requests not yet submitted are dropped, the queue sheds with
+        ``"shutdown"``, every in-flight request decodes to its end)."""
         order = sorted(range(len(requests)), key=lambda i: arrivals[i] if arrivals else 0)
         t0 = time.perf_counter()
         pending = list(order)
         finished: List[Request] = []
         while pending or self.has_work:
+            if stop is not None and stop():
+                pending.clear()
+                finished.extend(self.shed_queue("shutdown"))
+                stop = None  # drained once; the in-flight slots step on
             now = time.perf_counter() - t0
             while pending and (arrivals is None or arrivals[pending[0]] <= now):
                 self.submit(requests[pending[0]])

@@ -4,10 +4,10 @@ The port's own copy of the parts of ``repro/serving/scheduler.py`` that the
 continuous-batching engine uses (pure Python and numpy; the port imports
 nothing of the reference): :class:`SlotAllocator`, the refcounted
 :class:`PageAllocator` with its warm cache, :class:`PageGrant`, the
-:class:`PrefixIndex` of shared prompt pages and the FIFO
-:class:`Scheduler`.  The reference scheduler's overload layer (admission
-policy, deadline shedding) comes with the slice that ports overload
-handling.
+:class:`PrefixIndex` of shared prompt pages, the FIFO :class:`Scheduler`
+and its overload layer: :class:`AdmissionPolicy` (rank-tier degradation
+under pressure, deadline shedding) and the :class:`RejectedOverload`
+record a shed request carries.
 
 The engine owns a fixed pool of ``n_slots`` cache slots.  Requests queue
 FIFO; whenever a slot frees up, the scheduler admits the oldest waiting
@@ -25,11 +25,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import time
 from typing import Callable, Deque, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SlotAllocator", "PageAllocator", "PageGrant", "PrefixIndex", "Scheduler"]
+__all__ = ["SlotAllocator", "PageAllocator", "PageGrant", "PrefixIndex", "RejectedOverload", "AdmissionPolicy",
+           "Scheduler"]
 
 
 class SlotAllocator:
@@ -443,6 +445,57 @@ class PrefixIndex:
         self._children.clear()
 
 
+@dataclasses.dataclass(frozen=True)
+class RejectedOverload:
+    """The record a shed request carries: an explicit rejection the client can
+    retry against, never silent starvation.  ``reason``: ``"deadline-expired"``
+    or ``"shutdown"``; ``waited_ms``: its time in the queue; ``queue_depth``:
+    the waiters (itself included) at the decision; ``deadline_ms``: its own
+    admission deadline, if any."""
+
+    uid: int
+    reason: str
+    waited_ms: float
+    queue_depth: int
+    deadline_ms: Optional[float] = None
+
+
+@dataclasses.dataclass
+class AdmissionPolicy:
+    """Overload-aware admission: degrade the rank tier under pressure, shed
+    deadline-expired waiters.
+
+    Tier 0 is the full serving rank; higher tiers are nested cheaper ranks
+    (prefix slices of the same factors, ``core.lowrank.slice_rank``).  Under
+    pressure a new admission is served at the deepest tier its ``min_tier``
+    allows instead of queueing, and carries that tier's certificate.
+    Pressure is either signal: at least ``degrade_queue_depth`` waiters, or
+    a free-page fraction below ``degrade_free_frac`` (``None`` disables a
+    signal).  Under a policy the scheduler always drops waiters whose
+    ``deadline_ms`` expired before admission, with a
+    :class:`RejectedOverload` attached (the reference's ``shed_deadlines``
+    is not carried over: nothing turns it off).
+    """
+
+    n_tiers: int = 1
+    degrade_queue_depth: Optional[int] = None
+    degrade_free_frac: Optional[float] = None
+
+    def choose_tier(self, request, queue_depth: int, free_frac: float) -> int:
+        base = int(getattr(request, "tier", 0))
+        if self.n_tiers <= 1:
+            return base
+        if getattr(request, "_parent", None) is not None:
+            # a preempted request resumes at the tier it started on: its
+            # indexed K/V and its emitted tokens belong to that tier
+            return base
+        pressured = ((self.degrade_queue_depth is not None and queue_depth >= self.degrade_queue_depth)
+                     or (self.degrade_free_frac is not None and free_frac < self.degrade_free_frac))
+        if not pressured:
+            return base
+        return max(base, min(int(getattr(request, "min_tier", 0)), self.n_tiers - 1))
+
+
 class Scheduler:
     """FIFO admission control on top of a :class:`SlotAllocator`.
 
@@ -454,6 +507,15 @@ class Scheduler:
     ``None`` on exhaustion; the grant lands in ``slot_pages[slot]`` and is
     handed back to ``release_grant`` when the slot frees.  Exhaustion is
     detected with ``is None`` exclusively: an empty grant admits.
+
+    An optional :class:`AdmissionPolicy` adds the overload layer: before each
+    admission round deadline-expired waiters are shed (collected by
+    :meth:`drain_shed`), and the head of the queue gets its tier from the
+    policy's pressure signals before ``reserve`` sees it.  ``pressure``
+    returns the free-resource fraction in [0, 1] (the engine's free pages).
+    ``on_event(kind, fields)``, when set, receives a ``"shed"`` and a
+    ``"degrade"`` event per decision.  With no policy the scheduler queues
+    forever and never touches a tier.
     """
 
     def __init__(
@@ -462,16 +524,23 @@ class Scheduler:
         *,
         reserve: Optional[Callable[[object], Optional[object]]] = None,
         release_grant: Optional[Callable[[object], None]] = None,
+        policy: Optional[AdmissionPolicy] = None,
+        pressure: Optional[Callable[[], float]] = None,
     ):
         if (reserve is None) != (release_grant is None):
             raise ValueError("reserve and release_grant come together")
         self.allocator = allocator
         self.reserve = reserve
         self.release_grant = release_grant
+        self.policy = policy
+        self.pressure = pressure
         # engine-thread-confined: admission state is mutated only from the
         # owning engine's step loop
         self.slot_pages: dict = {}
         self.queue: Deque = collections.deque()
+        self.shed: List = []
+        self.degraded = 0  # admissions the policy moved to a cheaper tier
+        self.on_event: Optional[Callable[[str, dict], None]] = None
 
     @property
     def n_waiting(self) -> int:
@@ -480,10 +549,54 @@ class Scheduler:
     def enqueue(self, request) -> None:
         self.queue.append(request)
 
+    def drain_shed(self) -> List:
+        """Hand back (and clear) the requests shed since the last drain."""
+        out, self.shed = self.shed, []
+        return out
+
+    def shed_request(self, request, reason: str) -> None:
+        """Mark one waiter (already popped) shed, with its rejection record."""
+        now = time.perf_counter()
+        request.status = "shed"
+        request.t_done = now
+        request.rejected = RejectedOverload(uid=request.uid, reason=reason, waited_ms=(now - request.t_submit) * 1e3,
+                                            queue_depth=len(self.queue) + 1,
+                                            deadline_ms=getattr(request, "deadline_ms", None))
+        self.shed.append(request)
+        if self.on_event is not None:
+            self.on_event("shed", {"uid": request.uid, "reason": reason,
+                                   "waited_ms": round(request.rejected.waited_ms, 3),
+                                   "queue_depth": request.rejected.queue_depth})
+
+    def _shed_expired(self) -> None:
+        now = time.perf_counter()
+        kept: Deque = collections.deque()
+        while self.queue:
+            req = self.queue.popleft()
+            # a preempted continuation is exempt: the deadline governs
+            # admission, and this request already emitted tokens
+            dl = None if getattr(req, "_parent", None) is not None else getattr(req, "deadline_ms", None)
+            if dl is not None and (now - req.t_submit) * 1e3 > dl:
+                self.shed_request(req, "deadline-expired")
+            else:
+                kept.append(req)
+        self.queue = kept
+
     def admit(self) -> List[Tuple[int, object]]:
+        if self.policy is not None:
+            self._shed_expired()
         placed = []
         while self.queue and self.allocator.n_free:
             req = self.queue[0]
+            if self.policy is not None:
+                free_frac = self.pressure() if self.pressure is not None else 1.0
+                tier = self.policy.choose_tier(req, len(self.queue), free_frac)
+                if tier > getattr(req, "tier", 0):
+                    self.degraded += 1
+                    req.tier = tier
+                    if self.on_event is not None:
+                        self.on_event("degrade", {"uid": req.uid, "tier": tier, "queue_depth": len(self.queue),
+                                                  "free_frac": round(free_frac, 4)})
             if self.reserve is not None:
                 grant = self.reserve(req)
                 if grant is None:  # page exhaustion queues; strict FIFO

@@ -258,11 +258,18 @@ def test_non_finite_logits_freeze_only_that_request(bf16_model):
 
 
 def test_options_of_later_slices_raise(bf16_model):
+    """The stage-4 options, once refused, are ported: each constructs, and a
+    tier list the reference refuses raises its ValueError."""
+    from repro_torch.serving import AdmissionPolicy, FaultInjector, StepWatchdog
+
     tm, tp = bf16_model
-    for kw in (dict(tiers=(1.0, 0.5)), dict(preempt=True), dict(injector=object()), dict(admission=object()),
-               dict(watchdog=object()), dict(on_event=print), dict(tier_q=2)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Engine(tm, tp, n_slots=1, max_len=8, **kw)
+    for kw in (dict(tiers=(1.0, 0.5)), dict(preempt=True), dict(injector=FaultInjector()),
+               dict(admission=AdmissionPolicy()), dict(watchdog=StepWatchdog()), dict(on_event=print),
+               dict(tier_q=2)):
+        Engine(tm, tp, n_slots=1, max_len=8, **kw)
+    for tiers in ((0.5,), (1.0, 1.0), (1.0, 0.5, 0.75), (1.0, 0.0)):
+        with pytest.raises(ValueError, match="tiers"):
+            Engine(tm, tp, n_slots=1, max_len=8, tiers=tiers)
     with pytest.raises(ValueError, match="CUDA device"):
         Engine(tm, tp, n_slots=1, max_len=8, cuda_graph=True)
     with pytest.raises(ValueError, match="page_size"):

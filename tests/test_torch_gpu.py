@@ -20,6 +20,8 @@ the bf16 kernel's fp32-valued operands enter its tensor-core products as
 bf16 hi and lo parts, ~16 significant bits).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -226,6 +228,61 @@ def test_gpu_lowrank_matmul_deterministic(cuda, M):
     x = _rand((M, 2048), 43, "bfloat16", cuda)
     A, B = aligned_rows(_rand((2048, 615), 44, "bfloat16", cuda)), aligned_rows(_rand((615, 8192), 45, "bfloat16", cuda))
     assert torch.equal(lowrank_matmul(x, A, B), lowrank_matmul(x, A, B))
+
+
+# prompt rows at every call size the engine gives them: alone, in chunks, in micro-batches
+PREFILL_M = (1, 3, 8, 16, 64, 256, 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,r,N", [(2048, 615, 8192), (8192, 615, 2048), (2048, 154, 512), (3072, 922, 9216)])
+def test_gpu_lowrank_matmul_prefill_rows_batch_invariant(cuda, K, r, N, dtype):
+    """A prompt row's bits do not depend on the call's M: the rows that calls
+    of M 1-1024 (``prefill=True``, at row offsets 0 and 8) share with one
+    1032-row call are torch.equal to it, on tiles that change with M (llama's
+    w_gate: 128 x 64 up to M 256, then 128 x 256 and 256 x 160) and one K
+    split; each call also within tolerance of the plain version."""
+    x = _rand((1032, K), 46, dtype, cuda)
+    A, B = aligned_rows(_rand((K, r), 47, dtype, cuda)), aligned_rows(_rand((r, N), 48, dtype, cuda))
+    full = lowrank_matmul(x, A, B, prefill=True)
+    for M in PREFILL_M:
+        for off in (0, 8):
+            part = lowrank_matmul(x[off:off + M], A, B, prefill=True)
+            assert torch.equal(part, full[off:off + M]), (M, off)
+        _close(part, ref.lowrank_matmul_ref(x[8:8 + M], A, B), GEMM_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frac", [0.5, 0.25, 1e-6])
+def test_gpu_lowrank_sliced_tiers_read_in_place(cuda, frac, dtype):
+    """A rank tier's factors are prefix views of the stored ones
+    (``core.lowrank.slice_rank``): both low-rank kernels take them in place,
+    nothing copied for TMA (the 2-D A's column slice keeps its padded row
+    stride; the batched B keeps its expert stride r x N), and match their
+    plain versions at decode and prefill M."""
+    from repro_torch.core.lowrank import lowrank_params, slice_rank
+
+    K, r, N, E = 512, 154, 320, 4
+    leaf = lowrank_params(_rand((K, r), 50, dtype, cuda), _rand((r, N), 51, dtype, cuda))
+    stack = lowrank_params(_rand((2, E, K, r), 52, dtype, cuda), _rand((2, E, r, N), 53, dtype, cuda))
+    tier = slice_rank({"w": leaf, "experts": stack}, frac)
+    A, B = tier["w"]["a"], tier["w"]["b"]
+    k = A.shape[-1]
+    assert k == max(1, min(r, math.ceil(frac * r)))
+    assert A.data_ptr() == leaf["a"].data_ptr() and B.data_ptr() == leaf["b"].data_ptr()
+    before = ALIGN_COPIES.count
+    for M in (1, 8, 70):
+        x = _rand((M, K), 54, dtype, cuda)
+        for prefill in (False, True):
+            _close(lowrank_matmul(x, A, B, prefill=prefill), ref.lowrank_matmul_ref(x, A, B), GEMM_TOL[dtype])
+    for layer in range(2):
+        SA, SB = tier["experts"]["a"][layer], tier["experts"]["b"][layer]
+        assert SB.stride(0) == stack["b"].stride(1)  # the expert stride of the stored rank
+        x = _rand((E, 64, K), 55 + layer, dtype, cuda)
+        _close(lowrank_matmul_batched(x, SA, SB), ref.lowrank_matmul_ref(x, SA, SB), GEMM_TOL[dtype])
+    assert ALIGN_COPIES.count == before
 
 
 def _capacity_rows(E, C, K, counts, seed, device, dtype="bfloat16", negative_zero=False):
@@ -700,10 +757,10 @@ def test_gpu_engine_capture_runs_with_the_cyclic_gc_off(cuda):
     seen = []
     body = eng._block_body
 
-    def spy(greedy):
+    def spy(tier, greedy):
         if torch.cuda.is_current_stream_capturing():
             seen.append(gc.isenabled())
-        return body(greedy)
+        return body(tier, greedy)
 
     eng._block_body = spy
     assert gc.isenabled()
@@ -713,6 +770,48 @@ def test_gpu_engine_capture_runs_with_the_cyclic_gc_off(cuda):
     assert all(r.status == "ok" and len(r.tokens) == 6 for r in reqs)
     assert eng.graph_replays > 0 and seen == [False]
     assert gc.isenabled()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("poison", [False, True])
+def test_gpu_engine_tiers_and_poison_under_the_graph(cuda, poison):
+    """Engine stage 4 under the captured block (reduced llama3.2-1b, RSI at
+    alpha 0.5): tiers (1.0, 0.5) at once give the eager run's tokens, with
+    one capture per (tier, greedy); a nan_logits fault rides the packed
+    state, so the armed engine captures the same graphs, errors the
+    poisoned uid alone and leaves every other stream as the eager run's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Engine, FaultInjector, Request
+
+    model = build_model(get_arch("llama3.2-1b", reduced=True), device=cuda)
+    gen = torch.Generator(device=cuda)
+    params, _ = compress_tree(model.init(gen.manual_seed(0)), CompressionPolicy(alpha=0.5, q=2, min_dim=16),
+                              generator=gen.manual_seed(1))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab, size=(n,)) for n in (5, 9, 7, 12)]
+
+    def run(graph, armed):
+        # the engine's global decode steps advance by a block per active tier:
+        # two tiers make each engine step's window [8 k, 8 k + 4); step 9 lands
+        # in the second engine step's tier-1 block, where uid 1 decodes
+        inj = FaultInjector(nan_logits=(1, 9) if armed else None)
+        eng = Engine(model, params, n_slots=4, max_len=40, page_size=4, decode_block=4, cuda_graph=graph,
+                     tiers=(1.0, 0.5), injector=inj)
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=14, tier=i % 2)) for i, p in enumerate(prompts)]
+        while eng.has_work:
+            eng.step()
+        return reqs, eng
+
+    want, _ = run(False, False)
+    got, eng = run(True, poison)
+    assert sorted(eng._graphs) == [(0, True), (1, True)] and eng.graph_replays > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if poison and i == 1:
+            assert a.status == "error" and 0 < len(a.tokens) < 14 and a.tokens == b.tokens[: len(a.tokens)]
+        else:
+            assert a.status == "ok" and a.tokens == b.tokens
 
 
 @pytest.mark.gpu

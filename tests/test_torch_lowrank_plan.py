@@ -9,6 +9,9 @@ every output column is covered once, every 64-row k-block of K falls in
 exactly one split of a cluster in rank order, a block fits in shared
 memory, a cluster is portable (at most 8 blocks), the skinny kernel's
 blocks are resident in one wave, and the plan is a function of the shapes.
+Prompt rows are batch-invariant: a prefill call never takes the skinny
+kernel, and its K split (the order a row's sums run in) depends on K, N
+and the SM count, never on M.
 """
 
 import inspect
@@ -101,14 +104,16 @@ def _check_stage(M, K, N, plan, L=1, esz=2):
     return L * mt * -(-N // plan.bn) * plan.splits, lm.tile_per_sm(plan.bm, plan.bn)
 
 
+@pytest.mark.parametrize("prefill", [False, True])
 @pytest.mark.parametrize("esz", [2, 4])
 @pytest.mark.parametrize("M", M_ALL)
 @pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
-def test_lowrank_plan_covers_every_column_and_k_row_once(shape, M, esz):
+def test_lowrank_plan_covers_every_column_and_k_row_once(shape, M, esz, prefill):
     K, r, N = SHAPES[shape]
-    p1, p2 = lm.lowrank_plans(M, K, r, N, H100_SMS, esz)
-    # M <= 8 runs the skinny kernel, larger M the wgmma tiles (bf16) or the FMA tiles (fp32)
-    assert (p1.bm == 0) == (p2.bm == 0) == (M <= lm.SKINNY_MAX_M)
+    p1, p2 = lm.lowrank_plans(M, K, r, N, H100_SMS, esz, prefill=prefill)
+    # M <= 8 outside a prefill runs the skinny kernel, the rest the wgmma tiles (bf16) or the
+    # FMA tiles (fp32)
+    assert (p1.bm == 0) == (p2.bm == 0) == (M <= lm.SKINNY_MAX_M and not prefill)
     for (k, n), plan in (((K, r), p1), ((r, N), p2)):
         blocks, per_sm = _check_stage(M, k, n, plan, esz=esz)
         if plan.bm == 0:
@@ -158,8 +163,9 @@ def test_plans_depend_on_shapes_alone():
     At the main path's shapes on the H100's 132 SMs: llama's decode stages
     as 32-column tiles in clusters of 8 over K = 2048 (160 blocks) and one
     block a tile over r = 615 (256 blocks); the engine's 256-row chunk on
-    128 x 64 tiles split 7 ways over K = 2048 (not 40 blocks); phi's expert
-    stacks on 128 x 256 tiles, one tile row per expert's 128 rows."""
+    128 x 64 tiles split 4 ways over K = 2048 (80 blocks; the split every
+    prefill M of that stage takes); phi's expert stacks on 128 x 256 tiles,
+    one tile row per expert's 128 rows."""
     params = list(inspect.signature(lm.skinny_plan).parameters)
     assert params == ["K", "N", "sms", "esz"]
     assert list(inspect.signature(lm.tile_plan).parameters) == ["M", "K", "N", "sms", "L"]
@@ -168,11 +174,13 @@ def test_plans_depend_on_shapes_alone():
     assert lm.lowrank_plans(8, 2048, 615, 8192, H100_SMS) == lm.lowrank_plans(4, 2048, 615, 8192, H100_SMS)
     assert lm.lowrank_plans(8, 8192, 615, 2048, H100_SMS) == (G(0, 32, 8), G(0, 32, 2))
     p1, p2 = lm.lowrank_plans(256, 2048, 615, 8192, H100_SMS)
-    assert p1 == G(128, 64, 7) and -(-256 // 128) * -(-615 // 64) * 7 == 140
+    assert p1 == G(128, 64, 4) and -(-256 // 128) * -(-615 // 64) * 4 == 80
     assert lm.batched_plans(16, 128, 4096, 1229, 6400, H100_SMS) == (G(128, 256, 2), G(128, 256, 1))
     # recomputed from scratch: the same plan (no state kept between calls)
     lm.skinny_plan.cache_clear()
     lm.tile_plan.cache_clear()
+    lm.split_plan.cache_clear()
+    lm.row_plan.cache_clear()
     assert lm.lowrank_plans(4, 2048, 615, 8192, H100_SMS) == (G(0, 32, 8), G(0, 32, 1))
     assert lm.batched_plans(16, 128, 4096, 1229, 6400, H100_SMS) == (G(128, 256, 2), G(128, 256, 1))
 
@@ -188,3 +196,53 @@ def test_plans_hold_on_other_cards(sms):
     for L, M, K, r, N in BATCHED.values():
         for (k, n), plan in zip(((K, r), (r, N)), lm.batched_plans(L, M, K, r, N, sms)):
             _check_stage(M, k, n, plan, L=L)
+
+
+# every M a prefill call may bring: a lone prompt of 1-8 tokens (or an exact-length ssm group),
+# chunks, micro-batches, the static prefill, a long monolithic prompt
+PREFILL_M = list(range(1, 17)) + [24, 64, 100, 256, 640, 1024, 4096, 5120]
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_prefill_rows_take_one_split_at_every_m(shape, sms):
+    """For fixed (K, N, SMs) every prefill-side M gets the same K split (the
+    one ``split_plan`` names), so a prompt row's sums run in one order
+    whichever rows share its call; the tile (which rows and columns a block
+    owns) may follow M.  fp32 prefill calls all take the FMA tiles, whose
+    64 x 64 blocks sum K in one pass."""
+    K, r, N = SHAPES[shape]
+    for stage, (k, n) in enumerate(((K, r), (r, N))):
+        splits = {lm.lowrank_plans(M, K, r, N, sms, prefill=True)[stage].splits for M in PREFILL_M}
+        assert splits == {lm.split_plan(k, n, sms)}
+    assert {lm.lowrank_plans(M, K, r, N, sms, 4, prefill=True) for M in PREFILL_M} == {(lm.FMA_TILES,) * 2}
+
+
+@pytest.mark.parametrize("esz", [2, 4])
+def test_no_prefill_m_reaches_the_skinny_plan(esz):
+    """The skinny kernel (mma.sync, another summation order) stays decode's:
+    no prefill call reaches it at any M, while decode keeps it at M <= 8."""
+    for K, r, N in SHAPES.values():
+        for M in PREFILL_M:
+            plans = lm.lowrank_plans(M, K, r, N, H100_SMS, esz, prefill=True)
+            assert all(p.bm > 0 for p in plans)
+            for (k, n), plan in zip(((K, r), (r, N)), plans):
+                _check_stage(M, k, n, plan, esz=esz)
+        for M in range(1, lm.SKINNY_MAX_M + 1):
+            assert all(p.bm == 0 for p in lm.lowrank_plans(M, K, r, N, H100_SMS, esz))
+
+
+def test_split_plan_least_worst_ratio():
+    """The split of ``split_plan`` is, over ``PLAN_M``, the least worst
+    multiple of each M's best modelled time (every tile and split allowed),
+    and no other split has a smaller worst multiple."""
+    for K, r, N in SHAPES.values():
+        for k, n in ((K, r), (r, N)):
+            nkb = max(1, -(-k // lm.BK))
+            cands = range(1, min(lm.MAX_SPLITS, nkb) + 1)
+            best = {M: min(lm._best_tile(M, nkb, n, H100_SMS, s)[0][0] for s in cands) for M in lm.PLAN_M}
+            worst = {s: max(lm._best_tile(M, nkb, n, H100_SMS, s)[0][0] / best[M] for M in lm.PLAN_M)
+                     for s in cands}
+            chosen = lm.split_plan(k, n, H100_SMS)
+            assert worst[chosen] == min(worst.values())
+            assert chosen == min(s for s in cands if worst[s] == worst[chosen])

@@ -490,7 +490,7 @@ def test_rematerialized_pages_are_the_cold_prefill_bytes(served):
     warm = Engine(tm, tp, n_slots=1, max_len=32, page_size=4, share_prefix=True)
     r = warm.run([Request(prompt=prompt, max_new_tokens=8)])[0]
     seq = np.concatenate([prompt, np.asarray(r.tokens[:-1], np.int64)])  # 13 tokens: 3 full pages
-    pages = warm._prefix.match(seq)
+    pages = warm._prefix[0].match(seq)  # tier 0's index
     assert len(pages) == 3 and warm.prefix_cached_pages == 3
     cold = Engine(tm, tp, n_slots=1, max_len=32, page_size=4, prefill_chunk=4)
     cold.run([Request(prompt=seq[:12], max_new_tokens=1)])  # its first grant: pages 0-3
