@@ -17,6 +17,9 @@
                              # phase 21 (engine stage 4) alone, on the q = 4 llama3.2-1b
     python3 chip_smoke.py --chunk-only [--src DIR]
                              # each dense model's profiled (1, 256) prefill chunk, on DIR
+    python3 chip_smoke.py --h2o-only
+                             # phase 2's h2o-danube checks and phase 22 (the sliding-window
+                             # ring) alone
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -63,7 +66,13 @@ Phases, in order; any failure exits non-zero before the last line:
    24/8 heads (G = 3) and qwen2-72b's 64/8 (G = 8), head_dim 128;
    lowrank_matmul at minitron's w_gate (3072 x 922 x 9216) at M 4, 8 and 64
    and qwen2's (8192 x 2458 x 29568) at M 4 and 8; the sketch GEMM at
-   qwen2's w_gate, W @ Y and W^T @ X.
+   qwen2's w_gate, W @ Y and W^T @ X.  At phase 22's shapes (h2o-danube:
+   32/8 heads, head_dim 80, window 4096): flash_attention at (4, 256),
+   the window out of reach, and at (1, 16384), its bound counting the
+   in-window pairs only and its library call SDPA under the window mask
+   (bf16); decode_attention over a wrapped ring of 4096 slots, 8 rows,
+   every slot valid; lowrank_matmul at the w_gate (2560 x 768 x 6912) at M
+   4 and 8.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
@@ -215,7 +224,7 @@ Phases, in order; any failure exits non-zero before the last line:
    plain versions' bf16 logits against their fp32 ones on the same
    tokens, at that token).  (c) Overload: two tiers, an AdmissionPolicy degrading below
    half the pages free, 800 ms deadlines on every odd uid, pages denied in
-   steps 6-12 and 400 ms slow steps 10-12 under a StepWatchdog: ok + shed
+   steps 6-12 and 1 s slow steps 10-12 under a StepWatchdog: ok + shed
    + error = 16, shed > 0 each with its RejectedOverload, degraded
    admissions > 0 each with the single-tier tier-1 run's tokens, steps
    10-12 flagged.  (d) nan_logits on one request under the captured
@@ -226,6 +235,34 @@ Phases, in order; any failure exits non-zero before the last line:
    ``take_queue`` after three steps, resubmitted to a second engine, give
    the uninterrupted tokens (fp32 bit for bit; bf16 under (b)'s rule).
 
+22. h2o-danube-1.8b at full width and depth, no cut (24 layers, d 2560,
+   32/8 heads: G = 4, head_dim 80, d_ff 6912, untied 32000-word head,
+   sliding window 4096; 1.831 B params), random weights (seed 0),
+   spectralized (seed 9), compressed at alpha 0.3, q = 4 (ranks 768 and
+   192); it runs after phase 20 and frees its model before the summary.
+   (a) The static path at phase 3's shape (greedy_generate, every kernel of
+   it launched), gated three ways as phases 19-20: every prefill branch
+   teacher-forced in bf16 within 5%, fp32 end to end within 1e-2, and bf16
+   end to end against the fp32 reference run: the kernels' error within
+   1.2 x (RMS) and 1.5 x (largest logit error) the plain versions' own
+   (phases 19-20's rule, the two bf16 runs against each other within 1.2 x
+   the reference's spread, is printed beside it: two bf16 runs whose
+   roundings part ways independently lie ~sqrt(2) x their error apart).
+   (b) Phase 7's engine gates on phase 7's trace (the ring below its
+   window; the chunk is inert: a ring is never paged or chunked; zero
+   pages reserved), flash_attention launched with the window 4096 and no
+   other; one captured decode block profiled (the flat decode kernel over
+   the ring: one launch a call).  (c) The window trace: 8 slots, max_len
+   20480 (rings of 4096), prompts of 4000, 4032, 4096, 4097, 6144, 6144,
+   8192 and 16384 tokens, 96 new each (the first two cross position 4096
+   while decoding): every request finishes; bf16 graph == eager bit for
+   bit; fp32 greedy tokens of the kernels equal the plain versions'
+   (backend "reference", eager) request for request; one prefill group a
+   prompt length past the window (the two 6144-token prompts together),
+   never padded past it; the cache's bytes equal at max_len 20480 and at
+   4096.  Prints the engine's tok/s (host clock), the block's device ms and
+   idle share, and the phase's wall seconds.
+
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
 every run's count beside it, phase 18's runs among them), bound and library
@@ -234,7 +271,9 @@ GEMM's at W^T @ X the tied logits, the untied head's logits and phase 18's
 fp32 shapes, the low-rank kernel's at M 8, 256, 1024 and Table 4.1's fc1,
 the batched kernel's at the decode and skewed occupancies, and phases
 19-20's shapes (attention at G = 3 and 8, each w_gate, qwen2's sketch
-GEMMs), each beside its launches on the same model's run (``launches_run``:
+GEMMs) and phase 22's (flash at hd 80 and at (1, 16384) in the window, the
+decode over the wrapped ring, h2o's w_gate at M 4 and 8), each beside its
+launches on the same model's run (``launches_run``:
 its engine, its flat engine for decode_attention, its compression for the
 sketch GEMM, since the compressed heads' logits are low-rank applies).  The line
 before it gives, for the seven kernels redesigned for Hopper, their earlier
@@ -247,6 +286,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -318,6 +358,16 @@ DENSE_HEADS = {"minitron-4b": (24, 8, 128), "qwen2-72b": (64, 8, 128)}  # H, KV,
 # each model's w_gate at alpha 0.3 (K, rank, N) and the M phase 2 runs it at
 DENSE_W_GATE = (("minitron-4b", (3072, 922, 9216), (4, 8, 64)), ("qwen2-72b", (8192, 2458, 29568), (4, 8)))
 SYS_LEN = 128  # the sharing runs' system prompt: 2 pages
+
+# the sliding-window main path (phase 22): h2o-danube-1.8b at full width and depth (no cut)
+H2O_ARCH = "h2o-danube-1.8b"
+H2O_W_GATE = (2560, 768, 6912)  # its w_gate at alpha 0.3: (K, rank, N)
+H2O_LONG_PROMPT = 16384  # phase 2's windowed flash shape, (1, 16384), and the window trace's longest prompt
+# the window trace: rings of 4096 slots at max_len 20480; the first two prompts cross
+# position 4096 while decoding, the rest are past it at admission
+H2O_WINDOW = dict(n_slots=8, max_len=20480, decode_block=8)
+H2O_WINDOW_PROMPTS = (4000, 4032, 4096, 4097, 6144, 6144, 8192, H2O_LONG_PROMPT)
+H2O_WINDOW_GEN = 96
 
 # the serving engine's main path (phases 7 and 11)
 ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
@@ -748,6 +798,14 @@ def phase_prefill_only() -> int:
     return 0
 
 
+def attention_tolerances() -> dict:
+    import torch
+
+    return {torch.bfloat16: (2e-2, "bf16: p is rounded before PV (unnormalized in the kernel, "
+                             "normalized in the plain decode version) and the output is rounded"),
+            torch.float32: (1e-4, "fp32 online softmax vs one-pass softmax, another summation order")}
+
+
 def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
@@ -768,9 +826,7 @@ def phase_kernels() -> dict:
     records: dict = {}
     launch_floor()
     gemm_tol = gemm_tolerances()
-    attn_tol = {torch.bfloat16: (2e-2, "bf16: p is rounded before PV (unnormalized in the kernel, "
-                                 "normalized in the plain decode version) and the output is rounded"),
-                torch.float32: (1e-4, "fp32 online softmax vs one-pass softmax, another summation order")}
+    attn_tol = attention_tolerances()
 
     phase_lowrank_kernels(rnd, gemm_tol, records)
     for dtype in (torch.bfloat16, torch.float32):
@@ -844,6 +900,7 @@ def phase_kernels() -> dict:
     phi = phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records)
     g1 = phase_ssm_kernels(rnd, gen, records)
     dense = phase_dense_kernels(rnd, gen, gemm_tol, attn_tol, records)
+    phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records)
 
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded; x^T in the
     # storage runtime/dispatch.logits_apply gives it (aligned_rows: row stride 8)
@@ -1303,7 +1360,7 @@ def phase_blocks_reference(model, params, batch, tag: str, rel: float = 5e-2) ->
     return worst
 
 
-def phase_deep_reference(model, params, batch, tag: str) -> dict:
+def phase_deep_reference(model, params, batch, tag: str, *, fp32_anchored: bool = False) -> dict:
     """Auto vs reference end to end for the recurrent families and the deep
     dense models: the prefill logits and the first decode step's (both runs
     fed auto's first token).
@@ -1324,7 +1381,19 @@ def phase_deep_reference(model, params, batch, tag: str) -> dict:
     bf16 token, and the kernels' bf16 run is held to 1.2 x spread, so a bf16
     path whose error is twice the reference's own fails.  The
     branch-by-branch check (phase_blocks_reference) holds each kernel to its
-    bf16 tolerance in place, and the plain 5% comparison is printed."""
+    bf16 tolerance in place, and the plain 5% comparison is printed.
+
+    ``fp32_anchored`` (phase 22, h2o-danube): the dense bf16 rule measures
+    each bf16 run against the fp32 reference run (fed the same token)
+    instead of one against the other.  The kernels' bf16 logits' RMS error
+    is held to 1.2 x the plain versions' bf16 RMS error and their largest
+    error to 1.5 x the plain versions' largest, so a bf16 path whose error
+    is twice the reference's own still fails.  The rule above compares two
+    bf16 runs whose roundings part ways independently, which lie ~sqrt(2)
+    x each one's error apart, so it fails a kernel path exactly as accurate
+    as the plain one.  That rule's reading is printed beside it, and again
+    with each of the flash and low-rank kernels swapped for its plain
+    version (``plain_kernel``): PERF.md section 6 has h2o-danube's."""
     import dataclasses
 
     import torch
@@ -1341,6 +1410,9 @@ def phase_deep_reference(model, params, batch, tag: str) -> dict:
 
     def err(a, b, i):
         return float((a[i] - b[i]).abs().max()) / float(b[i].abs().max())
+
+    def rms(a, b, i):
+        return float((a[i] - b[i]).pow(2).mean().sqrt()) / float(b[i].pow(2).mean().sqrt())
 
     def to32(t):
         return {k: to32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
@@ -1362,6 +1434,11 @@ def phase_deep_reference(model, params, batch, tag: str) -> dict:
 
     auto = run(model, params, "auto")
     ref = run(model, params, "reference", auto[1])
+    swapped = {}
+    if fp32_anchored:
+        for op in ("flash_attention", "lowrank_matmul"):
+            with plain_kernel(op):
+                swapped[op] = run(model, params, "auto", auto[1])
     if recurrent:
         moved, how = run(build_model(dataclasses.replace(model.cfg, ssm_chunk=SSD_CHUNK)), params, "reference",
                          auto[1]), f"the reference at scan chunk {SSD_CHUNK} vs its own rule"
@@ -1374,12 +1451,44 @@ def phase_deep_reference(model, params, batch, tag: str) -> dict:
         tol, rule = (2 * spread + 0.05, "2 x that + 0.05") if recurrent else (1.2 * spread, "1.2 x that")
         out[f"bf16_{key}"], out[f"bf16_{key}_spread"] = e, spread
         say(f"[{tag}] bf16 {what} logits: auto vs reference max abs err {e:.4e} x max |reference| (5e-2: "
-            f"{'within' if e <= 5e-2 else 'beyond'}); {how} {spread:.4e}; tol {rule} = {tol:.4e}")
-        if not (e <= tol and bool(torch.isfinite(auto[i]).all())):
+            f"{'within' if e <= 5e-2 else 'beyond'}); {how} {spread:.4e}; tol {rule} = {tol:.4e}"
+            + (f" (ratio {e / spread:.3f}; printed, not gated: fp32-anchored rule below)" if fp32_anchored else ""))
+        if fp32_anchored:  # each bf16 run against the fp32 reference run (``moved``), fed the same token
+            # phases 19-20's rule with one kernel at a time swapped for its plain version (printed only)
+            for op, run_swapped in swapped.items():
+                say(f"[{tag}] bf16 {what} logits with {op} swapped for its plain version: auto vs reference "
+                    f"{err(run_swapped, ref, i):.4e} = {err(run_swapped, ref, i) / spread:.3f} x the spread")
+            ratios = {"rms": rms(auto, moved, i) / rms(ref, moved, i), "max": err(auto, moved, i) / err(ref, moved, i)}
+            out[f"bf16_{key}_vs_fp32_ratio"] = ratios
+            say(f"[{tag}] bf16 {what} logits against the fp32 reference: the kernels' error / the plain versions' "
+                f"error, RMS {ratios['rms']:.3f} (tol 1.2), largest {ratios['max']:.3f} (tol 1.5)")
+            if not (ratios["rms"] <= 1.2 and ratios["max"] <= 1.5 and bool(torch.isfinite(auto[i]).all())):
+                fail(f"{tag}: bf16 {what} logits: the kernels' error against fp32 is {ratios} x the plain "
+                     f"versions' (tol RMS 1.2, largest 1.5)")
+        elif not (e <= tol and bool(torch.isfinite(auto[i]).all())):
             fail(f"{tag}: bf16 {what} logits, auto vs reference {e:.4e} > {tol:.4e}")
     same = int((auto[1] == run(model, params, "reference")[1]).sum())
     say(f"[{tag}] first generated tokens, auto vs reference: {same}/{auto[1].shape[0]} equal")
     return out
+
+
+@contextlib.contextmanager
+def plain_kernel(op: str):
+    """Within the extent, dispatch's ``op`` (flash_attention or
+    lowrank_matmul) runs its plain version where it would launch its
+    kernel; the other ops keep theirs.  A diagnostic of the bf16 gates
+    only: the port has no such switch."""
+    from repro_torch.kernels import ref
+    from repro_torch.runtime import dispatch
+
+    attr, plain = {"flash_attention": ("_flash_kernel", lambda q, k, v, **kw: ref.chunked_attention_ref(q, k, v, **kw)),
+                   "lowrank_matmul": ("_lowrank_kernel", lambda x, A, B, **kw: ref.lowrank_matmul_ref(x, A, B))}[op]
+    kernel = getattr(dispatch, attr)
+    setattr(dispatch, attr, plain)
+    try:
+        yield
+    finally:
+        setattr(dispatch, attr, kernel)
 
 
 def phase_reference(model, params, batch, tag: str = "reference"):
@@ -1541,19 +1650,21 @@ def engine_requests(cfg):
     return [Request(prompt=toks[i, : lens[i]], max_new_tokens=int(gens[i])) for i in range(N_REQUESTS)]
 
 
-def serve(model, params, label, *, libs, tag: str = "engine", **kw):
-    """One engine run over the 16 requests, counts reset just before and read
-    just after; returns (tokens per request, engine, launches, tok/s)."""
+def serve(model, params, label, *, libs, tag: str = "engine", base=None, requests=engine_requests, **kw):
+    """One engine run over ``requests(cfg)`` (default the 16 requests) on an
+    engine of ``base`` (default ``ENGINE``) updated by ``kw``, counts reset
+    just before and read just after; returns (tokens per request, engine,
+    launches, tok/s)."""
     import torch
 
     from repro_torch.runtime import dispatch
     from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
     from repro_torch.serving import Engine
 
-    opts = dict(ENGINE)
+    opts = dict(ENGINE if base is None else base)
     opts.update(kw)
     eng = Engine(model, params, **opts)
-    reqs = engine_requests(model.cfg)
+    reqs = requests(model.cfg)
     torch.cuda.synchronize()
     for lib in libs.values():
         lib.reset()
@@ -1638,6 +1749,12 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     missing = [n for n in on_path if launches[n] <= 0]
     if missing:
         fail(f"kernels never launched on the {tag} main path: {missing}")
+    W = model.cfg.sliding_window
+    if W is not None:  # the prefill attends through the window
+        windows = sorted({k[2][3] for k in dispatch.counters() if k[0] == "flash_attention"}, key=str)
+        say(f"[{tag}] flash_attention windows on the main run: {windows} (the arch's: {W})")
+        if windows != [W]:
+            fail(f"{tag}: flash_attention ran with windows {windows}, not the arch's {W}")
     # every low-rank apply of the main run went through a kernel: no plain version, and no dense
     # product but those of linears the policy left dense
     plain = {k: n for k, n in dispatch.counters().items()
@@ -1745,12 +1862,15 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
 # --------------------------------------------------------------------------- #
 def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     """Host and device time of one captured decode block with every slot
-    decoding; the trace of one block (one replay) must name the paged kernel.
-    For a moe model, also the device time of the batched kernel's tiles."""
+    decoding; the trace of one block (one replay) must name the paged kernel
+    (a sliding-window arch: the flat decode kernel over its ring, which is
+    never paged).  For a moe model, also the device time of the batched
+    kernel's tiles."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import lowrank_matmul as lowrank_mod
     from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
@@ -1774,7 +1894,10 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         eng.step()
     wall = (time.perf_counter() - t) / blocks  # profiler off; each step ends in the block's drain
     tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
-    libs = (paged_mod.KERNEL, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL)
+    ring = model.cfg.sliding_window is not None
+    attn_lib, rows_tag, what = ((decode_mod.KERNEL, "FlatRows", "ring") if ring
+                                else (paged_mod.KERNEL, "PagedRows", "paged"))
+    libs = (attn_lib, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL)
     replays, before = eng.graph_replays, [lib.launches for lib in libs]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step()  # one block: the state copied in, one replay, the drain
@@ -1786,16 +1909,17 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         fail(f"a slot finished inside the decode-block profile ({eng.n_active} of {ENGINE['n_slots']} active)")
     rows = device_rows(prof)
     names = " ".join(r[2] for r in rows)
-    if "PagedRows" not in names:
-        fail(f"the trace of one decode-block replay does not name the paged kernel: {names[:400]}")
-    # one kernel launch a paged decode call: the trace's launches of kernels built on PagedRows
-    # equal the wrapper's calls, and no second pass (combine) runs beside them
-    paged_rows = [r for r in rows if "PagedRows" in r[2]]
+    if rows_tag not in names:
+        fail(f"the trace of one decode-block replay does not name the {what} decode kernel: {names[:400]}")
+    # one kernel launch a decode call: the trace's launches of kernels built on PagedRows (FlatRows
+    # for a ring) equal the wrapper's calls, and no second pass (combine) runs beside them
+    paged_rows = [r for r in rows if rows_tag in r[2]]
     paged_launches, paged_ms = sum(r[1] for r in paged_rows), sum(r[0] for r in paged_rows) / 1e3
-    say(f"[{tag}] paged decode: {calls} calls, {paged_launches} kernel launches in the trace "
+    say(f"[{tag}] {what} decode: {calls} calls, {paged_launches} kernel launches in the trace "
         f"({', '.join(sorted({r[2][:60] for r in paged_rows}))}), {paged_ms:.4f} ms device")
     if calls <= 0 or paged_launches != calls or "combine_kernel" in names:
-        fail(f"{tag}: {calls} paged decode calls ran {paged_launches} PagedRows kernel launches (one a call expected)")
+        fail(f"{tag}: {calls} {what} decode calls ran {paged_launches} {rows_tag} kernel launches (one a call "
+             f"expected)")
     # the 2-D low-rank calls (decode: M = 8 slots, the skinny kernel): at most two launches a
     # call (one a stage), no reduce pass; the wgmma tiles' symbol is the sketch GEMM's too
     skinny = sum(r[1] for r in rows if SKINNY_KERNEL.search(r[2]))
@@ -1817,7 +1941,7 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         say(f"[{tag}]   {us / 1e3:8.4f} ms  x{n:<4d} {key[:100]}")
     out = {"block_host_ms": wall * 1e3, "block_device_ms": device_ms, "block_kernel_sum_ms": kernel_ms,
            "idle_share": max(0.0, 1 - device_ms / (wall * 1e3)), "block_tok_s": tok_s,
-           "block_paged_ms": paged_ms, "block_paged_launches": paged_launches,
+           f"block_{what}_ms": paged_ms, f"block_{what}_launches": paged_launches,
            "block_lowrank_calls": lowrank_calls, "block_lowrank_launches": lowrank_launches,
            "block_lowrank_ms": lowrank_ms}
     if model.cfg.family == "moe":
@@ -2133,7 +2257,7 @@ def phase_overload(model, params) -> dict:
     """(c) The 16 requests on a two-tier engine under an admission policy
     (degrade to tier 1 below half the pages free; every odd uid has an
     800 ms deadline; every request accepts tier 1), a page-denial window
-    (steps 6-12) and 400 ms slow steps (10-12) watched by a StepWatchdog.
+    (steps 6-12) and 1 s slow steps (10-12) watched by a StepWatchdog.
     Gates: ok + shed + error = 16, shed > 0, each shed request's
     RejectedOverload, degraded admissions > 0, each degraded request's
     tokens the single-tier tier-1 run's, the slow steps flagged."""
@@ -2145,7 +2269,10 @@ def phase_overload(model, params) -> dict:
     reqs = engine_requests(model.cfg)
     for i, r in enumerate(reqs):
         r.min_tier, r.deadline_ms = 1, (800.0 if i % 2 else None)
-    inj = FaultInjector(deny_pages=(6, 13), slow_steps=(10, 13), slow_ms=400.0)
+    # a slow step is flagged above 3 x the median of the steps before it (admissions and two-tier
+    # blocks, ~0.1 s each on an H100): 1 s clears that for every slow step, where 400 ms left the
+    # third (which does no other work) near 3 x, flagged or not by the host's speed
+    inj = FaultInjector(deny_pages=(6, 13), slow_steps=(10, 13), slow_ms=1000.0)
     events = Counter()
     eng = Engine(model, params, **ENGINE, tiers=TIERS, tier_q=2, injector=inj,
                  admission=AdmissionPolicy(n_tiers=2, degrade_free_frac=0.5),
@@ -3285,6 +3412,250 @@ def phase_dense(runs: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: h2o-danube-1.8b, the sliding-window ring
+# --------------------------------------------------------------------------- #
+def phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
+    """Phase 2 at h2o-danube-1.8b's shapes (32/8 heads, head_dim 80, window
+    4096), bf16 and fp32: the flash kernel at the static (4, 256), whose
+    window is out of reach, and at a (1, 16384) prompt past it (its bound
+    counts the in-window pairs only; the library call is SDPA under the
+    window mask, K/V repeated to 32 heads beforehand, bf16 only: fp32 SDPA
+    under a 16384-square mask may take its math path's whole score matrix);
+    the decode kernel over a wrapped ring (8 slots of 4096 positions, every
+    slot valid); lowrank_matmul at the w_gate (2560 x 768 x 6912) at M 4
+    and 8.  The bf16 records go into ``records`` under "<kernel> h2o ..."."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+
+    from repro_torch.configs.registry import get_arch
+
+    dev = torch.device("cuda")
+    cfg = get_arch(H2O_ARCH)
+    H, KV, hd, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+    G = H // KV
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        for (B, S), key in (((BATCH, PROMPT), "flash_attention h2o hd80"),
+                            ((1, H2O_LONG_PROMPT), "flash_attention h2o window 16k")):
+            q, k, v = rnd((B, S, H, hd), dtype), rnd((B, S, KV, hd), dtype), rnd((B, S, KV, hd), dtype)
+            got = flash_attention(q, k, v, causal=True, window=W)
+            pairs = sum(min(i + 1, W) for i in range(S))  # the (query, key) pairs in the causal window
+            qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            if S <= W:
+                library = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
+            elif dtype == torch.bfloat16:
+                mask = ref.attention_mask(S, S, causal=True, window=W, q_offset=0, device=dev)
+                kr, vr = ks.repeat_interleave(G, dim=1), vs.repeat_interleave(G, dim=1)
+                library = lambda: F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask)  # noqa: E731
+            else:
+                library = None
+            check("flash_attention", [B, S, H, KV, hd, W], dtype, got,
+                  ref.chunked_attention_ref(q, k, v, causal=True, window=W), rel, why,
+                  kernel_fn=lambda: flash_attention(q, k, v, causal=True, window=W),
+                  plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True, window=W),
+                  library_fn=library, bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
+                  ops=4 * B * H * pairs * hd, records=records, key=key)
+            del q, k, v, qs, ks, vs, got, library
+            torch.cuda.empty_cache()
+        # the decode over a ring that has wrapped: every one of its W slots valid
+        Bq = H2O_WINDOW["n_slots"]
+        q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((Bq, W, KV, hd), dtype), rnd((Bq, W, KV, hd), dtype)
+        valid = torch.ones((Bq, W), dtype=torch.bool, device=dev)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        n_rows = Bq * W
+        check("decode_attention", [Bq, W, H, KV, hd, "wrapped ring, every slot valid"], dtype,
+              decode_attention(q, k, v, valid), ref.decode_attention_ref(q, k, v, valid), rel, why,
+              kernel_fn=lambda: decode_attention(q, k, v, valid),
+              plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True),
+              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
+              ops=4 * H * hd * n_rows, records=records, key="decode_attention h2o ring")
+        del q, k, v, qs, ks, vs, valid
+    rel, why = gemm_tol[torch.bfloat16]
+    K, r, N = H2O_W_GATE
+    A, B = aligned_rows(rnd((K, r), torch.bfloat16)), aligned_rows(rnd((r, N), torch.bfloat16))
+    for M in (4, 8):
+        x = rnd((M, K), torch.bfloat16)
+        check("lowrank_matmul", [M, K, r, N, f"{H2O_ARCH} w_gate"], torch.bfloat16, lowrank_matmul(x, A, B),
+              ref.lowrank_matmul_ref(x, A, B), rel, why,
+              kernel_fn=lambda: lowrank_matmul(x, A, B), plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+              library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
+              bytes_moved=nbytes(x, A, B) + M * N * x.element_size(), ops=2 * M * K * r + 2 * M * r * N,
+              records=records, key=f"lowrank_matmul h2o M {M}")
+        del x
+    del A, B
+    torch.cuda.empty_cache()
+
+
+def window_requests(cfg):
+    """The window trace: SyntheticLM prompts (seed 0) of H2O_WINDOW_PROMPTS
+    tokens, H2O_WINDOW_GEN new tokens each."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serving import Request
+
+    toks = SyntheticLM(cfg, batch=len(H2O_WINDOW_PROMPTS), seq=max(H2O_WINDOW_PROMPTS), kind="serve",
+                       seed=0).at_step(0)["tokens"]
+    return [Request(prompt=toks[i, :n], max_new_tokens=H2O_WINDOW_GEN) for i, n in enumerate(H2O_WINDOW_PROMPTS)]
+
+
+def phase_window(model, params, runs) -> dict:
+    """Phase 22 (c): the window trace, where every ring wraps (8 slots, max_len
+    20480, rings of 4096): bf16 under the captured block (the main run, counts
+    reset just before) and eagerly, bit for bit; fp32 with the kernels and with
+    the plain versions (backend "reference", eager), the same greedy tokens
+    request for request; the prefill groups (one per prompt length past the
+    window, the two 6144-token prompts together); the cache's bytes at
+    max_len 20480 and at 4096."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.dispatch import DispatchConfig
+    from repro_torch.serving import Engine
+
+    tag, W = "h2o window", model.cfg.sliding_window
+    libs = engine_libs()
+    kw = dict(libs=libs, tag=tag, base=H2O_WINDOW, requests=window_requests)
+    main_tok, eng, launches, tps = serve(model, params, "bf16, CUDA graph (main run)", **kw)
+    windows = sorted({k[2][3] for k in dispatch.counters() if k[0] == "flash_attention"}, key=str)
+    runs[f"{H2O_ARCH} window engine"] = launches
+    groups = [tuple(b[2]) for b in eng.prefill_batches]
+    say(f"[{tag}] prefill micro-batches (rows, length, prompt lengths): {eng.prefill_batches}; flash_attention "
+        f"windows {windows}")
+    want = sorted([(n,) for n in H2O_WINDOW_PROMPTS if n != 6144] + [(6144, 6144)])
+    # past the window a group is never padded; below it the pad stops at the window
+    padded = [b for b in eng.prefill_batches if (b[1] != b[2][0] if b[2][0] > W else b[1] > W)]
+    if sorted(groups) != want or padded:
+        fail(f"{tag}: prefill groups {groups} (want {want}), padded past the window: {padded}")
+    if windows != [W] or any(launches[n] <= 0 for n in ("flash_attention", "decode_attention", "lowrank_matmul")):
+        fail(f"{tag}: windows {windows}, launches {launches}")
+    if eng.graph_replays <= 0 or eng.peak_pages_in_use != 0:
+        fail(f"{tag}: graph replays {eng.graph_replays}, pages {eng.peak_pages_in_use}")
+    eager_tok, *_ = serve(model, params, "bf16, eager", cuda_graph=False, **kw)
+    if eager_tok != main_tok:
+        fail(f"{tag}: CUDA-graph tokens differ from the eager run's")
+    say(f"[{tag}] CUDA-graph tokens == eager tokens: True")
+    bytes_at = {H2O_WINDOW["max_len"]: eng.kv_bytes_capacity}
+    del eng
+    torch.cuda.empty_cache()
+    small = Engine(model, params, **dict(H2O_WINDOW, max_len=W))
+    bytes_at[W] = small.kv_bytes_capacity
+    del small
+    torch.cuda.empty_cache()
+    say(f"[{tag}] cache bytes by max_len: {bytes_at} (rings of min(max_len, {W}) slots)")
+    if len(set(bytes_at.values())) != 1:
+        fail(f"{tag}: the cache takes {bytes_at} bytes: not the same at max_len {H2O_WINDOW['max_len']} as at {W}")
+
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    p32 = params_fp32(params)
+    tok32, *_ = serve(m32, p32, "fp32, kernels", **kw)
+    ref32, *_ = serve(m32, p32, "fp32, plain versions (backend reference, eager)", cuda_graph=False,
+                      dispatch=DispatchConfig(backend="reference"), **kw)
+    same = [a == b for a, b in zip(tok32, ref32)]
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None) for a, b in zip(tok32, ref32)]
+    say(f"[{tag}] fp32 greedy tokens, kernels == plain versions, by request: {same}; first differing index {first}")
+    if not all(same):
+        fail(f"{tag}: fp32 greedy tokens of the kernels differ from the plain versions' (first index {first})")
+    bf_vs_32 = sum(a == b for a, b in zip(main_tok, tok32))
+    say(f"[{tag}] bf16 vs fp32 (kernels) greedy streams equal: {bf_vs_32}/{len(main_tok)} (informational)")
+    del m32, p32
+    torch.cuda.empty_cache()
+    return {"window_tok_s": tps, "window_prefill_groups": [list(g) for g in groups], "cache_bytes": bytes_at}
+
+
+def phase_h2o(runs: dict) -> dict:
+    """Phase 22: h2o-danube-1.8b at full width and depth, compressed (q = 4);
+    (a) the static path at phase 3's shape, gated three ways as phases 19-20;
+    (b) phase 7's engine gates on phase 7's trace (the ring below its
+    window), and one decode block profiled; (c) the window trace."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention, lowrank_matmul
+    from repro_torch.train.serve_step import greedy_generate
+
+    t0 = time.perf_counter()
+    tag = "h2o"
+    model, params, batch, summary = phase_dense_main(H2O_ARCH, None)
+    libs = {"lowrank_matmul": lowrank_matmul.KERNEL, "decode_attention": decode_attention.KERNEL,
+            "flash_attention": flash_attention.KERNEL}
+    # (a) the static path: greedy_generate at phase 3's shape, counts reset just before
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    t = time.perf_counter()
+    out = greedy_generate(model, params, batch, steps=GEN, max_len=PROMPT + GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    runs[f"{H2O_ARCH} static"] = {n: lib.launches for n, lib in libs.items()}
+    if tuple(out.shape) != (BATCH, GEN) or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_padded:
+        fail(f"{tag}: static tokens of shape {tuple(out.shape)} out of range")
+    say(f"[{tag}] static path: generated {tuple(out.shape)} in {dt:.3f}s = {BATCH * GEN / dt:.1f} tok/s (host "
+        f"clock, first call); launches {runs[f'{H2O_ARCH} static']}")
+    if any(n <= 0 for n in runs[f"{H2O_ARCH} static"].values()):
+        fail(f"{tag}: a kernel of the static path never launched: {runs[f'{H2O_ARCH} static']}")
+    summary["branch_err_ratio"] = phase_blocks_reference(model, params, batch, tag=f"{tag} reference")
+    summary["reference"] = phase_deep_reference(model, params, batch, tag=f"{tag} reference", fp32_anchored=True)
+    # (b) the engine on phase 7's trace; the chunk is inert (the ring is not paged)
+    eng = phase_engine(model, params, tag=f"{tag} engine",
+                       on_path=("lowrank_matmul", "flash_attention", "decode_attention"))
+    runs[f"{H2O_ARCH} engine"], runs[f"{H2O_ARCH} flat engine"] = eng["launches"], eng["launches_flat_engine"]
+    summary.update(phase_block_profile(model, params, tag=f"{tag} block"))
+    # (c) the window trace
+    summary.update(phase_window(model, params, runs))
+    summary.update({"tok_s": eng["tok_s"], "phase_s": time.perf_counter() - t0})
+    say(f"[{tag}] phase 22 (engine tok/s on the host clock) " + json.dumps(summary))
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_h2o_only() -> int:
+    """``--h2o-only``: phase 2's h2o-danube checks and phase 22 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[h2o-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    built = build_all()
+    for name, so in built.items():
+        log = so.with_suffix(".log")
+        if log.exists():
+            say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    records: dict = {}
+    phase_h2o_kernels(rnd, gen, gemm_tolerances(), attention_tolerances(), records)
+    say(f"[h2o-only] phase 2 checks in {time.perf_counter() - t:.1f}s")
+    runs: dict = {}
+    phase_h2o(runs)
+    say("[h2o-only] launches " + json.dumps(runs))
+    say(f"[h2o-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
 def phase_sharing_only() -> int:
     """``--sharing-only``: phases 19-20 alone."""
     import torch
@@ -3420,6 +3791,8 @@ def main() -> int:
         return phase_overload_only()
     if "--chunk-only" in sys.argv:
         return phase_chunk_only()
+    if "--h2o-only" in sys.argv:
+        return phase_h2o_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -3515,6 +3888,11 @@ def main() -> int:
     phase_dense(runs)
     say(f"[dense] phases 19-20 in {time.perf_counter() - t:.1f}s")
 
+    # phase 22: h2o-danube-1.8b whole, the sliding-window ring (its model freed inside)
+    t = time.perf_counter()
+    phase_h2o(runs)
+    say(f"[h2o] phase 22 in {time.perf_counter() - t:.1f}s")
+
     # `launches`: the kernel's count on the main run of the newest engine path that runs it (the
     # shape and dtype of its `ms`); phase 18's fp32 paper runs stand only in `launches_by_run`, and
     # phases 19-20's runs there and beside the records of their own shapes below
@@ -3553,16 +3931,23 @@ def main() -> int:
                 ("minitron_w_gate_m8", records, f"{name} minitron M 8"),
                 ("minitron_w_gate_m64", records, f"{name} minitron M 64"),
                 ("qwen2_w_gate_m4", records, f"{name} qwen2 M 4"), ("qwen2_w_gate_m8", records, f"{name} qwen2 M 8"),
-                ("qwen2_w_gate", records, f"{name} qwen2"), ("qwen2_w_gate_trans_a", records, f"{name} qwen2 trans_a"))
+                ("qwen2_w_gate", records, f"{name} qwen2"), ("qwen2_w_gate_trans_a", records, f"{name} qwen2 trans_a"),
+                # phase 22's shapes: h2o-danube's head_dim 80 at (4, 256), its window at (1, 16384), the
+                # decode over a wrapped ring, its w_gate at M 4 and 8
+                ("h2o_hd80", records, f"{name} h2o hd80"), ("h2o_window_16k", records, f"{name} h2o window 16k"),
+                ("h2o_ring_wrapped", records, f"{name} h2o ring"),
+                ("h2o_w_gate_m4", records, f"{name} h2o M 4"), ("h2o_w_gate_m8", records, f"{name} h2o M 8"))
         for key, sub, rec_key in subs:
             if rec_key in sub:
                 entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                            "bound_ms", "bound_by")}
-                arch = next((a for a, _ in DENSE_ARCHS if key.startswith(a.split("-")[0])), None)
-                if arch is not None:  # the count of the same model's run
-                    own = next((f"{arch} {r}" for r in ("engine", "flat engine", "compression")
-                                if runs[f"{arch} {r}"].get(name, 0) > 0), f"{arch} engine")
-                    entry[key].update(launches=runs[own].get(name, 0), launches_run=own)
+                arch = next((a for a in [a for a, _ in DENSE_ARCHS] + [H2O_ARCH]
+                             if key.startswith(a.split("-")[0])), None)
+                if arch is not None:  # the count of the same model's run (the window trace's for the 16k prompt)
+                    mine = ("window engine",) if key == "h2o_window_16k" else ("engine", "flat engine", "compression")
+                    own = next((f"{arch} {r}" for r in mine if runs.get(f"{arch} {r}", {}).get(name, 0) > 0),
+                               f"{arch} {mine[0]}")
+                    entry[key].update(launches=runs.get(own, {}).get(name, 0), launches_run=own)
         line.append(entry)
     say(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     say("[earlier] times of the redesigned kernels before this round, copied from PERF.md section 6 "

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",

@@ -35,15 +35,20 @@
 //   zamba2's (1, 512) prefill: 8 x 32 = 256.  The heaviest (causal: last)
 //   position tiles start first.
 // * K and V tiles of 64 positions arrive by TMA (swizzled 32/64/128 bytes by
-//   head dim) into a two-stage ring with mbarriers: the next tile's copy is
+//   head dim: the widest span whose chunk divides it, so hd 80 takes five
+//   32-byte chunks a row) into a two-stage ring with mbarriers: the next tile's copy is
 //   in flight while the current tile's math runs; a stage is refilled as
 //   soon as its products are done.
 // * S = Q K^T is one wgmma chain (m64n64k16, both operands K-major in shared
 //   memory; Q scaled in place first, then a proxy fence); S and the online
 //   softmax state stay in registers.  P is rounded to bf16 in registers and
 //   is the register A operand of O += P V (m64n{hd}k16, V MN-major through
-//   the descriptor's transpose bit).  O (64 x hd fp32) lives in registers:
-//   128 a thread at hd 256.
+//   the descriptor's transpose bit; at hd 80 an n80 product walking five
+//   column chunks).  O (64 x hd fp32) lives in registers: 128 a thread at
+//   hd 256, 40 at hd 80.
+// * A sliding window skips the key tiles wholly before the block's reach:
+//   at window 4096 a row walks at most 4096 + 64 + rows-a-block keys, not
+//   the whole prompt.
 //
 // The fp32 entry keeps the FMA kernel below (four threads a query row, K/V
 // tiles widened into shared memory): tensor cores would take fp32 through
@@ -192,9 +197,12 @@ constexpr int THREADS = 128;
 
 template <int HD>
 struct Cfg {
-    static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle span = bytes of a tile row's chunk
-    static constexpr int CH = SW / 2;                         // elements of a chunk
-    static constexpr int NCH = HD / CH;                       // chunks across the head dim
+    // swizzle span = bytes of a tile row's chunk: the widest of 128/64/32 whose chunk divides
+    // the head dim (hd 80, h2o-danube's: 32 bytes, five chunks of 16)
+    static constexpr int SW = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;
+    static constexpr int CH = SW / 2;    // elements of a chunk
+    static constexpr int NCH = HD / CH;  // chunks across the head dim
+    static_assert(HD % 16 == 0 && NCH * CH == HD, "the head dim is a whole number of k16 chunks");
     static constexpr int CHUNK = 64 * SW;                     // bytes of one chunk of a 64-row tile
     static constexpr int TILE = NCH * CHUNK;                  // bytes of a 64-row tile (64 x HD bf16)
     // K/V stages: two up to hd 64; one from hd 128, where a second would halve the blocks an
@@ -434,6 +442,7 @@ int with_head_dim(int hd, F f) {
         case 16: return f(std::integral_constant<int, 16>{});
         case 32: return f(std::integral_constant<int, 32>{});
         case 64: return f(std::integral_constant<int, 64>{});
+        case 80: return f(std::integral_constant<int, 80>{});
         case 128: return f(std::integral_constant<int, 128>{});
         case 256: return f(std::integral_constant<int, 256>{});
         default: return cudaErrorInvalidValue;
@@ -442,7 +451,7 @@ int with_head_dim(int hd, F f) {
 
 }  // namespace
 
-// head dims (hd == vd) 16, 32, 64, 128 or 256; window <= 0 means none
+// head dims (hd == vd) 16, 32, 64, 80, 128 or 256; window <= 0 means none
 REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
                                       int H, int KV, int hd, int causal, int window, int q_offset, float scale,
                                       void* stream) {

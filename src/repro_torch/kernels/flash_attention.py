@@ -20,7 +20,7 @@ from repro_torch.kernels._build import F, I, KernelLib, P, check_vector_layout
 
 __all__ = ["KERNEL", "HEAD_DIMS", "flash_attention"]
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # head dims the kernel is instantiated for
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P]
 KERNEL = KernelLib("flash_attention", {"flash_attention_bf16": _ARGS, "flash_attention_f32": _ARGS})
 

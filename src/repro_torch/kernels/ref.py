@@ -140,6 +140,9 @@ def attention_mask(sq: int, skv: int, *, causal: bool, window: Optional[int], q_
     return mask
 
 
+Q_BLOCK = 1024  # query rows a block of the plain prefill attention
+
+
 def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
     """Prefill attention with the numerics of ``_flash_fwd_pass`` in one chunk.
 
@@ -147,7 +150,27 @@ def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int]
     grouping (H = KV * G, K/V never repeated).  q is scaled in fp32 and cast
     back to q's dtype before the dot; p = exp(s - m) is cast to v's dtype
     before PV; the result is ``acc / max(l, 1e-30)``.
+
+    A prompt longer than ``Q_BLOCK`` runs in blocks of that many query
+    rows, each against the keys its causal window can see (rows are
+    independent, and a key no row of the block sees adds an exact zero), so
+    the fp32 scores of a 16384-token prompt take a block's memory, not the
+    whole (Sq, Skv) square's.
     """
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq <= Q_BLOCK:
+        return _attention_block(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    outs = []
+    for s0 in range(0, Sq, Q_BLOCK):
+        s1 = min(Sq, s0 + Q_BLOCK)
+        lo = 0 if window is None else max(0, q_offset + s0 - window + 1)
+        hi = min(Skv, q_offset + s1) if causal else Skv
+        outs.append(_attention_block(q[:, s0:s1], k[:, lo:hi], v[:, lo:hi], causal=causal, window=window,
+                                     q_offset=q_offset + s0 - lo))
+    return torch.cat(outs, dim=1)
+
+
+def _attention_block(q, k, v, *, causal: bool, window: Optional[int], q_offset: int):
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV

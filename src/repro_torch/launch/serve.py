@@ -3,7 +3,7 @@ engine (default) or one static batched prefill + greedy decode.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b [--reduced] \\
         [--engine continuous|static] [--compress-alpha 0.3 --q 4] \\
-        [--batch 4 --prompt-len 16 --gen 32] [--seed 0] [--device cuda|cpu] \\
+        [--batch 4 --prompt-len 16 --gen 32 --max-len L] [--seed 0] [--device cuda|cpu] \\
         [--n-slots N --decode-block 8 --page-size P --kv-pages K \\
          --prefill-chunk C --temperature T --top-k K] \\
         [--share-prefix [--warm-cache-pages N] [--close-sessions]] \\
@@ -25,7 +25,11 @@ prompt-prefix pages read-only (a ``[shared]`` line of its counters);
 ``--deadline-ms``, ``--degrade-queue-depth``, ``--degrade-free-frac``,
 ``--preempt``) configure the engine's rank tiers, admission policy and
 preemption, and print an ``[overload]`` line and one ``[shed]`` line per
-shed request.  The first SIGINT or SIGTERM drains gracefully: the queue
+shed request.  ``--max-len`` sizes the cache for longer sequences than
+``--prompt-len + --gen``; a sliding-window arch (``--arch
+h2o-danube-1.8b``) keeps a ring of ``min(max_len, window)`` slots a
+sequence whatever it is, so a prompt past the window costs no more cache.
+The first SIGINT or SIGTERM drains gracefully: the queue
 sheds with ``"shutdown"``, in-flight requests finish, and the default
 handlers come back (a second signal ends the process).  The reference's
 cluster and event-log flags are not ported yet.
@@ -67,6 +71,9 @@ def main(argv=None):
                          "and report the pages freed (requires --share-prefix)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="positions a sequence may reach (cache size; a sliding window's ring holds "
+                         "min(max_len, window)); 0 = --prompt-len + --gen")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 = softmax sampling (continuous engine)")
     ap.add_argument("--top-k", type=int, default=0, help="0 = full vocab (continuous engine)")
@@ -114,7 +121,9 @@ def main(argv=None):
 
     data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len, kind="serve", seed=args.seed)
     prompts = np.asarray(data.at_step(0)["tokens"])
-    max_len = args.prompt_len + args.gen
+    max_len = args.max_len or args.prompt_len + args.gen
+    if max_len < args.prompt_len + args.gen:
+        ap.error(f"--max-len {max_len} < --prompt-len + --gen ({args.prompt_len + args.gen})")
     dcfg = DispatchConfig.from_arch(cfg)
     dispatch.reset_counters()
 

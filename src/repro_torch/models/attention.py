@@ -6,6 +6,15 @@ The port's counterpart of the GQA part of ``repro/models/attention.py``.
 The attention kernels go through ``repro_torch.runtime.dispatch``.  Where
 the reference returns updated caches, the port writes the cache tensors
 IN PLACE and returns the same tensors.
+
+Sliding-window archs (``cfg.sliding_window`` W, h2o-danube) keep a RING
+cache of ``min(max_len, W)`` slots: absolute position p lives in slot
+p % W, so a decode of any length holds O(W) of K/V.  The prefill attends
+through the flash kernel's window and hands back the ring-ordered tail of
+a prompt longer than W; a decode step writes slot pos % W and, once the
+ring is full, attends every slot.  The ring is never paged
+(``gqa_init_cache_paged`` returns ``paged=False``): paging a
+window-bounded cache banks nothing.
 """
 
 from __future__ import annotations
@@ -94,21 +103,29 @@ def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, return_cache:
     from repro_torch.runtime import dispatch
 
     B, S, _ = x.shape
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention (ring cache) is not yet ported")
+    W = cfg.sliding_window
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, x, cfg, positions)
-    out = dispatch.flash_attention(q, k, v, causal=causal)
+    out = dispatch.flash_attention(q, k, v, causal=causal, window=W)
     out = nn.dense(p["wo"], out.reshape(B, S, -1))
-    return (out, (k, v)) if return_cache else out
+    if not return_cache:
+        return out
+    if W is not None and S > W:
+        # the ring keeps the last W positions, absolute position p in slot p % W:
+        # tail row i (position S - W + i) goes to slot (i + S) % W
+        return out, (torch.roll(k[:, -W:], S % W, dims=1), torch.roll(v[:, -W:], S % W, dims=1))
+    return out, (k, v)
 
 
 def gqa_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    """A cache of ``max_len`` positions a row; a sliding window W's ring of
+    ``min(max_len, W)``."""
+    KV, hd, W = cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+    S = min(max_len, W) if W is not None else max_len
     return {
-        "k": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, KV, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
     }
 
 
@@ -122,10 +139,16 @@ def gqa_decode(p, x, cache, pos, cfg):
     pos_v = position_vector(pos, B, x.device)
     q, k, v = _qkv(p, x, cfg, pos_v[:, None])
     b_idx = torch.arange(B, device=x.device)
-    slot = pos_v % cache["k"].shape[1]  # identity while pos < max_len, as in the reference
+    S = cache["k"].shape[1]
+    slot = pos_v % S  # the ring for SWA; identity while pos < max_len otherwise, as in the reference
     cache["k"][b_idx, slot] = k[:, 0]
     cache["v"][b_idx, slot] = v[:, 0]
-    out = decode_attention(q, cache["k"], cache["v"], pos_v + 1)
+    n_valid = pos_v + 1
+    if cfg.sliding_window is not None and S == cfg.sliding_window:
+        # a full ring holds the window exactly: every slot is valid once pos >= S - 1 (a
+        # device-side clamp, no host sync: the decode block is captured as a CUDA graph)
+        n_valid = torch.clamp(n_valid, max=S)
+    out = decode_attention(q, cache["k"], cache["v"], n_valid)
     return nn.dense(p["wo"], out.reshape(B, 1, -1)), cache
 
 
@@ -198,9 +221,11 @@ def gqa_init_cache_paged(cfg, page_size: int, n_pages_phys: int, dtype, device):
     """Physical page pools replacing the per-slot (B, S) reservation.
 
     Returns ``(cache, paged)``.  Zeros, never uninitialized memory: a
-    masked p of 0 times a NaN left in V would still be NaN."""
+    masked p of 0 times a NaN left in V would still be NaN.  A
+    sliding-window arch returns ``(None, False)``: its O(window) ring stays
+    slot-resident and the caller builds it with :func:`gqa_init_cache`."""
     if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention (ring cache) is not yet ported")
+        return None, False
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((n_pages_phys, page_size, KV, hd), dtype=dtype, device=device),

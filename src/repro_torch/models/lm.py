@@ -66,8 +66,6 @@ _FAMILIES = ("dense", "moe", "ssm", "hybrid")
 def _check_family(cfg) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not yet ported (only {', '.join(_FAMILIES)})")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not yet ported")
     if cfg.family == "moe":
         for field, later in _LATER_MOE.items():
             if getattr(cfg, field):
@@ -263,19 +261,27 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     scatter each leaf takes — pages for the K/V leaves (every leaf of the
     dense and moe families, the hybrid's ``shared_attn``), the slot row for
     the mamba layers' conv tails and states, which are O(1) per slot
-    (``False``, as in ``repro/models/lm.py:392-395``).  A mamba2 cache has
-    no paged leaf at all.
+    (``False``, as in ``repro/models/lm.py:392-395``), and so does a
+    sliding-window arch's ring (``repro/models/lm.py:398-400``).  A mamba2
+    or h2o-danube cache has no paged leaf at all.
     """
     _check_family(cfg)
     n_phys = n_pages + 1
+
+    def kv_cache():
+        one, paged = attn.gqa_init_cache_paged(cfg, page_size, n_phys, _dtype(cfg), device)
+        if not paged:  # the sliding-window ring stays slot-resident
+            one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
+        return one, paged
+
     if _layer_kind(cfg) == "mamba":
         one, paged = ssm_mod.mamba2_init_cache(cfg, batch_size, _dtype(cfg), device), False
     else:
-        one, paged = attn.gqa_init_cache_paged(cfg, page_size, n_phys, _dtype(cfg), device)
+        one, paged = kv_cache()
     cache = {"layers": _stacked_zeros(one, cfg.n_layers, device)}
     mask = {"layers": {k: paged for k in one}}
     if cfg.family == "hybrid":
-        kv, kv_paged = attn.gqa_init_cache_paged(cfg, page_size, n_phys, _dtype(cfg), device)
+        kv, kv_paged = kv_cache()
         cache["shared_attn"] = _stacked_zeros(kv, _n_shared_apps(cfg), device)
         mask["shared_attn"] = {k: kv_paged for k in kv}
     max_pages = -(-max_len // page_size)
@@ -291,7 +297,10 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
 
     Returns (last_token_logits (B, Vp) fp32, cache).  ``last_index``:
     optional (B,) index of each sequence's last valid prompt token (for
-    right-padded micro-batches); by default the last column.
+    right-padded micro-batches); by default the last column.  A
+    sliding-window arch's prompt may be longer than its ring
+    (``min(max_len, W)`` slots): the ring then holds the prompt's last W
+    positions, position p in slot p % W.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -312,8 +321,9 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
         # with its own cache per application
         lp, sub = (p["shared_attn"], "shared_attn") if kind == "shared" else (_layer(p["layers"], i), "layers")
         x, (k, v), _ = _self_block(lp, x, cfg, positions, return_cache=True)
-        cache[sub]["k"][i, :, :S] = k
-        cache[sub]["v"][i, :, :S] = v
+        n = k.shape[1]  # S, or the ring's W slots of a longer prompt
+        cache[sub]["k"][i, :, :n] = k
+        cache[sub]["v"][i, :, :n] = v
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     if last_index is None:
         last = x[:, -1:, :]
@@ -344,12 +354,13 @@ def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
     so chunk after chunk computes what the monolithic prefill computes.
     Returns ``(last_logits (1, Vp) fp32, cache)``, the logits taken at the
     chunk's last REAL token; the pools are updated in place.  The dense and
-    moe families only: an ssm or hybrid prefill carries recurrent state
-    across the whole prompt.
+    moe families only, without a sliding window: an ssm or hybrid prefill
+    carries recurrent state across the whole prompt, and a ring is not paged.
     """
     _check_family(cfg)
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"chunked prefill unsupported for family {cfg.family!r}")
+    if cfg.family not in ("dense", "moe") or cfg.sliding_window is not None:
+        raise ValueError(f"chunked prefill unsupported for family {cfg.family!r}, sliding window "
+                         f"{cfg.sliding_window}")
     B, C = tokens.shape
     bt_row = bt_row.reshape(-1)
     x = nn.embed_lookup(p["embed"], tokens)
@@ -371,12 +382,13 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
 
     Returns (logits (B, Vp) fp32, cache); the cache is updated in place.  A
     cache with a ``block_table`` (``lm_init_cache_paged``) takes the paged
-    decode in every attention block; the mamba layers' conv tails and
-    states are slot rows either way."""
+    decode in every attention block but a sliding-window arch's, whose ring
+    is a slot row; the mamba layers' conv tails and states are slot rows
+    either way."""
     _check_family(cfg)
     x = nn.embed_lookup(p["embed"], tokens)
     pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
-    bt = cache.get("block_table")
+    bt = cache.get("block_table") if cfg.sliding_window is None else None
     mamba = _layer_kind(cfg) == "mamba"
     for kind, i in _schedule(cfg):
         if kind == "layer" and mamba:

@@ -3,9 +3,10 @@
 The port's counterpart of ``repro/models/model.py``.  ``build_model(cfg)``
 returns a :class:`ModelApi` of functions over a params tree (nested dicts
 mirroring the reference's pytree); :class:`LMModule` is the ``nn.Module``
-that owns such a tree's tensors.  The ``dense`` family, the ``moe`` family
-with GQA attention, and the ``ssm`` (mamba2) and ``hybrid`` (zamba2)
-families are ported; any other family raises.
+that owns such a tree's tensors.  The ``dense`` family (with or without a
+sliding window), the ``moe`` family with GQA attention, and the ``ssm``
+(mamba2) and ``hybrid`` (zamba2) families are ported; any other family
+raises.
 """
 
 from __future__ import annotations
@@ -40,15 +41,18 @@ class ModelApi:
     # (params, cache, tokens (1, C), bt_row, start, n_real) -> (logits, cache):
     # one prefill chunk at any start (page-aligned, or mid-page where a shared
     # prefix re-enters) through the slot's block-table row; None
-    # where prefill carries state across the whole prompt (ssm, hybrid: the
-    # engine prefills those monolithically)
+    # where prefill carries state across the whole prompt (ssm, hybrid) or
+    # the cache is a sliding window's ring: the engine prefills those
+    # monolithically
     prefill_chunk: Any = None
 
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
-    lm_mod._check_family(cfg)  # dense, GQA moe, ssm or hybrid, no sliding window: raises for the rest
+    lm_mod._check_family(cfg)  # dense, GQA moe, ssm or hybrid: raises for the rest
     dev = resolve_device(device)
+    # a chunk enters mid-prompt through the pages: not for recurrent state, nor for a
+    # sliding window's ring (the reference's gate, repro/models/lm.py:690)
     chunkable = cfg.family in ("dense", "moe") and cfg.sliding_window is None
     return ModelApi(
         cfg=cfg,

@@ -11,7 +11,9 @@ fused-decode loop:
     their caches are scattered into the pool rows, or into their pages.
     The ssm and hybrid families group admissions by EXACT prompt length and
     never pad the length: right-padding would run the padding through the
-    recurrent state;
+    recurrent state.  A sliding-window arch (h2o-danube) pads up to its
+    window W at most, and groups by exact length once a prompt exceeds W;
+    its O(W) ring is a slot row, never paged, so it reserves zero pages;
   * ALL active slots then share one fused decode block: ``decode_block``
     iterations of decode step -> sample -> stop detection -> buffer update
     on the device, then ONE host round-trip that drains the emitted
@@ -662,13 +664,19 @@ class Engine:
         """Split (slot, request) placements into prefill micro-batches: by
         tier first (one params tree a call), then one group for the
         attention families and one per prompt length for ssm and hybrid
-        (``repro/serving/engine.py::_admission_groups``)."""
+        (``repro/serving/engine.py::_admission_groups``).  A sliding-window
+        tier whose longest prompt exceeds the window also groups by exact
+        length: the ring keeps the last W positions of the PADDED prompt, so
+        a shorter prompt in the pad would land in the wrong slots."""
         by_tier: Dict[int, list] = {}
         for slot, req in placed:
             by_tier.setdefault(req.tier, []).append((slot, req))
         groups = []
+        W = self.cfg.sliding_window
         for tier in sorted(by_tier):
-            if self.cfg.family not in _EXACT_LEN_FAMILIES:
+            exact = self.cfg.family in _EXACT_LEN_FAMILIES or (
+                W is not None and max(int(req.prompt.size) for _, req in by_tier[tier]) > W)
+            if not exact:
                 groups.append(by_tier[tier])
                 continue
             by_len: Dict[int, list] = {}
@@ -681,12 +689,16 @@ class Engine:
         """Bucket the micro-batch shape: batch rows up to the next power of
         two (capped at n_slots; dummy rows are discarded by the scatter) and,
         for the attention families, prompt length up to the next power of two
-        >= 8 (capped at max_len), the reference's buckets.  An ssm or hybrid
+        >= 8 (capped at max_len, and at the sliding window, past which the
+        ring forbids padding), the reference's buckets.  An ssm or hybrid
         group keeps its exact length."""
         G = min(_next_pow2(n_reqs, 1), self.n_slots)
         P = max_prompt
         if self.cfg.family not in _EXACT_LEN_FAMILIES:
-            P = max(max_prompt, min(_next_pow2(max_prompt, 8), self.max_len))
+            cap = self.max_len
+            if self.cfg.sliding_window is not None:
+                cap = min(cap, self.cfg.sliding_window)
+            P = max(max_prompt, min(_next_pow2(max_prompt, 8), cap))
         return G, P
 
     def _prefill_group(self, group) -> List[Request]:

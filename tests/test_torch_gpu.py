@@ -428,7 +428,7 @@ def test_gpu_flash_attention(cuda, S, window, q_offset, hd, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("G", [1, 3, 4, 6, 8])
 @pytest.mark.parametrize("S", [70, 200])  # not multiples of the 64-row tile
 def test_gpu_flash_attention_bf16_tiles(cuda, S, G, hd):
@@ -455,6 +455,42 @@ def test_gpu_flash_attention_q_offset(cuda, G, hd, window, dtype):
     got = flash_attention(q, k, v, causal=True, window=window, q_offset=Skv - Sq)
     want = ref.chunked_attention_ref(q, k, v, causal=True, window=window, q_offset=Skv - Sq)
     _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window,q_offset", [(256, None, 0), (200, 48, 0), (70, None, 230), (70, 48, 230),
+                                               (5000, 4096, 0)])
+def test_gpu_flash_attention_hd80(cuda, S, window, q_offset, dtype):
+    """h2o-danube's head dim 80 (five 32-byte swizzle chunks a row, an n80
+    wgmma) at its 32/8 heads: the static prefill's (4, 256), a ragged
+    windowed prompt, a chunk at q_offset over a longer cache, and a prompt
+    past the 4096 window (one batch row), whose blocks skip the key tiles
+    before their reach."""
+    B = 1 if S > 1000 else 4
+    H, KV, hd = 32, 8, 80
+    q = _rand((B, S, H, hd), 40, dtype, cuda)
+    k, v = _rand((B, S + q_offset, KV, hd), 41, dtype, cuda), _rand((B, S + q_offset, KV, hd), 42, dtype, cuda)
+    got = flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    want = ref.chunked_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset)
+    _close(got, want, ATTN_TOL[dtype])
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_decode_attention_wrapped_ring_hd80(cuda, dtype):
+    """The decode over h2o-danube's ring once it has wrapped: 8 slots of 4096
+    positions, every slot valid (the prefix mask of n_valid = min(pos + 1,
+    W) = W), 32/8 heads at head dim 80; and a ring still filling beside it."""
+    B, W, H, KV, hd = 8, 4096, 32, 8, 80
+    q = _rand((B, 1, H, hd), 43, dtype, cuda)
+    k, v = _rand((B, W, KV, hd), 44, dtype, cuda), _rand((B, W, KV, hd), 45, dtype, cuda)
+    for n_valid in ([W] * B, [W, W, 1, 4095, W, 100, W, 0]):
+        valid = torch.arange(W, device=cuda)[None, :] < torch.tensor(n_valid, device=cuda)[:, None]
+        got = decode_attention(q, k, v, valid)
+        _close(got, ref.decode_attention_ref(q, k, v, valid), ATTN_TOL[dtype])
+        assert torch.equal(got, decode_attention(q, k, v, valid))
 
 
 @pytest.mark.gpu
@@ -692,7 +728,8 @@ def test_gpu_decode_graph_replay_equals_eager(cuda, kernel, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "mamba2-130m",
+                                  "h2o-danube-1.8b"])
 @pytest.mark.parametrize("page_size,chunk", [(None, None), (4, 5)])
 def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
     """The captured decode block (greedy and sampled variants, one request of
@@ -730,7 +767,7 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
             eng.step()
         assert all(r.status == "ok" and len(r.tokens) == 10 for r in reqs)
         assert (eng.graph_replays > 0) == graph
-        if page_size is not None and model.cfg.family != "ssm":
+        if page_size is not None and model.cfg.family != "ssm" and model.cfg.sliding_window is None:
             assert paged_mod.KERNEL.launches > before
         if model.cfg.family in ("ssm", "hybrid"):
             assert ssd_mod.KERNEL.launches == before_ssd + model.cfg.n_layers * len(eng.prefill_batches)
@@ -738,6 +775,47 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
             assert batched_mod.KERNEL.launches > before_batched
         out[graph] = [r.tokens for r in reqs]
     assert out[True] == out[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page_size", [None, 4])
+def test_gpu_engine_swa_ring_wraps_graph_equals_eager(cuda, page_size):
+    """Reduced h2o-danube (window 32) with prompts below, at and past the
+    window and 30 new tokens each, so every ring wraps inside the captured
+    block: graph tokens == eager tokens, each request's tokens those of
+    greedy_generate alone, the flash kernel launched with the window and the
+    flat decode kernel over the ring (no page reserved)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import dispatch
+    from repro_torch.serving import Engine, Request
+    from repro_torch.train.serve_step import greedy_generate
+
+    model = build_model(get_arch("h2o-danube-1.8b", reduced=True), device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    W = model.cfg.sliding_window
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=n) for n in (20, W, W + 9, W + 9, 3)]
+    out = {}
+    for graph in (True, False):
+        eng = Engine(model, params, n_slots=4, max_len=W + 40, page_size=page_size, decode_block=4,
+                     cuda_graph=graph)
+        before = (flash_mod.KERNEL.launches, decode_mod.KERNEL.launches)
+        dispatch.reset_counters()
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=30)) for p in prompts]
+        while eng.has_work:
+            eng.step()
+        assert all(r.status == "ok" and len(r.tokens) == 30 for r in reqs)
+        assert (eng.graph_replays > 0) == graph and eng.peak_pages_in_use == 0
+        assert flash_mod.KERNEL.launches > before[0] and decode_mod.KERNEL.launches > before[1]
+        assert all(k[2][3] == W for k in dispatch.counters() if k[0] == "flash_attention")
+        out[graph] = [r.tokens for r in reqs]
+    assert out[True] == out[False]
+    for p, toks in zip(prompts, out[True]):
+        batch = {"tokens": torch.as_tensor(p[None], device=cuda)}
+        assert greedy_generate(model, params, batch, steps=30, max_len=W + 40)[0].tolist() == toks
 
 
 @pytest.mark.gpu

@@ -167,9 +167,9 @@ def test_build_model_runs_on_the_card_by_default():
 
 
 def test_unported_archs_and_families_raise():
-    # h2o-danube's sliding-window attention (the SWA ring) is not ported
+    # deepseek-v2's MLA attention (and its shared experts) is not ported
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("h2o-danube-1.8b")
+        get_arch("deepseek-v2-236b")
     cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="vlm")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg, device="cpu")
