@@ -20,6 +20,8 @@
     python3 chip_smoke.py --h2o-only
                              # phase 2's h2o-danube checks and phase 22 (the sliding-window
                              # ring) alone
+    python3 chip_smoke.py --deepseek-only
+                             # phase 2's deepseek-v2 checks and phase 23 (MLA) alone
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -72,7 +74,16 @@ Phases, in order; any failure exits non-zero before the last line:
    in-window pairs only and its library call SDPA under the window mask
    (bf16); decode_attention over a wrapped ring of 4096 slots, 8 rows,
    every slot valid; lowrank_matmul at the w_gate (2560 x 768 x 6912) at M
-   4 and 8.
+   4 and 8.  At phase 23's shapes (deepseek-v2: 128/128 heads, MLA's q/k
+   head dim 192 with v 128; 160 experts top-6 at rank 461): flash_attention
+   at (4, 256), causal, and a chunk of 70 queries at q_offset 186 over 256
+   keys (the library call SDPA at E 192 / Ev 128 where a backend takes it);
+   the batched low-rank kernel on one layer's w_gate and w_down stacks (160
+   x C 128) with every row live, then at the decode occupancy (8 tokens x
+   top-6, numpy seed 0); lowrank_matmul at wo (16384 x 1536 x 5120) and
+   wq_b (1536 x 461 x 24576) at M 4 and 8; the sketch GEMM at one expert's
+   w_gate (5120 x 1536, l 461), W @ Y and W^T @ X.  Phase 1 also prints each
+   flash instance's registers and spills, (192, 128) among them.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
@@ -262,6 +273,31 @@ Phases, in order; any failure exits non-zero before the last line:
    never padded past it; the cache's bytes equal at max_len 20480 and at
    4096.  Prints the engine's tok/s (host clock), the block's device ms and
    idle share, and the phase's wall seconds.
+23. deepseek-v2-236b at every published width (d 5120, 128 heads, MLA:
+   q_lora 1536, kv_lora 512, q/k head dim 192 = nope 128 + rope 64, v 128;
+   layer 0 dense with d_ff 12288, then 160 routed experts top-6 + 2 shared,
+   expert d_ff 1536; vocab 102400, untied head; bf16) with n_layers cut 60 ->
+   3 (1 dense + 2 MoE; the dense 60 layers, ~471 GB in bf16, do not fit one
+   card; 9.331 B params), random weights (seed 0), spectralized (seed 9),
+   compressed at alpha 0.3, q = 4, min_dim 32; it runs after phase 22 and
+   frees its model before the summary.  Gates: the reference's compression
+   decisions (DEEPSEEK_DECISIONS) and ranks (154/173/461/922/1536); on layer
+   1's expert 0 w_gate, q = 4's normalized error <= q = 1's.  (a) The static
+   path at phase 3's shape (lowrank_matmul, the batched kernel and the flash
+   kernel launched, neither decode kernel); auto vs reference with the
+   routing replayed (top-6 and the shared experts), bf16 within 5% and fp32
+   within 1e-2.  (b) Phase 7's engine gates on phase 7's trace (paged == flat
+   on the flat pool's capacity; the chunks run MLA's absorbed path, the
+   monolithic prefill the flash kernel); no linear outside the kernels but
+   the absorbed path's products (``dispatch.MLA_OP``: the materialized
+   wkv_b, the absorption, the latent scores and context, the w_uv product),
+   named and counted; the decode kernels launched 0 times.  (c) Phase 19's
+   sharing run (a) at chunk 64 = the page, shared == unshared bit for bit,
+   pages shared; the session run (c) reported, not gated (the reference
+   fails its own MLA session-reuse case).  (d) One captured decode block
+   profiled: device ms, idle share, the batched kernel's share, torch's own
+   kernels' time, and the absorbed products' share of an eager decode step
+   (profiler ranges).  Prints the phase's wall seconds.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -272,7 +308,10 @@ fp32 shapes, the low-rank kernel's at M 8, 256, 1024 and Table 4.1's fc1,
 the batched kernel's at the decode and skewed occupancies, and phases
 19-20's shapes (attention at G = 3 and 8, each w_gate, qwen2's sketch
 GEMMs) and phase 22's (flash at hd 80 and at (1, 16384) in the window, the
-decode over the wrapped ring, h2o's w_gate at M 4 and 8), each beside its
+decode over the wrapped ring, h2o's w_gate at M 4 and 8) and phase 23's
+(the MLA flash at q/k 192 / v 128, the batched kernel over 160 experts
+every row live and at top-6's decode occupancy, wo and wq_b at M 4 and 8,
+the sketch GEMM at an expert's w_gate), each beside its
 launches on the same model's run (``launches_run``:
 its engine, its flat engine for decode_attention, its compression for the
 sketch GEMM, since the compressed heads' logits are low-rank applies).  The line
@@ -369,6 +408,27 @@ H2O_WINDOW = dict(n_slots=8, max_len=20480, decode_block=8)
 H2O_WINDOW_PROMPTS = (4000, 4032, 4096, 4097, 6144, 6144, 8192, H2O_LONG_PROMPT)
 H2O_WINDOW_GEN = 96
 
+# the MLA main path (phase 23): deepseek-v2-236b at every published width, n_layers cut 60 -> 3
+# (1 dense + 2 MoE layers: the dense 60 layers, ~471 GB in bf16, do not fit one card)
+DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-v2-236b", 3
+DEEPSEEK_E, DEEPSEEK_R, DEEPSEEK_TOPK = 160, 461, 6  # experts, the experts' rank at alpha 0.3, top-k
+# phase 2 at its shapes: one MoE layer's expert stacks at the capacity floor (C, K, N), and the
+# 2-D low-rank kernel at wo and wq_b (K, rank, N)
+DEEPSEEK_BATCHED = [(128, 5120, 1536, "w_gate"), (128, 1536, 5120, "w_down")]
+DEEPSEEK_LOWRANK = [(16384, 1536, 5120, "wo"), (1536, 461, 24576, "wq_b")]
+# the compression decisions at full width, as the reference makes them (alpha 0.3, min_dim 32):
+# every MLA linear, the dense FFN, the routed and shared experts and the head compressed; the
+# router, the embedding and the norm scales (q_norm and kv_norm among them) dense
+DEEPSEEK_DECISIONS = {
+    **{f"{sub}/attn/{n}": True for sub in ("dense_layers", "layers") for n in ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")},
+    **{f"{sub}/attn/{n}/scale": False for sub in ("dense_layers", "layers") for n in ("q_norm", "kv_norm")},
+    **{f"{sub}/{n}/scale": False for sub in ("dense_layers", "layers") for n in ("attn_norm", "mlp_norm")},
+    **{f"dense_layers/mlp/{n}": True for n in ("w_gate", "w_up", "w_down")},
+    **{f"layers/moe/{g}/{n}": True for g in ("experts", "shared") for n in ("w_gate", "w_up", "w_down")},
+    "layers/moe/router/gate_w": False, "lm_head": True, "embed": False,
+}
+DEEPSEEK_RANKS = [154, 173, 461, 922, 1536]  # wkv_b, wkv_a, wq_a/wq_b/experts, shared, wo/dense FFN/head
+
 # the serving engine's main path (phases 7 and 11)
 ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
 N_REQUESTS, PROMPT_RANGE, GEN_RANGE = 16, (32, 512), (16, 64)
@@ -399,6 +459,32 @@ def ptxas_summary(log: str) -> str:
             spills += int(m.group(2)) + int(m.group(3))
     return (f"{len(regs)} kernels: registers {regs} (max {max(regs, default=0)}); static shared memory max "
             f"{max(smem)} bytes; stack max {max(stack)} bytes; spill stores + loads {spills} bytes")
+
+
+def ptxas_flash_instances(log: str) -> str:
+    """The flash library's instances from its ``-Xptxas -v`` log: (kind, q/k
+    head dim, v head dim) -> registers and spill bytes."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            dims = re.search(r"flash_(wgmma_kernel|attention_kernel)I(?:f)?Li(\d+)ELi(\d+)E", name)
+            entry = None if dims is None else {"kind": "bf16 wgmma" if dims.group(1) == "wgmma_kernel" else "fp32 FMA",
+                                                "hd": int(dims.group(2)), "vd": int(dims.group(3)), "spill": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            out.append(entry)
+            entry = None
+    return "; ".join(f"{e['kind']} ({e['hd']}, {e['vd']}): {e.get('registers')} registers, {e['spill']} bytes spilled"
+                     for e in sorted(out, key=lambda e: (e["kind"], e["hd"], e["vd"])))
 
 
 def sass_count(so, opcode: str) -> "int | None":
@@ -518,16 +604,17 @@ BATCHED_SHAPES = [(128, 4096, 6400, "decode w_gate"), (128, 6400, 4096, "decode 
 MOE_E, MOE_R, MOE_SLOTS, MOE_TOPK = 16, 1229, 8, 2
 
 
-def moe_decode_counts(occupancy: str):
-    """Capacity rows filled per expert: "full" every row; "decode" phi3.5-moe's
-    decode occupancy, 8 tokens x top-2 distinct experts drawn with numpy seed
-    0; "skewed" all 16 assignments on 2 experts (the synthetic router's skew)."""
+def moe_decode_counts(occupancy: str, E: int = MOE_E, top_k: int = MOE_TOPK):
+    """Capacity rows filled per expert: "full" every row; "decode" the decode
+    occupancy, 8 tokens x top-k distinct experts of E drawn with numpy seed 0
+    (phi3.5-moe: top-2 of 16; deepseek-v2: top-6 of 160); "skewed" all 16 of
+    phi's assignments on 2 experts (the synthetic router's skew)."""
     import numpy as np
 
     if occupancy == "decode":
         rng = np.random.default_rng(0)
-        ids = np.stack([rng.choice(MOE_E, size=MOE_TOPK, replace=False) for _ in range(MOE_SLOTS)])
-        return np.bincount(ids.reshape(-1), minlength=MOE_E)
+        ids = np.stack([rng.choice(E, size=top_k, replace=False) for _ in range(MOE_SLOTS)])
+        return np.bincount(ids.reshape(-1), minlength=E)
     if occupancy == "skewed":
         counts = np.zeros(MOE_E, dtype=np.int64)
         counts[[3, 11]] = MOE_SLOTS
@@ -901,6 +988,7 @@ def phase_kernels() -> dict:
     g1 = phase_ssm_kernels(rnd, gen, records)
     dense = phase_dense_kernels(rnd, gen, gemm_tol, attn_tol, records)
     phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records)
+    phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records)
 
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded; x^T in the
     # storage runtime/dispatch.logits_apply gives it (aligned_rows: row stride 8)
@@ -1491,7 +1579,7 @@ def plain_kernel(op: str):
         setattr(dispatch, attr, kernel)
 
 
-def phase_reference(model, params, batch, tag: str = "reference"):
+def phase_reference(model, params, batch, tag: str = "reference", rel: float = 5e-2):
     """The model under backend "auto" (kernels) against "reference" (plain
     versions): prefill logits and the first decode step's.  A moe layer's
     top-k is discontinuous: two runs that differ by a bf16 ulp can send a
@@ -1506,8 +1594,8 @@ def phase_reference(model, params, batch, tag: str = "reference"):
 
     from repro_torch.runtime.dispatch import use_dispatch
 
-    rel = 5e-2  # of the reference logits' max |value|: bf16 activations through every layer, each
-    # side rounding the same intermediates but possibly landing one ulp apart
+    # rel, of the reference logits' max |value|: 5e-2 in bf16 (activations through every layer,
+    # each side rounding the same intermediates but possibly landing one ulp apart); 1e-2 in fp32
     results, recorded = {}, {}
     for backend in ("auto", "reference"):
         replay = [None, None] if backend == "auto" or not recorded["auto"][0] else \
@@ -1756,12 +1844,27 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
         if windows != [W]:
             fail(f"{tag}: flash_attention ran with windows {windows}, not the arch's {W}")
     # every low-rank apply of the main run went through a kernel: no plain version, and no dense
-    # product but those of linears the policy left dense
+    # product but those of linears the policy left dense; an MLA model's absorbed-path products
+    # (the reference's XLA einsums, no Pallas kernel) are named and counted, nothing else
+    mla = model.cfg.family == "moe" and bool(model.cfg.kv_lora_rank)
     plain = {k: n for k, n in dispatch.counters().items()
              if (k[0] == "dense" and tuple(k[2]) not in dense_ok)
-             or (k[0] == "lowrank_matmul" and k[1] not in ("fused", "fused_batched"))}
+             or (k[0] == "lowrank_matmul" and k[1] not in ("fused", "fused_batched"))
+             or (k[0] == dispatch.MLA_OP and not mla)}
     if plain:
         fail(f"the {tag} main path ran linears outside the kernels: {plain}")
+    if mla:
+        absorbed = {}
+        for (op, _, sig), n in dispatch.counters().items():
+            if op == dispatch.MLA_OP:
+                absorbed[sig[0]] = absorbed.get(sig[0], 0) + n
+        say(f"[{tag}] outside the kernels, by name: the {dispatch.MLA_OP} products, {sum(absorbed.values())} calls "
+            f"by product {absorbed}; decode_attention launches {launches['decode_attention']}, "
+            f"paged_decode_attention launches {launches['paged_decode_attention']} (the MLA decode is in latent "
+            f"space)")
+        if not absorbed or launches["decode_attention"] or launches["paged_decode_attention"]:
+            fail(f"{tag}: {dispatch.MLA_OP} products {absorbed}, decode kernel launches "
+                 f"{launches['decode_attention']} / {launches['paged_decode_attention']}")
     if eng.graph_replays <= 0:
         fail(f"the {tag} main path never replayed its decode graph")
     recurrent = model.cfg.family in ("ssm", "hybrid")
@@ -1800,8 +1903,10 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     if paged_tok != flat_tok:
         fail(f"{tag}: paged-engine tokens differ from the flat engine's")
     say(f"[{tag}] paged tokens == flat tokens: True")
-    if model.cfg.family != "ssm" and flat_launches["decode_attention"] <= 0:
+    if model.cfg.family != "ssm" and not mla and flat_launches["decode_attention"] <= 0:
         fail(f"the {tag} flat run never launched decode_attention")
+    if mla and flat_launches["decode_attention"]:
+        fail(f"the {tag} flat run launched decode_attention {flat_launches['decode_attention']} times (MLA: none)")
     if model.prefill_chunk is None:
         return {"tok_s": tps, "launches": launches, "launches_flat_engine": flat_launches,
                 "prefill_batches": len(eng.prefill_batches)}
@@ -1895,6 +2000,7 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     wall = (time.perf_counter() - t) / blocks  # profiler off; each step ends in the block's drain
     tok_s = (eng.decoded_tokens - tok0) / (wall * blocks)
     ring = model.cfg.sliding_window is not None
+    mla = model.cfg.family == "moe" and bool(model.cfg.kv_lora_rank)
     attn_lib, rows_tag, what = ((decode_mod.KERNEL, "FlatRows", "ring") if ring
                                 else (paged_mod.KERNEL, "PagedRows", "paged"))
     libs = (attn_lib, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL)
@@ -1909,17 +2015,25 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
         fail(f"a slot finished inside the decode-block profile ({eng.n_active} of {ENGINE['n_slots']} active)")
     rows = device_rows(prof)
     names = " ".join(r[2] for r in rows)
-    if rows_tag not in names:
-        fail(f"the trace of one decode-block replay does not name the {what} decode kernel: {names[:400]}")
     # one kernel launch a decode call: the trace's launches of kernels built on PagedRows (FlatRows
-    # for a ring) equal the wrapper's calls, and no second pass (combine) runs beside them
-    paged_rows = [r for r in rows if rows_tag in r[2]]
+    # for a ring) equal the wrapper's calls, and no second pass (combine) runs beside them; an MLA
+    # model decodes in latent space through torch ops, and neither decode kernel runs
+    paged_rows = [r for r in rows if rows_tag in r[2] or "FlatRows" in r[2]] if mla else \
+        [r for r in rows if rows_tag in r[2]]
     paged_launches, paged_ms = sum(r[1] for r in paged_rows), sum(r[0] for r in paged_rows) / 1e3
-    say(f"[{tag}] {what} decode: {calls} calls, {paged_launches} kernel launches in the trace "
-        f"({', '.join(sorted({r[2][:60] for r in paged_rows}))}), {paged_ms:.4f} ms device")
-    if calls <= 0 or paged_launches != calls or "combine_kernel" in names:
-        fail(f"{tag}: {calls} {what} decode calls ran {paged_launches} {rows_tag} kernel launches (one a call "
-             f"expected)")
+    if mla:
+        say(f"[{tag}] MLA decode: {calls} paged-kernel calls, {paged_launches} decode-kernel launches in the trace "
+            f"(none expected: the absorbed path)")
+        if calls or paged_launches:
+            fail(f"{tag}: the MLA decode block ran {calls} paged decode calls, {paged_launches} decode launches")
+    else:
+        if rows_tag not in names:
+            fail(f"the trace of one decode-block replay does not name the {what} decode kernel: {names[:400]}")
+        say(f"[{tag}] {what} decode: {calls} calls, {paged_launches} kernel launches in the trace "
+            f"({', '.join(sorted({r[2][:60] for r in paged_rows}))}), {paged_ms:.4f} ms device")
+        if calls <= 0 or paged_launches != calls or "combine_kernel" in names:
+            fail(f"{tag}: {calls} {what} decode calls ran {paged_launches} {rows_tag} kernel launches (one a call "
+                 f"expected)")
     # the 2-D low-rank calls (decode: M = 8 slots, the skinny kernel): at most two launches a
     # call (one a stage), no reduce pass; the wgmma tiles' symbol is the sketch GEMM's too
     skinny = sum(r[1] for r in rows if SKINNY_KERNEL.search(r[2]))
@@ -1956,6 +2070,13 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
             f"(a liveness pass and two stages a call)")
         if out["batched_launches"] != 3 * batched_calls:
             fail(f"{tag}: {batched_calls} batched calls ran {out['batched_launches']} launches (three a call)")
+    if mla:
+        own = sum(r[0] for r in rows if OWN_KERNELS.search(r[2])) / 1e3
+        out["block_torch_kernels_ms"] = kernel_ms - own
+        say(f"[{tag}] torch's own kernels in the block (the {ENGINE['decode_block']} steps' absorbed MLA products, "
+            f"MoE dispatch and combine, norms, rotary, routing): {kernel_ms - own:.3f} ms of {kernel_ms:.3f} ms "
+            f"kernel time")
+        out.update(mla_absorbed_share(model, params, eng))
     return out
 
 
@@ -3268,7 +3389,7 @@ def share_verdict(tag, label, pair, *, bitwise: bool = True) -> dict:
     return row
 
 
-def phase_sharing(model, params, tag: str, runs=("a", "b", "c", "d", "a256")) -> dict:
+def phase_sharing(model, params, tag: str, runs=("a", "b", "c", "d", "a256"), report_only=()) -> dict:
     """The sharing runs: two engines that differ only in ``share_prefix``
     (page 64, 8 slots, max_len 640, 40 pages, decode block 8, greedy, the
     decode block a CUDA graph), prefill chunk 64 = the page, every prompt
@@ -3282,7 +3403,9 @@ def phase_sharing(model, params, tag: str, runs=("a", "b", "c", "d", "a256")) ->
     rematerialized decode pages); then drop_session frees > 0 cached pages.
     (d) warm_cache_pages 4 in a 16-page pool (gate: prefix_evictions > 0).
     "a256": (a) at the engine's usual chunk of 256, where prompts up to 256
-    tokens prefill through the flash kernel: reported, no bitwise gate."""
+    tokens prefill through the flash kernel: reported, no bitwise gate.  A
+    run named in ``report_only`` is printed and gates nothing (deepseek-v2's
+    session run: the reference fails its own MLA session-reuse case)."""
     import numpy as np
     import torch
 
@@ -3331,14 +3454,23 @@ def phase_sharing(model, params, tag: str, runs=("a", "b", "c", "d", "a256")) ->
             dropped[eng.share_prefix] = (past, freed, eng.prefix_cached_pages)
             return first + second
 
-        rows["c"] = share_verdict(tag, "(c) session cache", share_pair(model, params, session, "(c) sessions", tag))
+        gated = "c" not in report_only
+        pair = share_pair(model, params, session, "(c) sessions", tag)
+        rows["c"] = share_verdict(tag, "(c) session cache" + ("" if gated else " (reported, no gate)"), pair,
+                                  bitwise=gated)
         past, freed, left = dropped[True]
         rows["c"].update({"matched_past_turn1_prompt": past, "drop_session_freed": freed, "cached_after": left})
+        if not rows["c"]["tokens_equal"]:
+            i, j = next((i, next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y))
+                        for i, (a, b) in enumerate(zip(pair[False][0], pair[True][0])) if a.tokens != b.tokens)
+            rows["c"].update({"first_differing_request": i, "first_differing_token": j})
         say(f"[{tag}] (c) turn 2 matched {past} tokens past turn 1's prompt; drop_session freed {freed} cached "
-            f"pages ({left} left)")
-        if min(past) <= 0:
+            f"pages ({left} left)" + ("" if rows["c"]["tokens_equal"] else
+                                      f"; first difference: request {rows['c']['first_differing_request']}, "
+                                      f"token {rows['c']['first_differing_token']}"))
+        if gated and min(past) <= 0:
             fail(f"{tag} (c): turn 2 matched no page past turn 1's prompt")
-        if freed <= 0:
+        if gated and freed <= 0:
             fail(f"{tag} (c): drop_session freed no cached page")
     if "d" in runs:
         pair = share_pair(model, params, lambda e: sorted(all_at_once(e), key=lambda r: r.uid),
@@ -3656,6 +3788,368 @@ def phase_h2o_only() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: deepseek-v2-236b, multi-head latent attention
+# --------------------------------------------------------------------------- #
+def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
+    """Phase 2 at deepseek-v2's shapes, bf16 and fp32: the flash kernel at the
+    MLA prefill (128/128 heads, q/k head dim 192, v head dim 128, causal) at
+    the static (4, 256), and a ragged chunk of 70 queries at q_offset 186
+    over 256 keys (Skv > Sq); the batched low-rank kernel on one MoE layer's
+    expert stacks (160 experts x C 128, rank 461: w_gate 5120 -> 1536,
+    w_down 1536 -> 5120) with every capacity row live, then in bf16 at the
+    decode occupancy (8 tokens x top-6 distinct experts, numpy seed 0), its
+    bound counting the live experts' factors; lowrank_matmul at wo (16384 x
+    1536 x 5120) and wq_b (1536 x 461 x 24576) at M 4 and 8; the sketch GEMM
+    at one expert's w_gate (W 5120 x 1536, l 461), W @ Y and W^T @ X.  The
+    flash kernel's library call is SDPA at E 192 / Ev 128 where a backend
+    takes it.  The bf16 records go into ``records`` under "<kernel>
+    deepseek ..."."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lowrank_matmul import lowrank_matmul
+    from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched
+    from repro_torch.kernels.sketch_matmul import sketch_matmul
+
+    dev = torch.device("cuda")
+    cfg = get_arch(DEEPSEEK_ARCH)
+    H, hd, vd = cfg.n_heads, cfg.qk_head_dim, cfg.v_head_dim
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        for B, Sq, Skv in ((BATCH, PROMPT, PROMPT), (2, 70, PROMPT)):
+            off = Skv - Sq
+            q, k, v = rnd((B, Sq, H, hd), dtype), rnd((B, Skv, H, hd), dtype), rnd((B, Skv, H, vd), dtype)
+            got = flash_attention(q, k, v, causal=True, q_offset=off)
+            pairs = sum(min(off + i + 1, Skv) for i in range(Sq))  # the causal (query, key) pairs
+            qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            mask = ref.attention_mask(Sq, Skv, causal=True, window=None, q_offset=off, device=dev)
+            library = (lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)) if off == 0 else \
+                (lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+            try:  # not every SDPA backend takes a value head dim other than the query's
+                library()
+                call = "SDPA, E 192 / Ev 128" + (", is_causal" if off == 0 else ", the causal mask at q_offset")
+            except RuntimeError as e:
+                library, call = None, f"none: SDPA at E 192 / Ev 128 raised {str(e)[:120]!r}"
+            check("flash_attention", [B, Sq, Skv, H, H, hd, vd, f"q_offset {off}"], dtype, got,
+                  ref.chunked_attention_ref(q, k, v, causal=True, q_offset=off), rel, why,
+                  kernel_fn=lambda: flash_attention(q, k, v, causal=True, q_offset=off),
+                  plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True, q_offset=off),
+                  library_fn=library, bytes_moved=nbytes(q, k, v) + B * Sq * H * vd * q.element_size(),
+                  ops=2 * B * H * pairs * (hd + vd), records=records if off == 0 else {},
+                  key="flash_attention deepseek mla" if off == 0 else None, extra={"library_call": call})
+            del q, k, v, qs, ks, vs, got, mask, library
+            torch.cuda.empty_cache()
+
+    E, r = DEEPSEEK_E, DEEPSEEK_R
+    cases = [(dtype, C, K, N, label, "full") for dtype in (torch.bfloat16, torch.float32)
+             for C, K, N, label in DEEPSEEK_BATCHED]
+    cases += [(torch.bfloat16, C, K, N, label, "decode") for C, K, N, label in DEEPSEEK_BATCHED]
+    for dtype, C, K, N, label, occ in cases:
+        rel, why = gemm_tol[dtype]
+        x = rnd((E, C, K), dtype)
+        counts = moe_decode_counts(occ, E, DEEPSEEK_TOPK)
+        if counts is not None:  # rows past each count: exact zeros, as models/moe.py leaves them
+            live = torch.arange(C, device=dev)[None, :] < torch.as_tensor(counts, device=dev)[:, None]
+            x = torch.where(live[..., None], x, torch.zeros((), dtype=dtype, device=dev))
+        n_live = E if counts is None else int((counts > 0).sum())
+        rows = E * C if counts is None else int(counts.sum())
+        A = aligned_rows(rnd((1, E, K, r), dtype))[0]
+        B = aligned_rows(rnd((1, E, r, N), dtype))[0]
+        got = lowrank_matmul_batched(x, A, B)
+        want = ref.lowrank_matmul_ref(x, A, B)
+        if counts is not None and not bool((got[~live] == 0).all()):
+            fail(f"lowrank_matmul_batched deepseek {label} at the decode occupancy: a row past its count is not zero")
+        esz = x.element_size()
+        factor = (K * r + r * N) * esz
+        xy = nbytes(x) + E * C * N * esz
+        all_ms, all_by = bound(E * factor + xy, 2 * E * C * (K * r + r * N), str(dtype).replace("torch.", ""))
+        check("lowrank_matmul_batched", [E, C, K, r, N, f"{DEEPSEEK_ARCH} {label}", f"{occ} occupancy"], dtype, got,
+              want, rel, why,
+              kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
+              plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+              library_fn=lambda: torch.bmm(torch.bmm(x, A), B),
+              bytes_moved=n_live * factor + xy, ops=2 * rows * (K * r + r * N),
+              records=records, key=f"lowrank_matmul_batched deepseek {label} {occ}",
+              extra={"live_experts": n_live, "live_rows": rows, "bound_all_ms": all_ms, "bound_all_by": all_by})
+        del x, A, B, got, want
+        torch.cuda.empty_cache()
+
+    for K, r, N, label in DEEPSEEK_LOWRANK:
+        for dtype, Ms in ((torch.bfloat16, (4, 8)), (torch.float32, (4,))):
+            rel, why = gemm_tol[dtype]
+            A, B = aligned_rows(rnd((K, r), dtype)), aligned_rows(rnd((r, N), dtype))
+            for M in Ms:
+                x = rnd((M, K), dtype)
+                check("lowrank_matmul", [M, K, r, N, f"{DEEPSEEK_ARCH} {label}"], dtype, lowrank_matmul(x, A, B),
+                      ref.lowrank_matmul_ref(x, A, B), rel, why,
+                      kernel_fn=lambda: lowrank_matmul(x, A, B), plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
+                      library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
+                      bytes_moved=nbytes(x, A, B) + M * N * x.element_size(), ops=2 * M * K * r + 2 * M * r * N,
+                      records=records, key=f"lowrank_matmul deepseek {label} M {M}")
+                del x
+            del A, B
+
+    C, D, ell = 5120, 1536, DEEPSEEK_R  # one expert's w_gate and RSI's sketch at its rank
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = gemm_tol[dtype]
+        W = rnd((C, D), dtype)
+        for trans, other in ((False, (D, ell)), (True, (C, ell))):
+            Y = aligned_rows(rnd(other, dtype))
+            M_out = D if trans else C
+            check("sketch_matmul", [M_out, other[0], ell, "trans_a" if trans else "plain", f"{DEEPSEEK_ARCH} w_gate"],
+                  dtype, sketch_matmul(W, Y, trans_a=trans), ref.sketch_matmul_ref(W, Y, trans_a=trans), rel, why,
+                  kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
+                  plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
+                  library_fn=lambda: torch.matmul(W.T if trans else W, Y),
+                  bytes_moved=nbytes(W, Y) + M_out * ell * W.element_size(), ops=2 * C * D * ell,
+                  records=records, key="sketch_matmul deepseek" + (" trans_a" if trans else ""))
+            del Y
+        del W
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek_main():
+    """deepseek-v2-236b at every published width and 3 of its 60 layers (the
+    dense first layer and two MoE layers): random weights (seed 0),
+    spectralized (seed 9), RSI-compressed at alpha 0.3 with q = 4 (RSI's
+    sketch GEMMs launched); the reference's decisions (DEEPSEEK_DECISIONS) and
+    ranks; q = 1 factorizes layer 1's expert 0 w_gate alone, for the error
+    gate.  Returns (model, params, batch, summary)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
+    from repro_torch.core.rsi import rsi_factors
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
+    from repro_torch.models.model import analytic_param_count, build_model
+
+    full = get_arch(DEEPSEEK_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    model = build_model(cfg)
+    dev = model.device
+    tag = "deepseek"
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = spectralize_params(model.init(gen(0)), gen(9))  # the random init tree is freed here
+    torch.cuda.synchronize()
+    say(f"[{tag}] {DEEPSEEK_ARCH}: d {cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {cfg.q_lora_rank}, kv_lora "
+        f"{cfg.kv_lora_rank}, q/k head dim {cfg.qk_head_dim} (nope {cfg.qk_nope_dim} + rope {cfg.qk_rope_dim}), v "
+        f"{cfg.v_head_dim}; {cfg.first_dense_layers} dense layer (d_ff {cfg.dense_d_ff}), {cfg.n_experts} experts "
+        f"top-{cfg.top_k} + {cfg.n_shared_experts} shared (d_ff {cfg.moe_d_ff}), vocab {cfg.vocab}, untied head, "
+        f"{cfg.dtype}; n_layers {full.n_layers} -> {cfg.n_layers} (depth only: the dense {full.n_layers} layers, "
+        f"{analytic_param_count(full) * 2 / 1e9:.1f} GB in bf16, do not fit one card); "
+        f"{analytic_param_count(cfg) / 1e9:.3f}B params; init + spectralize {time.perf_counter() - t0:.1f}s")
+    W = dense["layers"]["moe"]["experts"]["w_gate"][0, 0].clone()  # layer 1 (the first MoE layer), expert 0
+    libs = engine_libs()
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    ALIGN_COPIES.reset()
+    t = time.perf_counter()
+    params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t
+    comp_launches = {n: lib.launches for n, lib in libs.items()}
+    no_align_copies(f"{DEEPSEEK_ARCH} compression")
+    if comp_launches["sketch_matmul"] <= 0:
+        fail(f"{DEEPSEEK_ARCH}: RSI's sketch GEMMs never launched sketch_matmul during compression")
+    del dense
+    torch.cuda.empty_cache()
+    by_path = {l.path: l.compressed for l in rep.layers}
+    wrong = {p: by_path.get(p) for p, c in DEEPSEEK_DECISIONS.items() if by_path.get(p) != c}
+    if wrong:
+        fail(f"{DEEPSEEK_ARCH} compression decisions differ from the reference's: {wrong}")
+    ranks = sorted({l.rank for l in rep.layers if l.compressed})
+    say(f"[{tag}] compress q=4: {rep.summary()} ranks {ranks} in {comp_s:.1f}s; decisions == the reference's "
+        f"({len(DEEPSEEK_DECISIONS)} leaves); launches {comp_launches}")
+    if ranks != DEEPSEEK_RANKS:
+        fail(f"{DEEPSEEK_ARCH}: ranks {ranks}, not {DEEPSEEK_RANKS}")
+    fallbacks = {l.path: l.qr_fallbacks for l in rep.layers if l.qr_fallbacks}
+    say(f"[{tag}] sketches orthonormalized by Householder QR: {sum(fallbacks.values())}, by leaf {fallbacks}")
+    gate = params["layers"]["moe"]["experts"]["w_gate"]
+    k = gate["a"].shape[-1]
+    sv = torch.linalg.svdvals(W.float())
+    errs = {4: float(normalized_error_factored(W, gate["a"][0, 0], gate["b"][0, 0], sv[k], gen(2), iters=64))}
+    t = time.perf_counter()
+    A1, B1 = rsi_factors(W, k, 1, generator=gen(3))
+    torch.cuda.synchronize()
+    q1_s = time.perf_counter() - t
+    errs[1] = float(normalized_error_factored(W, A1, B1, sv[k], gen(2), iters=64))
+    del A1, B1, W
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] layer 1 expert 0 w_gate ({cfg.d_model}x{cfg.moe_d_ff}, k={k}) normalized error "
+        f"||W-AB||_2/s_(k+1): q=4 {errs[4]:.4f}, q=1 {errs[1]:.4f} (that one matrix in {q1_s:.2f}s); peak device "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated, init to compressed model) on {card_line()}")
+    if not errs[4] <= errs[1]:
+        fail(f"{DEEPSEEK_ARCH}: q=4 normalized error {errs[4]:.4f} > q=1's {errs[1]:.4f}")
+    toks = SyntheticLM(cfg, batch=BATCH, seq=PROMPT, kind="serve", seed=0).at_step(0)["tokens"]
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    summary = {"n_layers": cfg.n_layers, "ratio": rep.ratio, "ranks": ranks, "compress_s": comp_s,
+               "normalized_error": errs, "peak_gib": peak / 2**30, "compress_launches": comp_launches,
+               "qr_fallbacks": fallbacks}
+    return model, params, batch, summary
+
+
+def mla_absorbed_share(model, params, eng) -> dict:
+    """Device time of the absorbed MLA path's products (``dispatch.MLA_OP``)
+    in one eager decode step over the engine's live slots (the captured block
+    runs the same kernels, but a replay has no host ranges to attribute them
+    by): each product runs inside a ``record_function`` range and its
+    kernels' device time is summed.  Writes one more row into each slot's
+    cache, past what the engine has written: the engine is not run again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.runtime import dispatch
+
+    tokens = torch.as_tensor(eng._tokens[:, None], dtype=torch.int64, device=model.device)
+    pos = torch.as_tensor(eng._pos, dtype=torch.int64, device=model.device)
+    eng.cache["block_table"].copy_(torch.as_tensor(eng._bt, device=model.device))
+    originals = {n: getattr(dispatch, n) for n in ("mla_product", "mla_materialize")}
+
+    def ranged(fn):
+        def inner(*a, **kw):
+            with record_function(dispatch.MLA_OP):
+                return fn(*a, **kw)
+        return inner
+
+    for n, fn in originals.items():
+        setattr(dispatch, n, ranged(fn))
+    try:
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, eng.cache, tokens, pos)
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in originals.items():
+            setattr(dispatch, n, fn)
+    rows = [r for r in device_rows(prof) if r[2] != dispatch.MLA_OP]
+    step_ms = sum(r[0] for r in rows) / 1e3
+    mla_us = 0.0
+    for e in prof.events():
+        if e.name == dispatch.MLA_OP and getattr(e, "device_type", None) == DeviceType.CPU:
+            mla_us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    out = {"eager_step_kernel_ms": step_ms, "mla_absorbed_ms": mla_us / 1e3,
+           "mla_absorbed_share": (mla_us / 1e3) / step_ms if step_ms > 0 and mla_us > 0 else None}
+    say(f"[deepseek block] one eager decode step ({eng.n_active} slots): kernels {step_ms:.3f} ms device (sum of "
+        f"its kernels' times), of which the {dispatch.MLA_OP} products (materialize of wkv_b, the absorption, the "
+        f"latent scores and context, the w_uv product) "
+        + (f"{mla_us / 1e3:.3f} ms ({out['mla_absorbed_share']:.3f})" if mla_us > 0 else
+           "not measured (the trace attributes no device time to their ranges)"))
+    return out
+
+
+def phase_deepseek(runs: dict) -> dict:
+    """Phase 23: deepseek-v2-236b at every published width, 3 of 60 layers,
+    compressed (q = 4); (a) the static path at phase 3's shape, auto against
+    reference in bf16 (routing replayed, 5%) and fp32 (routing replayed,
+    1e-2); (b) phase 7's engine gates, the MLA decode through no decode
+    kernel and the absorbed path's products named; (c) sharing run (a) at
+    chunk 64 = the page, gated bit for bit, and the session run (c),
+    reported only; (d) one captured decode block profiled."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import greedy_generate
+
+    t0 = time.perf_counter()
+    tag = "deepseek"
+    model, params, batch, summary = phase_deepseek_main()
+    runs[f"{DEEPSEEK_ARCH} compression"] = summary["compress_launches"]
+    libs = {n: lib for n, lib in engine_libs().items() if n not in ("sketch_matmul", "ssd_scan")}
+    on_path = ("lowrank_matmul", "lowrank_matmul_batched", "flash_attention")
+    # (a) the static path: greedy_generate at phase 3's shape, counts reset just before
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    t = time.perf_counter()
+    out = greedy_generate(model, params, batch, steps=GEN, max_len=PROMPT + GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    static = {n: lib.launches for n, lib in libs.items()}
+    runs[f"{DEEPSEEK_ARCH} static"] = static
+    if tuple(out.shape) != (BATCH, GEN) or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_padded:
+        fail(f"{tag}: static tokens of shape {tuple(out.shape)} out of range")
+    say(f"[{tag}] static path: generated {tuple(out.shape)} in {dt:.3f}s = {BATCH * GEN / dt:.1f} tok/s (host "
+        f"clock, first call); launches {static}")
+    if any(static[n] <= 0 for n in on_path) or static["decode_attention"] or static["paged_decode_attention"]:
+        fail(f"{tag}: the static path's launches {static} (want {on_path} > 0, the decode kernels 0)")
+    summary["static_tok_s"] = BATCH * GEN / dt
+    phase_reference(model, params, batch, tag=f"{tag} reference")
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    p32 = params_fp32(params)
+    phase_reference(m32, p32, batch, tag=f"{tag} reference fp32", rel=1e-2)
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the engine on phase 7's trace
+    eng = phase_engine(model, params, tag=f"{tag} engine", on_path=on_path)
+    runs[f"{DEEPSEEK_ARCH} engine"], runs[f"{DEEPSEEK_ARCH} flat engine"] = eng["launches"], eng["launches_flat_engine"]
+    # (c) sharing at chunk 64 = the page; the session run reported only
+    summary["sharing"] = phase_sharing(model, params, tag=f"{tag} sharing", runs=("a", "c"), report_only=("c",))
+    # (d) one captured decode block
+    summary.update(phase_block_profile(model, params, tag=f"{tag} block"))
+    summary.update({"tok_s": eng["tok_s"], "phase_s": time.perf_counter() - t0})
+    say(f"[{tag}] phase 23 (engine tok/s on the host clock) " + json.dumps(summary))
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_deepseek_only() -> int:
+    """``--deepseek-only``: phase 2's deepseek-v2 checks and phase 23 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[deepseek-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    built = build_all()
+    for name, so in built.items():
+        log = so.with_suffix(".log")
+        if log.exists():
+            say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
+            if name == "flash_attention":
+                say(f"[ptxas flash_attention instances] {ptxas_flash_instances(log.read_text())}")
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    records: dict = {}
+    phase_deepseek_kernels(rnd, gen, gemm_tolerances(), attention_tolerances(), records)
+    say(f"[deepseek-only] phase 2 checks in {time.perf_counter() - t:.1f}s")
+    runs: dict = {}
+    phase_deepseek(runs)
+    say("[deepseek-only] launches " + json.dumps(runs))
+    say(f"[deepseek-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
 def phase_sharing_only() -> int:
     """``--sharing-only``: phases 19-20 alone."""
     import torch
@@ -3793,6 +4287,8 @@ def main() -> int:
         return phase_chunk_only()
     if "--h2o-only" in sys.argv:
         return phase_h2o_only()
+    if "--deepseek-only" in sys.argv:
+        return phase_deepseek_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -3812,6 +4308,8 @@ def main() -> int:
         log = so.with_suffix(".log")
         if log.exists():
             say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
+            if name == "flash_attention":
+                say(f"[ptxas flash_attention instances] {ptxas_flash_instances(log.read_text())}")
     for name, opcodes in REDESIGNED.items():
         for opcode in opcodes:
             n = sass_count(built[name], opcode)
@@ -3893,6 +4391,11 @@ def main() -> int:
     phase_h2o(runs)
     say(f"[h2o] phase 22 in {time.perf_counter() - t:.1f}s")
 
+    # phase 23: deepseek-v2-236b at 3 of 60 layers, MLA (its model freed inside)
+    t = time.perf_counter()
+    phase_deepseek(runs)
+    say(f"[deepseek] phase 23 in {time.perf_counter() - t:.1f}s")
+
     # `launches`: the kernel's count on the main run of the newest engine path that runs it (the
     # shape and dtype of its `ms`); phase 18's fp32 paper runs stand only in `launches_by_run`, and
     # phases 19-20's runs there and beside the records of their own shapes below
@@ -3936,12 +4439,26 @@ def main() -> int:
                 # decode over a wrapped ring, its w_gate at M 4 and 8
                 ("h2o_hd80", records, f"{name} h2o hd80"), ("h2o_window_16k", records, f"{name} h2o window 16k"),
                 ("h2o_ring_wrapped", records, f"{name} h2o ring"),
-                ("h2o_w_gate_m4", records, f"{name} h2o M 4"), ("h2o_w_gate_m8", records, f"{name} h2o M 8"))
+                ("h2o_w_gate_m4", records, f"{name} h2o M 4"), ("h2o_w_gate_m8", records, f"{name} h2o M 8"),
+                # phase 23's shapes: the MLA flash at q/k 192, v 128; the batched kernel over 160
+                # experts (every row live, and top-6's decode occupancy); wo and wq_b at M 4 and 8;
+                # the sketch GEMM at an expert's w_gate
+                ("deepseek_mla", records, f"{name} deepseek mla"),
+                ("deepseek_w_gate_full", records, f"{name} deepseek w_gate full"),
+                ("deepseek_w_down_full", records, f"{name} deepseek w_down full"),
+                ("deepseek_w_gate_decode", records, f"{name} deepseek w_gate decode"),
+                ("deepseek_w_down_decode", records, f"{name} deepseek w_down decode"),
+                ("deepseek_wo_m4", records, f"{name} deepseek wo M 4"),
+                ("deepseek_wo_m8", records, f"{name} deepseek wo M 8"),
+                ("deepseek_wq_b_m4", records, f"{name} deepseek wq_b M 4"),
+                ("deepseek_wq_b_m8", records, f"{name} deepseek wq_b M 8"),
+                ("deepseek_w_gate", records, f"{name} deepseek"),
+                ("deepseek_w_gate_trans_a", records, f"{name} deepseek trans_a"))
         for key, sub, rec_key in subs:
             if rec_key in sub:
                 entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                            "bound_ms", "bound_by")}
-                arch = next((a for a in [a for a, _ in DENSE_ARCHS] + [H2O_ARCH]
+                arch = next((a for a in [a for a, _ in DENSE_ARCHS] + [H2O_ARCH, DEEPSEEK_ARCH]
                              if key.startswith(a.split("-")[0])), None)
                 if arch is not None:  # the count of the same model's run (the window trace's for the 16k prompt)
                     mine = ("window engine",) if key == "h2o_window_16k" else ("engine", "flat engine", "compression")

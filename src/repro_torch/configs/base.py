@@ -97,6 +97,11 @@ class ArchConfig:
         two packages' parameter trees have identical shapes)."""
         return pad_to_multiple(self.vocab, 256)
 
+    @property
+    def qk_head_dim(self) -> int:
+        """The query/key head dim: nope + rope under MLA, else ``head_dim``."""
+        return (self.qk_nope_dim + self.qk_rope_dim) if self.kv_lora_rank else self.head_dim
+
     def param_count(self) -> int:
         """Analytic parameter count N."""
         from repro_torch.models.model import analytic_param_count

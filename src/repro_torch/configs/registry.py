@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }

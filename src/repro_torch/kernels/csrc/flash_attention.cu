@@ -44,11 +44,18 @@
 //   softmax state stay in registers.  P is rounded to bf16 in registers and
 //   is the register A operand of O += P V (m64n{hd}k16, V MN-major through
 //   the descriptor's transpose bit; at hd 80 an n80 product walking five
-//   column chunks).  O (64 x hd fp32) lives in registers: 128 a thread at
+//   column chunks).  O (64 x vd fp32) lives in registers: 128 a thread at
 //   hd 256, 40 at hd 80.
 // * A sliding window skips the key tiles wholly before the block's reach:
 //   at window 4096 a row walks at most 4096 + 64 + rows-a-block keys, not
 //   the whole prompt.
+// * MLA (deepseek-v2) attends at q/k head dim 192 (nope 128 + rope 64) with v
+//   at 128: the Q and K tiles take the 128-byte swizzle, three 64-element
+//   chunks a row, and the V tile its own (two chunks); S is twelve k16 steps,
+//   P V one n128 product, O 64 values a thread.  One K/V stage (66.5 KB of
+//   shared memory a block); the scale is q's hd**-0.5, the reference's
+//   (nope + rope)**-0.5.  Only the pairs with_head_dims lists are built: any
+//   other returns cudaErrorInvalidValue (the wrapper raises before that).
 //
 // The fp32 entry keeps the FMA kernel below (four threads a query row, K/V
 // tiles widened into shared memory): tensor cores would take fp32 through
@@ -168,11 +175,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KV,
            int causal, int window, int q_offset, float scale, void* stream) {
-    auto kernel = flash_attention_kernel<T, HD, HD>;
-    size_t bytes = smem_bytes<HD, HD>();
+    auto kernel = flash_attention_kernel<T, HD, VD>;
+    size_t bytes = smem_bytes<HD, VD>();
     cudaError_t e = repro::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
@@ -205,21 +212,29 @@ struct Cfg {
     static_assert(HD % 16 == 0 && NCH * CH == HD, "the head dim is a whole number of k16 chunks");
     static constexpr int CHUNK = 64 * SW;                     // bytes of one chunk of a 64-row tile
     static constexpr int TILE = NCH * CHUNK;                  // bytes of a 64-row tile (64 x HD bf16)
+};
+
+// A kernel instance: Q and K tiles at the q/k head dim HD, V tiles at VD
+template <int HD, int VD>
+struct Pair {
+    using QK = Cfg<HD>;
+    using V = Cfg<VD>;
     // K/V stages: two up to hd 64; one from hd 128, where a second would halve the blocks an
     // SM holds (shared memory) and the other resident blocks hide the load instead
-    static constexpr int STAGES = HD >= 128 ? 1 : 2;
+    static constexpr int STAGES = (HD >= 128 || VD >= 128) ? 1 : 2;
     // blocks an SM should hold: at hd 128, four (registers capped at 128 a thread) fill 132 SMs
     // with the main path's 512 blocks in one wave
-    static constexpr int MIN_BLOCKS = HD == 128 ? 4 : 1;
-    static constexpr int SMEM = TILE * (1 + 2 * STAGES) + 1024;  // Q, the K/V ring, alignment slack
+    static constexpr int MIN_BLOCKS = (HD == 128 && VD == 128) ? 4 : 1;
+    static constexpr int STAGE = QK::TILE + V::TILE;  // bytes of one K/V stage
+    static constexpr int SMEM = QK::TILE + STAGES * STAGE + 1024;  // Q, the K/V ring, alignment slack
 };
 
 // One key tile of the online softmax over this thread's two rows: mask (MASK:
 // some position of the tile is out of range, causal- or window-masked for
 // some row of the block), m, l, the correction of O, and p = exp(s - m) in
 // place of s.  Element (i, t, e) of s is row i (row0 + 8 i), column 8 t + 2 quad + e.
-template <bool MASK, int HD>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&o)[HD / 2], float (&m)[2], float (&l)[2],
+template <bool MASK, int VD>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&o)[VD / 2], float (&m)[2], float (&l)[2],
                                              const int (&q_pos)[2], int k0, int Skv, int causal, int window,
                                              int quad) {
     using repro::NEG_INF;
@@ -260,7 +275,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&o)[HD
         l[i] = l[i] * corr + psum;
         m[i] = m_new;
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t) {
+        for (int t = 0; t < VD / 8; ++t) {
             o[4 * t + 2 * i] *= corr;
             o[4 * t + 2 * i + 1] *= corr;
         }
@@ -275,19 +290,21 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
     return make_desc(tile + (kk / PER) * Cf::CHUNK + (kk % PER) * 32, 16, 8 * Cf::SW, Cf::SW);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, Cfg<HD>::MIN_BLOCKS)
+template <int HD, int VD>
+__global__ void __launch_bounds__(THREADS, Pair<HD, VD>::MIN_BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
                    int H, int KV, int GP, int causal, int window, int q_offset, float scale) {
-    using Cf = Cfg<HD>;
+    using Pr = Pair<HD, VD>;
+    using Cf = typename Pr::QK;
+    using Cv = typename Pr::V;
     using repro::NEG_INF;
     extern __shared__ uint8_t smem_raw[];
-    constexpr int STAGES = Cf::STAGES;
+    constexpr int STAGES = Pr::STAGES;
     __shared__ __align__(8) uint64_t bar_q, bar_kv[STAGES];
-    uint8_t* Qs = align1024(smem_raw);
-    auto Ks = [&](int s) { return Qs + Cf::TILE * (1 + 2 * s); };
-    auto Vs = [&](int s) { return Qs + Cf::TILE * (2 + 2 * s); };
+    uint8_t* Qs = align1024(smem_raw);  // every tile is a whole number of 1024-byte swizzle atoms
+    auto Ks = [&](int s) { return Qs + Cf::TILE + s * Pr::STAGE; };
+    auto Vs = [&](int s) { return Ks(s) + Cf::TILE; };
 
     const int G = H / KV, groups = G / GP, qrows = BQ / GP;
     const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (causal: last) position tiles first
@@ -304,12 +321,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
 
     auto load_kv = [&](int j) {
         const int s = j % STAGES, k0 = k_lo + j * BKV;
-        mbar_arrive_expect_tx(&bar_kv[s], 2 * Cf::TILE);
+        mbar_arrive_expect_tx(&bar_kv[s], Pr::STAGE);
 #pragma unroll
-        for (int c = 0; c < Cf::NCH; ++c) {
+        for (int c = 0; c < Cf::NCH; ++c)
             tma_load_4d(Ks(s) + c * Cf::CHUNK, &map_k, &bar_kv[s], c * Cf::CH, kvh, k0, b);
-            tma_load_4d(Vs(s) + c * Cf::CHUNK, &map_v, &bar_kv[s], c * Cf::CH, kvh, k0, b);
-        }
+#pragma unroll
+        for (int c = 0; c < Cv::NCH; ++c)
+            tma_load_4d(Vs(s) + c * Cv::CHUNK, &map_v, &bar_kv[s], c * Cv::CH, kvh, k0, b);
     };
     if (tid == 0) {
         mbar_init(&bar_q, 1);
@@ -344,9 +362,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
     for (int i = 0; i < 2; ++i) q_pos[i] = q_offset + q0 + (row0 + 8 * i) / GP;
 
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float o[HD / 2];
+    float o[VD / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < VD / 2; ++i) o[i] = 0.f;
     const uint32_t q_tile = smem_u32(Qs);
 
     for (int j = 0; j < n_tiles; ++j) {
@@ -367,9 +385,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         // the mask, where some position of the tile is out of range or masked for some row
         const bool mask = k0 + BKV > Skv || (causal && k0 + BKV - 1 > q_first) || (window > 0 && q_last - k0 >= window);
         if (mask)
-            softmax_tile<true, HD>(sc, o, m, l, q_pos, k0, Skv, causal, window, quad);
+            softmax_tile<true, VD>(sc, o, m, l, q_pos, k0, Skv, causal, window, quad);
         else
-            softmax_tile<false, HD>(sc, o, m, l, q_pos, k0, Skv, causal, window, quad);
+            softmax_tile<false, VD>(sc, o, m, l, q_pos, k0, Skv, causal, window, quad);
 
         // O += round_bf16(P) V: P's k16 chunk kc is S's column blocks 2kc and 2kc + 1
         const uint32_t v_tile = smem_u32(Vs(s));
@@ -379,7 +397,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
             const uint32_t a[4] = {pack_bf16(sc[8 * kc], sc[8 * kc + 1]), pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]),
                                    pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]),
                                    pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7])};
-            WgmmaRS<HD, 1>::mma(o, a, make_desc(v_tile + kc * 16 * Cf::SW, Cf::CHUNK, 8 * Cf::SW, Cf::SW));
+            WgmmaRS<VD, 1>::mma(o, a, make_desc(v_tile + kc * 16 * Cv::SW, Cv::CHUNK, 8 * Cv::SW, Cv::SW));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -397,18 +415,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         const int r = row0 + 8 * i, qi = q0 + r / GP;
         if (qi >= Sq) continue;
         const float l_safe = fmaxf(l[i], 1e-30f);
-        __nv_bfloat16* dst = out + (((size_t)b * Sq + qi) * H + h0 + r % GP) * HD + 2 * quad;
+        __nv_bfloat16* dst = out + (((size_t)b * Sq + qi) * H + h0 + r % GP) * VD + 2 * quad;
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t)
+        for (int t = 0; t < VD / 8; ++t)
             *reinterpret_cast<__nv_bfloat162*>(dst + 8 * t) =
                 __floats2bfloat162_rn(o[4 * t + 2 * i] / l_safe, o[4 * t + 2 * i + 1] / l_safe);
     }
 }
 
-template <int HD>
+template <int HD, int VD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KV,
            int causal, int window, int q_offset, float scale, cudaStream_t stream) {
-    using Cf = Cfg<HD>;
+    using Pr = Pair<HD, VD>;
+    using Cf = typename Pr::QK;
+    using Cv = typename Pr::V;
     const int G = H / KV;
     const int GP = (G & -G) > BQ ? BQ : (G & -G);  // the largest power of two dividing G, at most 64
     const int qrows = BQ / GP;
@@ -422,11 +442,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
     const cuuint64_t kv_strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)KV * HD * 2, (cuuint64_t)Skv * KV * HD * 2};
     const cuuint32_t kv_box[4] = {(cuuint32_t)Cf::CH, 1, (cuuint32_t)BKV, 1};
     if ((e = encode_bf16_map(&map_k, k, 4, kv_dims, kv_strides, kv_box, Cf::SW)) != cudaSuccess) return e;
-    if ((e = encode_bf16_map(&map_v, v, 4, kv_dims, kv_strides, kv_box, Cf::SW)) != cudaSuccess) return e;
-    auto kernel = flash_wgmma_kernel<HD>;
-    if ((e = repro::allow_smem(kernel, Cf::SMEM)) != cudaSuccess) return e;
+    const cuuint64_t v_dims[4] = {(cuuint64_t)VD, (cuuint64_t)KV, (cuuint64_t)Skv, (cuuint64_t)B};
+    const cuuint64_t v_strides[3] = {(cuuint64_t)VD * 2, (cuuint64_t)KV * VD * 2, (cuuint64_t)Skv * KV * VD * 2};
+    const cuuint32_t v_box[4] = {(cuuint32_t)Cv::CH, 1, (cuuint32_t)BKV, 1};
+    if ((e = encode_bf16_map(&map_v, v, 4, v_dims, v_strides, v_box, Cv::SW)) != cudaSuccess) return e;
+    auto kernel = flash_wgmma_kernel<HD, VD>;
+    if ((e = repro::allow_smem(kernel, Pr::SMEM)) != cudaSuccess) return e;
     dim3 grid((Sq + qrows - 1) / qrows, KV * (G / GP), B);
-    kernel<<<grid, THREADS, Cf::SMEM, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), Sq, Skv, H,
+    kernel<<<grid, THREADS, Pr::SMEM, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), Sq, Skv, H,
                                                 KV, GP, causal, window, q_offset, scale);
     return cudaGetLastError();
 }
@@ -435,41 +458,50 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 namespace {
 
-// f(std::integral_constant<int, hd>) for the head dims the kernels are built for
+template <int N>
+using ic = std::integral_constant<int, N>;
+
+// f(ic<hd>, ic<vd>) for the (q/k, v) head dim pairs the kernels are built for: hd == vd in
+// 16, 32, 64, 80, 128, 256, and MLA's (192, 128)
 template <typename F>
-int with_head_dim(int hd, F f) {
-    switch (hd) {
-        case 16: return f(std::integral_constant<int, 16>{});
-        case 32: return f(std::integral_constant<int, 32>{});
-        case 64: return f(std::integral_constant<int, 64>{});
-        case 80: return f(std::integral_constant<int, 80>{});
-        case 128: return f(std::integral_constant<int, 128>{});
-        case 256: return f(std::integral_constant<int, 256>{});
-        default: return cudaErrorInvalidValue;
+int with_head_dims(int hd, int vd, F f) {
+    if (hd == vd) {
+        switch (hd) {
+            case 16: return f(ic<16>{}, ic<16>{});
+            case 32: return f(ic<32>{}, ic<32>{});
+            case 64: return f(ic<64>{}, ic<64>{});
+            case 80: return f(ic<80>{}, ic<80>{});
+            case 128: return f(ic<128>{}, ic<128>{});
+            case 256: return f(ic<256>{}, ic<256>{});
+            default: return cudaErrorInvalidValue;
+        }
     }
+    if (hd == 192 && vd == 128) return f(ic<192>{}, ic<128>{});
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// head dims (hd == vd) 16, 32, 64, 80, 128 or 256; window <= 0 means none
+// (hd, vd) one of with_head_dims' pairs; window <= 0 means none
 REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                                      int H, int KV, int hd, int causal, int window, int q_offset, float scale,
-                                      void* stream) {
+                                      int H, int KV, int hd, int vd, int causal, int window, int q_offset,
+                                      float scale, void* stream) {
     if (B <= 0 || Sq <= 0) return cudaSuccess;
     auto s = static_cast<cudaStream_t>(stream);
     if (Skv <= 0)  // no key: every row is the zero of acc / max(l, 1e-30)
-        return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * hd * sizeof(__nv_bfloat16), s);
-    return with_head_dim(hd, [&](auto HD) {
-        return bf16_wgmma::launch<decltype(HD)::value>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, q_offset,
-                                                       scale, s);
+        return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * vd * sizeof(__nv_bfloat16), s);
+    return with_head_dims(hd, vd, [&](auto HD, auto VD) {
+        return bf16_wgmma::launch<decltype(HD)::value, decltype(VD)::value>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                                                            window, q_offset, scale, s);
     });
 }
 
 REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                                     int H, int KV, int hd, int causal, int window, int q_offset, float scale,
-                                     void* stream) {
-    return with_head_dim(hd, [&](auto HD) {
-        return fp32_fma::launch<float, decltype(HD)::value>(q, k, v, out, B, Sq, Skv, H, KV, causal, window,
-                                                            q_offset, scale, stream);
+                                     int H, int KV, int hd, int vd, int causal, int window, int q_offset,
+                                     float scale, void* stream) {
+    return with_head_dims(hd, vd, [&](auto HD, auto VD) {
+        return fp32_fma::launch<float, decltype(HD)::value, decltype(VD)::value>(q, k, v, out, B, Sq, Skv, H, KV,
+                                                                                 causal, window, q_offset, scale,
+                                                                                 stream);
     });
 }

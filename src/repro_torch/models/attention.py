@@ -1,8 +1,9 @@
-"""Grouped-query attention (GQA): prefill through the flash kernel, decode
-through the flash-decode kernel over an in-place cache — flat, or a pool of
-pages behind a block table — and page-backed prefill chunks.
+"""Grouped-query attention (GQA) and multi-head latent attention (MLA):
+prefill through the flash kernel, decode over an in-place cache — flat, or
+a pool of pages behind a block table — and page-backed prefill chunks.
 
-The port's counterpart of the GQA part of ``repro/models/attention.py``.
+The port's counterpart of the GQA and MLA parts of
+``repro/models/attention.py``.
 The attention kernels go through ``repro_torch.runtime.dispatch``.  Where
 the reference returns updated caches, the port writes the cache tensors
 IN PLACE and returns the same tensors.
@@ -15,6 +16,14 @@ a prompt longer than W; a decode step writes slot pos % W and, once the
 ring is full, attends every slot.  The ring is never paged
 (``gqa_init_cache_paged`` returns ``paged=False``): paging a
 window-bounded cache banks nothing.
+
+MLA (deepseek-v2) caches a latent per token, ``c_kv`` (kv_lora_rank) and
+the rope-applied ``k_rope`` (qk_rope_dim), instead of per-head K/V.  The
+prefill materializes per-head K (nope + rope, 192 at full width) and V
+(128) from the latent and attends through the flash kernel; decode and the
+page-backed chunk prefill run the reference's absorbed-weight attention in
+latent space, as torch ops (``dispatch.mla_product``): the reference
+computes them in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +46,13 @@ __all__ = [
     "gqa_init_cache_paged",
     "gqa_decode_paged",
     "gqa_prefill_chunk",
+    "mla_init",
+    "mla_forward",
+    "mla_init_cache",
+    "mla_decode",
+    "mla_init_cache_paged",
+    "mla_decode_paged",
+    "mla_prefill_chunk",
 ]
 
 
@@ -295,3 +311,171 @@ def gqa_prefill_chunk(p, x, cache, cfg, bt_row, start: int, n_real: int):
     vv = gather_pages(cache["v"], bt_row[None])
     out = _chunk_masked_attention(q, kk, vv, pos[None, :])
     return nn.dense(p["wo"], out.reshape(B, C, -1)), cache
+
+
+# --------------------------------------------------------------------------- #
+# MLA — multi-head latent attention (deepseek-v2)
+# --------------------------------------------------------------------------- #
+def mla_init(generator: torch.Generator, cfg, dtype, device) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lq, lkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "wq_a": nn.dense_init(generator, d, lq, dtype, device),
+        "q_norm": nn.rmsnorm_init(lq, dtype, device),
+        "wq_b": nn.dense_init(generator, lq, H * (nope + rope_d), dtype, device),
+        "wkv_a": nn.dense_init(generator, d, lkv + rope_d, dtype, device),
+        "kv_norm": nn.rmsnorm_init(lkv, dtype, device),
+        "wkv_b": nn.dense_init(generator, lkv, H * (nope + vd), dtype, device),
+        "wo": nn.dense_init(generator, H * vd, d, dtype, device, scale=(H * vd) ** -0.5),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) rope-applied)."""
+    B, S, _ = x.shape
+    H, nope, rope_d = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    ql = nn.rmsnorm(p["q_norm"], nn.dense(p["wq_a"], x), cfg.norm_eps)
+    q = nn.dense(p["wq_b"], ql).reshape(B, S, H, nope + rope_d)
+    return q[..., :nope], nn.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x, cfg, positions):
+    """(c_kv normed (B, S, lkv), k_rope (B, S, rope) rope-applied)."""
+    lkv = cfg.kv_lora_rank
+    kv_a = nn.dense(p["wkv_a"], x)
+    c_kv = nn.rmsnorm(p["kv_norm"], kv_a[..., :lkv], cfg.norm_eps)
+    k_rope = nn.apply_rope(kv_a[..., lkv:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_forward(p, x, cfg, *, positions=None, return_cache: bool = False):
+    """Prefill MLA: per-head K = [k_nope, k_rope broadcast over heads] and V
+    are materialized from the latent, and attend through the flash kernel at
+    q/k head dim nope + rope and v head dim ``v_head_dim``.  With
+    ``return_cache`` also the latent cache rows (c_kv, k_rope)."""
+    from repro_torch.runtime import dispatch
+
+    B, S, _ = x.shape
+    H, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    kv = nn.dense(p["wkv_b"], c_kv).reshape(B, S, H, nope + vd)
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = dispatch.flash_attention(q, k, kv[..., nope:].contiguous(), causal=True)
+    out = nn.dense(p["wo"], out.reshape(B, S, -1))
+    if not return_cache:
+        return out
+    return out, (c_kv, k_rope)
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }
+
+
+def _mla_absorbed_weights(p, cfg):
+    """(w_uk (lkv, H, nope), w_uv (lkv, H, vd)): views of the dense ``wkv_b``,
+    materialized on every call where it is factored (as the reference)."""
+    from repro_torch.runtime import dispatch
+
+    H, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    w_kv = dispatch.mla_materialize(p["wkv_b"]).reshape(cfg.kv_lora_rank, H, nope + vd)
+    return w_kv[..., :nope], w_kv[..., nope:]
+
+
+def _mla_scores_and_context(p, cfg, q_nope, q_rope, c_cache, r_cache, valid, live):
+    """The absorbed-weight latent attention of the flat decode, the paged
+    decode and the paged chunk prefill (``repro/models/attention.py``'s, with
+    its rounding points).  q_nope / q_rope: (B, C, H, *) queries (C == 1 for
+    decode); caches: (B, S, *) latent views; valid: (B, C, S) bool, what
+    each query attends; live: (B, S) bool, the positions that hold written
+    rows (every valid position is live).  Returns (B, C, H * vd) fp32, pre-``wo``.
+
+    A masked position weighs exactly 0, but the context product still
+    multiplies it by what the cache holds there: a row never written (a
+    gathered trash page, a recycled page's old contents) is zeroed first,
+    so nothing non-finite there can reach a live query."""
+    from repro_torch.runtime import dispatch
+
+    B, C, H, _ = q_nope.shape
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    f32 = torch.float32
+    w_uk, w_uv = _mla_absorbed_weights(p, cfg)
+    # absorb: q_lat[b,c,h,l] = sum_n q_nope[b,c,h,n] w_uk[l,h,n], rounded to the cache dtype
+    q_lat = dispatch.mla_product("bchn,lhn->bchl", q_nope, w_uk, out_dtype=c_cache.dtype)
+    s = (dispatch.mla_product("bchl,bsl->bchs", q_lat, c_cache, out_dtype=f32)
+         + dispatch.mla_product("bchr,bsr->bchs", q_rope, r_cache, out_dtype=f32)) * (nope + rope_d) ** -0.5
+    s = torch.where(valid[:, :, None], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    c_live = torch.where(live[..., None], c_cache, torch.zeros_like(c_cache))
+    ctx_lat = dispatch.mla_product("bchs,bsl->bchl", w.to(c_cache.dtype), c_live, out_dtype=c_cache.dtype)
+    out = dispatch.mla_product("bchl,lhv->bchv", ctx_lat, w_uv, out_dtype=f32)
+    return out.reshape(B, C, H * vd)
+
+
+def mla_decode(p, x, cache, pos, cfg):
+    """Absorbed-weight MLA decode, attention entirely in latent space.  x:
+    (B, 1, d); ``pos`` a scalar or a (B,) vector.  Writes the new latent row
+    into ``cache`` IN PLACE and returns (out, cache)."""
+    B = x.shape[0]
+    pos_v = position_vector(pos, B, x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos_v[:, None])
+    c_new, kr_new = _mla_latent(p, x, cfg, pos_v[:, None])
+    b_idx = torch.arange(B, device=x.device)
+    cache["c_kv"][b_idx, pos_v] = c_new[:, 0]
+    cache["k_rope"][b_idx, pos_v] = kr_new[:, 0]
+    valid = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, :] <= pos_v[:, None]
+    out = _mla_scores_and_context(p, cfg, q_nope, q_rope, cache["c_kv"], cache["k_rope"], valid[:, None], valid)
+    return nn.dense(p["wo"], out.to(x.dtype)), cache
+
+
+def mla_init_cache_paged(cfg, page_size: int, n_pages_phys: int, dtype, device):
+    """Latent page pools, (P, page, kv_lora_rank) and (P, page, qk_rope_dim):
+    the MLA twin of :func:`gqa_init_cache_paged`.  Returns ``(cache, True)``."""
+    return {
+        "c_kv": torch.zeros((n_pages_phys, page_size, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((n_pages_phys, page_size, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }, True
+
+
+def mla_decode_paged(p, x, cache, pos, cfg, block_table):
+    """Paged twin of :func:`mla_decode`: the latent rows are written through
+    the block table (in place) and scored over the gathered logical view."""
+    B = x.shape[0]
+    pos_v = position_vector(pos, B, x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos_v[:, None])
+    c_new, kr_new = _mla_latent(p, x, cfg, pos_v[:, None])
+    _paged_write(cache["c_kv"], block_table, pos_v, c_new[:, 0])
+    _paged_write(cache["k_rope"], block_table, pos_v, kr_new[:, 0])
+    c_cache = gather_pages(cache["c_kv"], block_table)  # (B, S_log, lkv)
+    r_cache = gather_pages(cache["k_rope"], block_table)
+    valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= pos_v[:, None]
+    out = _mla_scores_and_context(p, cfg, q_nope, q_rope, c_cache, r_cache, valid[:, None], valid)
+    return nn.dense(p["wo"], out.to(x.dtype)), cache
+
+
+def mla_prefill_chunk(p, x, cache, cfg, bt_row, start: int, n_real: int):
+    """One page-backed MLA prefill chunk for a single slot (B == 1), with
+    :func:`gqa_prefill_chunk`'s write-then-attend contract: the chunk's
+    latent rows go into the slot's pages first (padded rows to the trash
+    page), then every row attends the gathered view up to its position."""
+    B, C, _ = x.shape
+    pos = start + torch.arange(C, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[None, :])
+    c_new, kr_new = _mla_latent(p, x, cfg, pos[None, :])
+    live_rows = torch.arange(C, device=x.device) < n_real
+    _paged_write(cache["c_kv"], bt_row, pos, c_new[0], live=live_rows)
+    _paged_write(cache["k_rope"], bt_row, pos, kr_new[0], live=live_rows)
+    c_cache = gather_pages(cache["c_kv"], bt_row[None])
+    r_cache = gather_pages(cache["k_rope"], bt_row[None])
+    span = torch.arange(c_cache.shape[1], device=x.device)
+    valid = span[None, None, :] <= pos[None, :, None]
+    live = span[None, :] < start + n_real
+    out = _mla_scores_and_context(p, cfg, q_nope, q_rope, c_cache, r_cache, valid, live)
+    return nn.dense(p["wo"], out.to(x.dtype)), cache

@@ -1,27 +1,38 @@
 """Decoder-only LM, dense, moe, ssm and hybrid families: init, forward,
 prefill and decode.
 
-The port's counterpart of the dense and moe (GQA attention, routed experts),
-ssm (mamba2) and hybrid (zamba2) families of ``repro/models/lm.py``.  The
-params tree mirrors the reference's: ``embed``, ``final_norm``, ``lm_head``
-where the head is not tied, and a ``layers`` subtree whose leaves are
-stacked over layers, shape (L, ...); a moe layer holds ``moe`` (router,
-(L, E, ...) expert stacks) where a dense one holds ``mlp``, and a mamba
-layer ``ssm_in_norm`` and ``mamba``.  The hybrid family adds ONE unstacked
+The port's counterpart of the dense and moe (GQA or MLA attention, routed
+and shared experts, dense first layers), ssm (mamba2) and hybrid (zamba2)
+families of ``repro/models/lm.py``.  The params tree mirrors the
+reference's: ``embed``, ``final_norm``, ``lm_head`` where the head is not
+tied, and a ``layers`` subtree whose leaves are stacked over layers, shape
+(L, ...); a moe layer holds ``moe`` (router, (L, E, ...) expert stacks,
+``shared`` experts) where a dense one holds ``mlp``, and a mamba layer
+``ssm_in_norm`` and ``mamba``.  A moe model with ``first_dense_layers``
+(deepseek-v2) runs a ``dense_layers`` stack of that many blocks first, each
+with the model's attention and a dense FFN of width ``dense_d_ff``; its
+``layers`` stack holds the other ``n_layers - first_dense_layers``.  MLA
+attention (``kv_lora_rank`` set, moe family) holds ``wq_a``, ``q_norm``,
+``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b`` and ``wo`` in place of
+``wq``/``wk``/``wv``/``wo``.  The hybrid family adds ONE unstacked
 ``shared_attn`` block (attention + MLP) applied after every full segment of
 ``attn_every`` mamba layers, with tied weights.  The reference scans over
 the layer axis; here a Python loop takes each layer's slice (a view).
 
 The decode cache is ``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}`` (a
-mamba layer: its conv tails and fp32 state, ``models/ssm.py``); the hybrid
+mamba layer: its conv tails and fp32 state, ``models/ssm.py``; an MLA
+layer: the latent ``"c_kv": (L, B, S, kv_lora_rank)`` and ``"k_rope": (L,
+B, S, qk_rope_dim)``); a ``dense_layers`` stack adds a ``"dense_layers"``
+subtree of the same leaves; the hybrid
 family's adds ``"shared_attn": {"k": (n_apps, B, S, KV, hd), ...}``, one
 cache per application of the shared block.  ``lm_decode_step`` updates it
 IN PLACE: each layer writes its new K/V row (or its state) into its slice
 of the stacked tensors.  This replaces the reference's scan-carry cache
 (``lm.py:795-822``), whose point was the same in-place aliasing.  The
 paged cache (``lm_init_cache_paged``) holds the K/V leaves as page pools,
-``(L, P + 1, page, KV, hd)``, plus a ``"block_table": (B, n_tbl)``; the
-conv tails and states stay slot-resident.  Its ``block_table`` routes
+``(L, P + 1, page, KV, hd)`` (MLA: ``(L, P + 1, page, kv_lora_rank)`` and
+``(L, P + 1, page, qk_rope_dim)``), plus a ``"block_table": (B, n_tbl)``;
+the conv tails and states stay slot-resident.  Its ``block_table`` routes
 ``lm_decode_step``'s attention through the paged decode, and
 ``lm_prefill_chunk`` writes one chunk of one slot's prompt into its pages
 (dense and moe only: a recurrent state cannot be prefilled in page-backed
@@ -52,24 +63,35 @@ __all__ = [
 ]
 
 
-# what the port does not carry yet, and the slice that brings it
-_LATER_MOE = {
-    "kv_lora_rank": "MLA attention comes with the deepseek-v2 slice",
-    "first_dense_layers": "dense first layers come with the deepseek-v2 slice",
-    "n_shared_experts": "shared experts in a served model come with the deepseek-v2 slice",
-}
-
-
 _FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the fields an MLA attention (kv_lora_rank set) needs besides it
+_MLA_FIELDS = ("q_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim")
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not yet ported (only {', '.join(_FAMILIES)})")
-    if cfg.family == "moe":
-        for field, later in _LATER_MOE.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(f"moe with {field}={getattr(cfg, field)} is not yet ported: {later}")
+    if _mla(cfg):
+        missing = [f for f in _MLA_FIELDS if not getattr(cfg, f)]
+        if missing:
+            raise ValueError(f"MLA attention (kv_lora_rank={cfg.kv_lora_rank}) needs {', '.join(missing)}")
+    if _n_dense_first(cfg) and not (cfg.dense_d_ff or cfg.d_ff):
+        raise ValueError(f"first_dense_layers={cfg.first_dense_layers} needs dense_d_ff or d_ff")
+
+
+def _mla(cfg) -> bool:
+    """MLA attention: the moe family with a latent KV rank (the reference's rule)."""
+    return cfg.family == "moe" and bool(cfg.kv_lora_rank)
+
+
+def _n_dense_first(cfg) -> int:
+    """Blocks of the ``dense_layers`` stack (moe only), run before ``layers``."""
+    return cfg.first_dense_layers if cfg.family == "moe" else 0
+
+
+def _cache_names(cfg) -> tuple:
+    """An attention block's cache leaves, in the order its prefill returns them."""
+    return ("c_kv", "k_rope") if _mla(cfg) else ("k", "v")
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -84,20 +106,23 @@ def _layer(stack, i: int):
 
 
 def _block_init(generator, cfg, dtype, device, *, layer_kind: str) -> dict:
-    """One block: ``mamba`` (norm + Mamba2), or attention with a routed
-    (``moe``) or dense (``gqa``) feed-forward half."""
+    """One block: ``mamba`` (norm + Mamba2), or attention (MLA under
+    :func:`_mla`, else GQA) with a routed (``moe``) or dense feed-forward
+    half: ``gqa``'s of width ``d_ff``, ``dense_ffn``'s of ``dense_d_ff``."""
     if layer_kind == "mamba":
         return {"ssm_in_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
                 "mamba": ssm_mod.mamba2_init(generator, cfg, dtype, device)}
+    attn_init = attn.mla_init if _mla(cfg) else attn.gqa_init
     p = {
         "attn_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attn.gqa_init(generator, cfg, dtype, device),
+        "attn": attn_init(generator, cfg, dtype, device),
         "mlp_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
     }
     if layer_kind == "moe":
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
     else:
-        p["mlp"] = moe_mod.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+        f = cfg.dense_d_ff if (layer_kind == "dense_ffn" and cfg.dense_d_ff) else cfg.d_ff
+        p["mlp"] = moe_mod.ffn_init(generator, cfg.d_model, f, dtype, device)
     return p
 
 
@@ -119,12 +144,18 @@ def _hybrid_segments(cfg):
     return segs
 
 
+# the params / cache subtree of each kind of block in a schedule
+_SUB = {"dense": "dense_layers", "layer": "layers", "shared": "shared_attn"}
+
+
 def _schedule(cfg):
-    """The blocks in the order the trunk runs them: ("layer", i) for stacked
-    layer i, and (hybrid) ("shared", j) for the shared block's j-th
-    application, with its own cache entry j."""
+    """The blocks in the order the trunk runs them: ("dense", i) for block i
+    of the ``dense_layers`` stack, then ("layer", i) for stacked layer i,
+    and (hybrid) ("shared", j) for the shared block's j-th application,
+    with its own cache entry j."""
     if cfg.family != "hybrid":
-        return [("layer", i) for i in range(cfg.n_layers)]
+        n0 = _n_dense_first(cfg)
+        return [("dense", i) for i in range(n0)] + [("layer", i) for i in range(cfg.n_layers - n0)]
     out, i, j = [], 0, 0
     for n, with_attn in _hybrid_segments(cfg):
         out += [("layer", k) for k in range(i, i + n)]
@@ -137,6 +168,12 @@ def _schedule(cfg):
 
 def _n_shared_apps(cfg) -> int:
     return sum(1 for kind, _ in _schedule(cfg) if kind == "shared")
+
+
+def _block(p, kind: str, i: int):
+    """The params of scheduled block (kind, i): a slice (views) of its stack,
+    or the hybrid's one unstacked shared block."""
+    return p["shared_attn"] if kind == "shared" else _layer(p[_SUB[kind]], i)
 
 
 def _stack(trees):
@@ -156,7 +193,12 @@ def lm_init(generator: torch.Generator, cfg, device) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = nn.dense_init(generator, cfg.d_model, cfg.vocab_padded, dtype, device)
     kind = _layer_kind(cfg)
-    p["layers"] = _stack([_block_init(generator, cfg, dtype, device, layer_kind=kind) for _ in range(cfg.n_layers)])
+    n0 = _n_dense_first(cfg)
+    if n0:
+        p["dense_layers"] = _stack([_block_init(generator, cfg, dtype, device, layer_kind="dense_ffn")
+                                    for _ in range(n0)])
+    p["layers"] = _stack([_block_init(generator, cfg, dtype, device, layer_kind=kind)
+                          for _ in range(cfg.n_layers - n0)])
     if cfg.family == "hybrid":
         p["shared_attn"] = _block_init(generator, cfg, dtype, device, layer_kind="gqa")
     return p
@@ -189,8 +231,11 @@ def _mlp(lp, h, cfg, *, with_aux: bool = False):
 
 
 def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
+    """An attention block over a whole sequence; with ``return_cache`` also
+    its cache rows, in :func:`_cache_names` order."""
     h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-    a = attn.gqa_forward(lp["attn"], h, cfg, positions=positions, return_cache=return_cache)
+    forward = attn.mla_forward if _mla(cfg) else attn.gqa_forward
+    a = forward(lp["attn"], h, cfg, positions=positions, return_cache=return_cache)
     kv = None
     if return_cache:
         a, kv = a
@@ -219,12 +264,10 @@ def lm_forward(p, batch, cfg):
     aux = 0.0
     mamba = _layer_kind(cfg) == "mamba"
     for kind, i in _schedule(cfg):
-        if kind == "shared":
-            x, _, _ = _self_block(p["shared_attn"], x, cfg, positions)
-        elif mamba:
+        if kind == "layer" and mamba:
             x, _ = _mamba_block(_layer(p["layers"], i), x, cfg)
         else:
-            x, _, a = _self_block(_layer(p["layers"], i), x, cfg, positions)
+            x, _, a = _self_block(_block(p, kind, i), x, cfg, positions)
             aux = aux + a
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     return _logits(p, x, cfg), aux
@@ -234,13 +277,21 @@ def _stacked_zeros(one: dict, n: int, device) -> dict:
     return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=device) for k, v in one.items()}
 
 
+def _attn_cache(cfg, batch_size: int, max_len: int, device) -> dict:
+    init = attn.mla_init_cache if _mla(cfg) else attn.gqa_init_cache
+    return init(cfg, batch_size, max_len, _dtype(cfg), device)
+
+
 def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
     _check_family(cfg)
     if _layer_kind(cfg) == "mamba":
         one = ssm_mod.mamba2_init_cache(cfg, batch_size, _dtype(cfg), device)
     else:
-        one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
-    cache = {"layers": _stacked_zeros(one, cfg.n_layers, device)}
+        one = _attn_cache(cfg, batch_size, max_len, device)
+    n0 = _n_dense_first(cfg)
+    cache = {"layers": _stacked_zeros(one, cfg.n_layers - n0, device)}
+    if n0:
+        cache["dense_layers"] = _stacked_zeros(one, n0, device)
     if cfg.family == "hybrid":
         one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
         cache["shared_attn"] = _stacked_zeros(one, _n_shared_apps(cfg), device)
@@ -259,7 +310,8 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     Returns ``(cache, paged_mask)``: the mask mirrors the cache (without the
     block table) with one bool per leaf, telling the engine which prefill
     scatter each leaf takes — pages for the K/V leaves (every leaf of the
-    dense and moe families, the hybrid's ``shared_attn``), the slot row for
+    dense and moe families, a moe model's ``dense_layers`` and MLA's latent
+    ``c_kv`` / ``k_rope``, the hybrid's ``shared_attn``), the slot row for
     the mamba layers' conv tails and states, which are O(1) per slot
     (``False``, as in ``repro/models/lm.py:392-395``), and so does a
     sliding-window arch's ring (``repro/models/lm.py:398-400``).  A mamba2
@@ -269,7 +321,8 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     n_phys = n_pages + 1
 
     def kv_cache():
-        one, paged = attn.gqa_init_cache_paged(cfg, page_size, n_phys, _dtype(cfg), device)
+        init = attn.mla_init_cache_paged if _mla(cfg) else attn.gqa_init_cache_paged
+        one, paged = init(cfg, page_size, n_phys, _dtype(cfg), device)
         if not paged:  # the sliding-window ring stays slot-resident
             one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
         return one, paged
@@ -278,8 +331,12 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
         one, paged = ssm_mod.mamba2_init_cache(cfg, batch_size, _dtype(cfg), device), False
     else:
         one, paged = kv_cache()
-    cache = {"layers": _stacked_zeros(one, cfg.n_layers, device)}
+    n0 = _n_dense_first(cfg)
+    cache = {"layers": _stacked_zeros(one, cfg.n_layers - n0, device)}
     mask = {"layers": {k: paged for k in one}}
+    if n0:
+        cache["dense_layers"] = _stacked_zeros(one, n0, device)
+        mask["dense_layers"] = {k: paged for k in one}
     if cfg.family == "hybrid":
         kv, kv_paged = kv_cache()
         cache["shared_attn"] = _stacked_zeros(kv, _n_shared_apps(cfg), device)
@@ -317,13 +374,12 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
             for name, t in c.items():
                 cache["layers"][name][i] = t
             continue
-        # an attention block: a stacked layer, or the hybrid's shared block
-        # with its own cache per application
-        lp, sub = (p["shared_attn"], "shared_attn") if kind == "shared" else (_layer(p["layers"], i), "layers")
-        x, (k, v), _ = _self_block(lp, x, cfg, positions, return_cache=True)
-        n = k.shape[1]  # S, or the ring's W slots of a longer prompt
-        cache[sub]["k"][i, :, :n] = k
-        cache[sub]["v"][i, :, :n] = v
+        # an attention block: a stacked layer, a dense first layer, or the
+        # hybrid's shared block with its own cache per application
+        x, rows, _ = _self_block(_block(p, kind, i), x, cfg, positions, return_cache=True)
+        for name, t in zip(_cache_names(cfg), rows):
+            n = t.shape[1]  # S, or the ring's W slots of a longer prompt
+            cache[_SUB[kind]][name][i, :, :n] = t
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     if last_index is None:
         last = x[:, -1:, :]
@@ -349,9 +405,11 @@ def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
     trash until the last chunk lands, so the decode block's frozen-slot
     re-feeds cannot write into a half-prefilled slot's pages.
 
-    Each layer writes the chunk's K/V into the slot's pages, then attends
-    over the gathered logical cache with an absolute-position causal mask,
-    so chunk after chunk computes what the monolithic prefill computes.
+    Each layer writes the chunk's K/V (MLA: its latent rows) into the
+    slot's pages, then attends over the gathered logical cache with an
+    absolute-position causal mask, so chunk after chunk computes what the
+    monolithic prefill computes (MLA: in latent space, the reference's
+    absorbed path, not the flash kernel's).
     Returns ``(last_logits (1, Vp) fp32, cache)``, the logits taken at the
     chunk's last REAL token; the pools are updated in place.  The dense and
     moe families only, without a sliding window: an ssm or hybrid prefill
@@ -364,11 +422,12 @@ def lm_prefill_chunk(p, cache, tokens, cfg, *, bt_row, start: int, n_real: int):
     B, C = tokens.shape
     bt_row = bt_row.reshape(-1)
     x = nn.embed_lookup(p["embed"], tokens)
-    for i in range(cfg.n_layers):
-        lp = _layer(p["layers"], i)
-        c = _layer(cache["layers"], i)  # views into the stacked pools
+    chunk = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
+    for kind, i in _schedule(cfg):
+        lp = _block(p, kind, i)
+        c = _layer(cache[_SUB[kind]], i)  # views into the stacked pools
         h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _ = attn.gqa_prefill_chunk(lp["attn"], h, c, cfg, bt_row, start, n_real)
+        a, _ = chunk(lp["attn"], h, c, cfg, bt_row, start, n_real)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + _mlp(lp, h, cfg)[0]
@@ -390,21 +449,20 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
     pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
     bt = cache.get("block_table") if cfg.sliding_window is None else None
     mamba = _layer_kind(cfg) == "mamba"
+    mla = _mla(cfg)
     for kind, i in _schedule(cfg):
         if kind == "layer" and mamba:
             lp = _layer(p["layers"], i)
             h = nn.rmsnorm(lp["ssm_in_norm"], x, cfg.norm_eps)
             x = x + ssm_mod.mamba2_decode(lp["mamba"], h, _layer(cache["layers"], i), cfg)[0]
             continue
-        if kind == "shared":
-            lp, c = p["shared_attn"], _layer(cache["shared_attn"], i)
-        else:
-            lp, c = _layer(p["layers"], i), _layer(cache["layers"], i)  # views into the stacked cache
+        lp, c = _block(p, kind, i), _layer(cache[_SUB[kind]], i)  # views into the stacked cache
         h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         if bt is not None:
-            a, _ = attn.gqa_decode_paged(lp["attn"], h, c, pos_v, cfg, bt)
+            decode = attn.mla_decode_paged if mla else attn.gqa_decode_paged
+            a, _ = decode(lp["attn"], h, c, pos_v, cfg, bt)
         else:
-            a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg)
+            a, _ = (attn.mla_decode if mla else attn.gqa_decode)(lp["attn"], h, c, pos_v, cfg)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + _mlp(lp, h, cfg)[0]

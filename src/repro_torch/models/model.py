@@ -4,7 +4,8 @@ The port's counterpart of ``repro/models/model.py``.  ``build_model(cfg)``
 returns a :class:`ModelApi` of functions over a params tree (nested dicts
 mirroring the reference's pytree); :class:`LMModule` is the ``nn.Module``
 that owns such a tree's tensors.  The ``dense`` family (with or without a
-sliding window), the ``moe`` family with GQA attention, and the ``ssm``
+sliding window), the ``moe`` family (GQA or MLA attention, dense first
+layers, shared experts), and the ``ssm``
 (mamba2) and ``hybrid`` (zamba2) families are ported; any other family
 raises.
 """
@@ -49,7 +50,7 @@ class ModelApi:
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
-    lm_mod._check_family(cfg)  # dense, GQA moe, ssm or hybrid: raises for the rest
+    lm_mod._check_family(cfg)  # dense, moe, ssm or hybrid: raises for the rest
     dev = resolve_device(device)
     # a chunk enters mid-prompt through the pages: not for recurrent state, nor for a
     # sliding window's ring (the reference's gate, repro/models/lm.py:690)
@@ -115,14 +116,20 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def analytic_param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count N of a dense, GQA moe, ssm or hybrid decoder
-    (the reference's formula: the linears and the embeddings)."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.kv_lora_rank or cfg.first_dense_layers
-            or cfg.n_shared_experts):
+    """Analytic parameter count N of a dense, moe (GQA or MLA attention, dense
+    first layers, shared experts), ssm or hybrid decoder: the reference's
+    formula (``repro/models/model.py::analytic_param_count``), the linears
+    and the embeddings."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"param count of {cfg.name!r} is not yet ported")
     d, V = cfg.d_model, cfg.vocab_padded
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+    if cfg.kv_lora_rank:  # MLA
+        H, lq, lkv = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        attn = d * lq + lq * H * (nope + rd) + d * (lkv + rd) + lkv * H * (nope + vd) + H * vd * d
+    else:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        attn = d * H * hd + 2 * d * KV * hd + H * hd * d
     n = V * d if cfg.tie_embeddings else 2 * V * d
     if cfg.family in ("ssm", "hybrid"):
         din, s, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
@@ -132,4 +139,6 @@ def analytic_param_count(cfg: ArchConfig) -> int:
     n += cfg.n_layers * attn
     if cfg.family == "dense":
         return n + cfg.n_layers * 3 * d * cfg.d_ff
-    return n + cfg.n_layers * (cfg.n_experts * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)
+    n += cfg.first_dense_layers * 3 * d * (cfg.dense_d_ff or cfg.d_ff)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    return n + n_moe * ((cfg.n_experts + cfg.n_shared_experts) * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)

@@ -5,7 +5,7 @@ fp32 (softmax, top-k, gates renormalized), sorted by expert id (a stable
 sort, so each expert takes its tokens in token order), scattered into a
 static ``(E, C, d)`` buffer (assignments past an expert's capacity C drop),
 run through the experts as one batched product per projection, and
-combined back with their gates.  C comes from the static token count T
+combined back with their gates in routing-rank order.  C comes from the static token count T
 (:func:`moe_capacity`), so the layer reads no value back to the host and
 captures into a CUDA graph as it is.
 
@@ -113,8 +113,8 @@ def _dispatch_compute_combine(xf, ids, gates, experts, C: int, E: int, dtype):
 
     xf (T, d); ids / gates (T, K).  Routing metadata stays 1-D; activations
     exist only at capacity size: a slot -> token map gathers straight into
-    the (E*C, d) buffer, and the combine adds the (E*C, d) expert outputs
-    back into (T, d).  Returns fp32 (T, d)."""
+    the (E*C, d) buffer, and the combine gathers each token's K expert rows
+    back out of the (E*C, d) outputs.  Returns fp32 (T, d)."""
     T, d = xf.shape
     K = ids.shape[-1]
     dev = xf.device
@@ -131,7 +131,6 @@ def _dispatch_compute_combine(xf, ids, gates, experts, C: int, E: int, dtype):
     tok_idx = torch.arange(T * K, device=dev) // K
 
     slot_tok = _scatter_drop(E * C, slot, tok_idx)
-    slot_gate = _scatter_drop(E * C, slot, gates.reshape(-1).float())
     occupied = _scatter_drop(E * C, slot, keep.float())
 
     buf = (xf[slot_tok].float() * occupied[:, None]).to(dtype).reshape(E, C, d)
@@ -141,14 +140,19 @@ def _dispatch_compute_combine(xf, ids, gates, experts, C: int, E: int, dtype):
     h = nn.swiglu(nn.dense(experts["w_gate"], buf), nn.dense(experts["w_up"], buf))
     y = nn.dense(experts["w_down"], h).reshape(E * C, d)
 
-    weighted = y.float() * (slot_gate * occupied)[:, None]  # (E*C, d)
-    # The reference's .at[slot_tok].add.  On the card index_add_ adds with
-    # atomics in no fixed order, yet the sum is still bit-reproducible: a
-    # token receives at most top_k = 2 non-zero terms (every empty slot maps
-    # to token 0 with an exact zero), and 0 + a + b == 0 + b + a exactly.
-    # The paged == flat and graph == eager token gates on the card rest on
-    # this; a top-k of 3 or more needs a fixed-order combine.
-    return torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(0, slot_tok, weighted)
+    # The reference's .at[slot_tok].add, as a fixed-order combine: each token
+    # gathers its K weighted expert rows, (T, K, d) fp32 (a dropped
+    # assignment is an exact 0.0, whatever its clamped row holds), and sums
+    # them in routing-rank order k = 0..K-1.  No atomics and no dependence
+    # on slot order, so graph == eager and paged == flat hold bit for bit at
+    # any top-k; at top-2 it gives the bits of a scatter-add into zeros,
+    # since 0 + a + b == 0 + b + a exactly.
+    picked = y[torch.clamp(slot, max=E * C - 1)].float() * gates.reshape(-1, 1).float()
+    rows = torch.where(keep[:, None], picked, torch.zeros((), dtype=torch.float32, device=dev)).reshape(T, K, d)
+    out = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    for k in range(K):
+        out = out + rows[:, k]
+    return out
 
 
 def _moe_local(p, x: torch.Tensor, cfg):

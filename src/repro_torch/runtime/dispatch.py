@@ -3,8 +3,9 @@
 The port's counterpart of ``repro/runtime/dispatch.py``.  Model code calls
 shape-only entry points (``lowrank_apply``, ``dense_apply``,
 ``flash_attention``, ``decode_attention``, ``paged_decode_attention``,
-``sketch_matmul``, ``logits_apply``, ``ssd_scan``); the backend is chosen
-here, in one place:
+``sketch_matmul``, ``logits_apply``, ``ssd_scan``, and the absorbed MLA
+path's products ``mla_product`` / ``mla_materialize``); the backend is
+chosen here, in one place:
 
 * ``backend="auto"`` (the default): on a CUDA tensor the hand-written
   kernel, always — the reference's TPU-only thresholds (``DECODE_MIN_SEQ``
@@ -72,6 +73,9 @@ __all__ = [
     "choose_paged_decode_path",
     "paged_decode_attention",
     "ssd_scan",
+    "MLA_OP",
+    "mla_product",
+    "mla_materialize",
     "counters",
     "counters_by_path",
     "reset_counters",
@@ -345,14 +349,49 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
-    """Prefill attention: q (B,Sq,H,hd), k/v (B,Skv,KV,hd), GQA by grouping."""
+    """Prefill attention: q (B,Sq,H,hd), k (B,Skv,KV,hd), v (B,Skv,KV,vd) ->
+    (B,Sq,H,vd), GQA by grouping; the scale is hd**-0.5 (MLA: vd != hd)."""
     config = active_dispatch()
-    sig = (tuple(q.shape), k.shape[2], causal, window)
+    sig = (tuple(q.shape), k.shape[2], causal, window) + ((v.shape[-1],) if v.shape[-1] != q.shape[-1] else ())
     if _use_kernel(q.device, config):
         _record("flash_attention", PATH_KERNEL, sig)
         return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
     _record("flash_attention", PATH_REFERENCE, sig)
     return _ref.chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+# --------------------------------------------------------------------------- #
+# the absorbed MLA path (decode and chunk prefill): torch ops, as the
+# reference leaves them to XLA outside any Pallas kernel
+# --------------------------------------------------------------------------- #
+MLA_OP = "mla_absorbed"  # the op name these products are counted under
+
+
+def mla_product(eq: str, a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(eq, a, b)`` with fp32 accumulation, the result in ``out_dtype``
+    (the reference's ``preferred_element_type=f32`` then ``astype``).
+
+    On the card a product whose operands and result share a 16-bit dtype is
+    one bf16 batched GEMM (fp32 accumulation, rounded once); any other runs
+    on fp32 copies of the operands.  Counted as ``(MLA_OP, "torch", ...)``,
+    so the "no linear outside the kernels" gate names these products."""
+    _record(MLA_OP, "torch", (eq, tuple(a.shape), tuple(b.shape)))
+    if a.device.type == "cuda" and a.dtype == b.dtype == out_dtype:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float()).to(out_dtype)
+
+
+def mla_materialize(w) -> torch.Tensor:
+    """The dense ``wkv_b`` of the absorbed path: a factored leaf is
+    materialized on every call (``core.lowrank.materialize``, fp32 product
+    rounded to the factors' dtype), as the reference does, so a rank tier's
+    sliced factors take effect; a dense leaf passes through uncounted."""
+    from repro_torch.core import lowrank
+
+    if not lowrank.is_lowrank(w):
+        return w
+    _record(MLA_OP, "torch", ("materialize", tuple(w["a"].shape), tuple(w["b"].shape)))
+    return lowrank.materialize(w)
 
 
 def decode_attention(q, k_cache, v_cache, valid):

@@ -479,6 +479,49 @@ def test_gpu_flash_attention_hd80(cuda, S, window, q_offset, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,q_offset", [(4, 256, 128, 0), (2, 70, 16, 230), (1, 200, 16, 0)])
+def test_gpu_flash_attention_mla(cuda, B, S, H, q_offset, dtype):
+    """deepseek-v2's MLA prefill: q/k head dim 192 (nope 128 + rope 64), v
+    head dim 128, one query head a KV head (G 1): the static prefill's (4,
+    256) at all 128 heads, a chunk at q_offset over a longer cache, and a
+    ragged prompt; the output takes v's head dim, the scale q's; two launches
+    give the same bits.  Any other (q/k, v) pair raises."""
+    q = _rand((B, S, H, 192), 50, dtype, cuda)
+    k = _rand((B, S + q_offset, H, 192), 51, dtype, cuda)
+    v = _rand((B, S + q_offset, H, 128), 52, dtype, cuda)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    assert tuple(got.shape) == (B, S, H, 128) and got.dtype == q.dtype
+    _close(got, ref.chunked_attention_ref(q, k, v, causal=True, q_offset=q_offset), ATTN_TOL[dtype])
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, q_offset=q_offset))
+    for qd, vd in ((192, 64), (128, 64), (96, 96)):
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q[..., :qd].contiguous(), k[..., :qd].contiguous(), v[..., :vd].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("proj", ["w_gate", "w_down"])
+@pytest.mark.parametrize("occupancy", ["decode", "full"])
+def test_gpu_lowrank_matmul_batched_deepseek(cuda, occupancy, proj):
+    """The batched kernel over one deepseek-v2 layer's 160 experts x C 128
+    (the capacity floor) at rank 461: w_gate 5120 -> 1536, w_down 1536 ->
+    5120, with every capacity row live, and at the decode occupancy (8
+    tokens x top-6 distinct experts, numpy seed 0), against its plain
+    version; rows past each count are zero in both."""
+    E, C, r = 160, 128, 461
+    K, N = (5120, 1536) if proj == "w_gate" else (1536, 5120)
+    counts = np.full(E, C) if occupancy == "full" else _phi_decode_counts(E=E, slots=8, top_k=6)
+    x, _, live = _capacity_rows(E, C, K, counts, 53, cuda)
+    A = aligned_rows(_rand((1, E, K, r), 54, "bfloat16", cuda))[0]
+    B = aligned_rows(_rand((1, E, r, N), 55, "bfloat16", cuda))[0]
+    got = lowrank_matmul_batched(x, A, B)
+    want = ref.lowrank_matmul_ref(x, A, B)
+    _close(got, want, GEMM_TOL["bfloat16"])
+    assert bool((got[~live] == 0).all()) and bool((want[~live] == 0).all())
+    assert torch.equal(got, lowrank_matmul_batched(x, A, B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_decode_attention_wrapped_ring_hd80(cuda, dtype):
     """The decode over h2o-danube's ring once it has wrapped: 8 slots of 4096
     positions, every slot valid (the prefix mask of n_valid = min(pos + 1,

@@ -167,14 +167,13 @@ def test_build_model_runs_on_the_card_by_default():
 
 
 def test_unported_archs_and_families_raise():
-    # deepseek-v2's MLA attention (and its shared experts) is not ported
+    # llama-3.2-vision (the vlm family) and whisper (audio) are not ported
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("deepseek-v2-236b")
+        get_arch("llama-3.2-vision-11b")
     cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="vlm")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg, device="cpu")
-    # moe is ported with GQA attention; MLA attention (deepseek-v2) is not
-    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b", reduced=True), kv_lora_rank=8)
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="audio")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg, device="cpu")
 

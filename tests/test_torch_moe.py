@@ -528,11 +528,32 @@ def test_param_count_and_arch():
         assert getattr(get_arch(ARCH, reduced=True), field) == getattr(J_REDUCED, field), field
 
 
+# each deepseek-v2 feature on phi's reduced config, with the fields it needs besides
+_DEEPSEEK_FEATURES = {
+    "kv_lora_rank": dict(kv_lora_rank=8, q_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8, v_head_dim=8),
+    "first_dense_layers": dict(first_dense_layers=1, dense_d_ff=64),
+    "n_shared_experts": dict(n_shared_experts=1),
+}
+
+
 @pytest.mark.parametrize("field,value", [("kv_lora_rank", 8), ("first_dense_layers", 1), ("n_shared_experts", 1)])
 def test_deepseek_features_raise_naming_their_slice(field, value):
-    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), **{field: value})
-    with pytest.raises(NotImplementedError, match="deepseek-v2 slice"):
-        build_model(cfg, device="cpu")
+    """The deepseek-v2 slice is ported: each of its features builds and
+    serves on phi's reduced config; one set without the fields it needs
+    raises, naming them."""
+    kw = _DEEPSEEK_FEATURES[field]
+    assert kw[field] == value
+    cfg = dataclasses.replace(get_arch(ARCH, reduced=True), dtype="float32", **kw)
+    tm = build_model(cfg, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(0))
+    toks = _tokens(cfg.vocab, (2, 6), 1)[1]["tokens"]
+    logits, _ = tm.forward(tp, {"tokens": toks})
+    assert tuple(logits.shape) == (2, 6, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+    got = greedy_generate(tm, tp, {"tokens": toks}, steps=3, max_len=10)
+    assert tuple(got.shape) == (2, 3)
+    if field != "n_shared_experts":
+        with pytest.raises(ValueError, match="needs"):
+            build_model(dataclasses.replace(get_arch(ARCH, reduced=True), **{field: value}), device="cpu")
 
 
 # --------------------------------------------------------------------------- #
