@@ -22,6 +22,12 @@
                              # ring) alone
     python3 chip_smoke.py --deepseek-only
                              # phase 2's deepseek-v2 checks and phase 23 (MLA) alone
+    python3 chip_smoke.py --vlm-only
+                             # phase 2's non-causal flash checks and phase 24
+                             # (llama-3.2-vision-11b) alone
+    python3 chip_smoke.py --whisper-only
+                             # phase 2's non-causal flash checks and phase 25
+                             # (whisper-small) alone
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -82,7 +88,15 @@ Phases, in order; any failure exits non-zero before the last line:
    x C 128) with every row live, then at the decode occupancy (8 tokens x
    top-6, numpy seed 0); lowrank_matmul at wo (16384 x 1536 x 5120) and
    wq_b (1536 x 461 x 24576) at M 4 and 8; the sketch GEMM at one expert's
-   w_gate (5120 x 1536, l 461), W @ Y and W^T @ X.  Phase 1 also prints each
+   w_gate (5120 x 1536, l 461), W @ Y and W^T @ X.  At phases 24-25's
+   shapes (NONCAUSAL_FLASH, G = 1): flash_attention non-causal over
+   whisper's 1500 frames (its encoder at (4, 1500); cross-attention at
+   (4, 256) and at one query, (8, 1)), over vision's 1600 image tokens
+   (32 heads at hd 128: (4, 256) and (8, 1)), over one key and over 65,
+   its library call SDPA without a mask; at one query the decode kernel's
+   time on the same keys beside it (a comparison); each one-query shape
+   captured in a CUDA graph and replayed on new queries, equal to the
+   eager launch bit for bit.  Phase 1 also prints each
    flash instance's registers and spills, (192, 128) among them.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
@@ -298,6 +312,34 @@ Phases, in order; any failure exits non-zero before the last line:
    profiled: device ms, idle share, the batched kernel's share, torch's own
    kernels' time, and the absorbed products' share of an eager decode step
    (profiler ranges).  Prints the phase's wall seconds.
+24. llama-3.2-vision-11b at full width and depth, no cut (40 layers: 8
+   groups of 4 GQA self blocks, 32/8 heads at hd 128, and a cross block,
+   32/32 heads, over 1600 image tokens; d_ff 14336, vocab 128256, untied;
+   9.976 B params), random weights (seed 0), spectralized (seed 9),
+   compressed at alpha 0.3, q = 4 (ranks 308 and 1229); it runs after
+   phase 23 and frees its model before the summary.  Gates: the
+   reference's decisions, q = 4's normalized error <= q = 1's on self
+   block 0's w_gate.  (a) The static path at phase 3's shape, each row with
+   its own SyntheticLM image (lowrank_matmul, flash_attention and
+   decode_attention launched); two rows of one prompt and two images give
+   other first logits, each equal to a batch of one with its own image
+   within 5%; auto vs reference by phase 22's rule (fp32 end to end within
+   1e-2, bf16 against the fp32 reference run: RMS 1.2 x, largest 1.5 x the
+   plain versions' error).  (b) Phase 7's engine gates on the modality
+   trace (MODAL_ENGINE: 8 slots, page 64, max_len 256, 16 pages = half of
+   flat; 12 requests of 24-200 prompt tokens and 8-24 new, each with its
+   own image): every request finishes, graph == eager and paged == flat
+   bit for bit, every kernel of the path launched, no linear outside the
+   kernels (the prefill is monolithic: no chunk, no sharing).  (c) Phase
+   21's preemption, each request with its own image, 48 new tokens:
+   fp32 streams equal the uninterrupted runs bit for bit, bf16 diverging
+   only within the spread (``share_prefix`` is inert for the family: one
+   engine a dtype).  (d) One captured decode block profiled: device ms,
+   idle share, the cross-attention's flash launches (Sq = 1, one a call).
+25. whisper-small whole (12 encoder + 12 decoder layers, d 768, 12 heads at
+   hd 64, 1500 frames, vocab 51865 padded to 51968; 0.278 B params; rank
+   231): phase 24's gates with audio frames in place of images, the error
+   gate on decoder layer 0's w_up.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -311,7 +353,8 @@ GEMMs) and phase 22's (flash at hd 80 and at (1, 16384) in the window, the
 decode over the wrapped ring, h2o's w_gate at M 4 and 8) and phase 23's
 (the MLA flash at q/k 192 / v 128, the batched kernel over 160 experts
 every row live and at top-6's decode occupancy, wo and wq_b at M 4 and 8,
-the sketch GEMM at an expert's w_gate), each beside its
+the sketch GEMM at an expert's w_gate) and phases 24-25's (the flash
+kernel's non-causal shapes), each beside its
 launches on the same model's run (``launches_run``:
 its engine, its flat engine for decode_attention, its compression for the
 sketch GEMM, since the compressed heads' logits are low-rank applies).  The line
@@ -428,6 +471,31 @@ DEEPSEEK_DECISIONS = {
     "layers/moe/router/gate_w": False, "lm_head": True, "embed": False,
 }
 DEEPSEEK_RANKS = [154, 173, 461, 922, 1536]  # wkv_b, wkv_a, wq_a/wq_b/experts, shared, wo/dense FFN/head
+
+# the modality main paths (phases 24-25), each at full width and depth (no cut): llama-3.2-vision-11b
+# (9.976 B params, 20.0 GB in bf16; qwen2-72b's 8 layers, 9.51 B, compressed within 48.7 GiB) and
+# whisper-small (0.278 B)
+VLM_ARCH, WHISPER_ARCH = "llama-3.2-vision-11b", "whisper-small"
+MODAL_ARCHS = (VLM_ARCH, WHISPER_ARCH)
+MODAL_TAGS = {VLM_ARCH: "vlm", WHISPER_ARCH: "whisper"}
+MODAL_PHASES = {VLM_ARCH: 24, WHISPER_ARCH: 25}
+# ranks at alpha 0.3: vision's wk/wv (4096 x 1024) and every other linear (min dim 4096); whisper's (768)
+MODAL_RANKS = {VLM_ARCH: [308, 1229], WHISPER_ARCH: [231]}
+# the modality trace: 8 slots, page 64, max_len 256, 16 pages (half the flat pool); 12 requests of
+# 24-200 prompt tokens and 8-24 new ones, each with its own image or frames
+MODAL_ENGINE = dict(n_slots=8, max_len=256, page_size=64, kv_pages=16, decode_block=8)
+MODAL_REQUESTS, MODAL_PROMPTS, MODAL_GEN = 12, (24, 200), (8, 24)
+MODAL_PREEMPT_GEN = 48  # phase 21's preemption pool and prompts, 48 new tokens each
+# the flash kernel's non-causal shapes (phase 2): (label, B, Sq, Skv, H = KV, head_dim)
+NONCAUSAL_FLASH = [
+    ("whisper encoder", 4, 1500, 1500, 12, 64),  # Skv 23.4 tiles of 64: the last tile holds 28 keys
+    ("whisper cross prefill", 4, PROMPT, 1500, 12, 64),
+    ("whisper cross decode", 8, 1, 1500, 12, 64),  # one live row of a 64-row query tile
+    ("vlm cross prefill", 4, PROMPT, 1600, 32, 128),
+    ("vlm cross decode", 8, 1, 1600, 32, 128),
+    ("one key", 2, 64, 1, 12, 64),
+    ("one key past a tile", 2, 64, 65, 12, 64),
+]
 
 # the serving engine's main path (phases 7 and 11)
 ENGINE = dict(n_slots=8, max_len=640, page_size=64, kv_pages=40, prefill_chunk=256, decode_block=8)
@@ -989,6 +1057,7 @@ def phase_kernels() -> dict:
     dense = phase_dense_kernels(rnd, gen, gemm_tol, attn_tol, records)
     phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records)
     phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records)
+    phase_noncausal_kernels(rnd, gen, attn_tol, records)
 
     # the tied-embedding logits through the sketch kernel: fp32 out, unrounded; x^T in the
     # storage runtime/dispatch.logits_apply gives it (aligned_rows: row stride 8)
@@ -1812,7 +1881,7 @@ def count_drops(model, seen) -> int:
 
 def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul", "sketch_matmul",
                                                                     "flash_attention", "paged_decode_attention"),
-                 dense_ok=frozenset()):
+                 dense_ok=frozenset(), requests=engine_requests, base=None):
     """The engine's gates on ``model``.  ``dense_ok``: the (K, N) of linears
     the compression policy left dense (below min_dim), the only products
     allowed outside the low-rank kernels.  Paged == flat runs the paged
@@ -1820,7 +1889,9 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     capacity.  For the ssm and hybrid families also: every prefill micro-batch holds
     one prompt length, unpadded; the SSD kernel launched once per layer per
     prefill call; mamba2 (no paged leaf) reserved zero pages.  Their prefill is monolithic (the chunk is
-    inert), so the chunked-vs-monolithic check is the attention families'."""
+    inert), so the chunked-vs-monolithic check is the attention families'.
+    ``requests`` and ``base``: another trace and engine (phases 24-25:
+    requests with their own images or frames, ``MODAL_ENGINE``)."""
     import dataclasses
 
     import torch
@@ -1829,8 +1900,9 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     from repro_torch.runtime import dispatch
 
     libs = engine_libs()
+    trace = dict(requests=requests, base=base)
     main_tok, eng, launches, tps = serve(model, params, "paged + chunked, CUDA graph (main path)", libs=libs,
-                                         tag=tag)
+                                         tag=tag, **trace)
     say(f"[{tag}] dispatch table of the main run (calls that ran; graph calls counted per replay):")
     for line in dispatch.format_counters().splitlines():
         say(f"[{tag}]   {line}")
@@ -1882,7 +1954,7 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
             say(f"[{tag}] pages reserved at peak: {eng.peak_pages_in_use} (no cache leaf is paged)")
             if eng.peak_pages_in_use != 0:
                 fail(f"{tag}: {eng.peak_pages_in_use} pages reserved, where no cache leaf is paged")
-    eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, tag=tag, cuda_graph=False)
+    eager_tok, *_ = serve(model, params, "paged + chunked, eager", libs=libs, tag=tag, cuda_graph=False, **trace)
     if eager_tok != main_tok:
         fail(f"{tag}: CUDA-graph tokens differ from the eager run's")
     say(f"[{tag}] CUDA-graph tokens == eager tokens: True")
@@ -1897,9 +1969,9 @@ def phase_engine(model, params, *, tag: str = "engine", on_path=("lowrank_matmul
     # differs is only where the bytes live.
     moe = model.cfg.family == "moe"
     paged_tok, *_ = serve(model, params, "paged, no chunking" + (", flat-equal pool" if moe else ""), libs=libs,
-                          tag=tag, prefill_chunk=None, **({"kv_pages": None} if moe else {}))
+                          tag=tag, prefill_chunk=None, **({"kv_pages": None} if moe else {}), **trace)
     flat_tok, _, flat_launches, _ = serve(model, params, "flat, no chunking", libs=libs, tag=tag, page_size=None,
-                                          kv_pages=None, prefill_chunk=None)  # counts reset again inside
+                                          kv_pages=None, prefill_chunk=None, **trace)  # counts reset again inside
     if paged_tok != flat_tok:
         fail(f"{tag}: paged-engine tokens differ from the flat engine's")
     say(f"[{tag}] paged tokens == flat tokens: True")
@@ -1970,12 +2042,16 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     decoding; the trace of one block (one replay) must name the paged kernel
     (a sliding-window arch: the flat decode kernel over its ring, which is
     never paged).  For a moe model, also the device time of the batched
-    kernel's tiles."""
+    kernel's tiles.  A vlm or audio model's requests carry their own image
+    or frames, and its block's cross-attention runs the flash kernel at
+    Sq = 1: one launch a call in the trace, its device time reported."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.data.synthetic import modality_extras
     from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import lowrank_matmul as lowrank_mod
     from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
@@ -1987,7 +2063,8 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     # 64 + 256 tokens = 5 pages each, so all 8 requests fit the 40 pages at
     # once, and none finishes within the 2 + blocks + 1 blocks run here
     for _ in range(ENGINE["n_slots"]):
-        eng.submit(Request(prompt=rng.integers(0, model.cfg.vocab, size=64), max_new_tokens=256))
+        eng.submit(Request(prompt=rng.integers(0, model.cfg.vocab, size=64), max_new_tokens=256,
+                           extras=modality_extras(model.cfg, rng)))
     eng.step()  # admission, prefill, capture, the first block
     eng.step()
     if eng.n_active != ENGINE["n_slots"]:
@@ -2003,12 +2080,13 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
     mla = model.cfg.family == "moe" and bool(model.cfg.kv_lora_rank)
     attn_lib, rows_tag, what = ((decode_mod.KERNEL, "FlatRows", "ring") if ring
                                 else (paged_mod.KERNEL, "PagedRows", "paged"))
-    libs = (attn_lib, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL)
+    libs = (attn_lib, lowrank_mod.KERNEL, sketch_mod.KERNEL, batched_mod.KERNEL, flash_mod.KERNEL)
     replays, before = eng.graph_replays, [lib.launches for lib in libs]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.step()  # one block: the state copied in, one replay, the drain
     # wrapper calls in the replayed block (graph launches count once per replay)
-    calls, lowrank_calls, sketch_calls, batched_calls = (lib.launches - b for lib, b in zip(libs, before))
+    calls, lowrank_calls, sketch_calls, batched_calls, flash_calls = (lib.launches - b
+                                                                      for lib, b in zip(libs, before))
     if eng.graph_replays != replays + 1:
         fail("the profiled engine step did not replay the decode graph exactly once")
     if eng.n_active != ENGINE["n_slots"]:
@@ -2058,6 +2136,18 @@ def phase_block_profile(model, params, blocks: int = 6, tag: str = "block"):
            f"block_{what}_ms": paged_ms, f"block_{what}_launches": paged_launches,
            "block_lowrank_calls": lowrank_calls, "block_lowrank_launches": lowrank_launches,
            "block_lowrank_ms": lowrank_ms}
+    cross = model.cfg.family in ("vlm", "audio")
+    flash_rows = [r for r in rows if "flash_wgmma_kernel" in r[2]]
+    flash_launches, flash_ms = sum(r[1] for r in flash_rows), sum(r[0] for r in flash_rows) / 1e3
+    if cross:  # cross-attention at Sq = 1 through the flash kernel, captured
+        out.update(block_flash_ms=flash_ms, block_flash_launches=flash_launches, block_flash_calls=flash_calls)
+        say(f"[{tag}] cross-attention (flash, Sq = 1, non-causal): {flash_calls} calls, {flash_launches} kernel "
+            f"launches in the trace, {flash_ms:.4f} ms device ({flash_ms / device_ms:.3f} of the block) on "
+            f"{card_line()}")
+        if flash_calls <= 0 or flash_launches != flash_calls:
+            fail(f"{tag}: {flash_calls} cross-attention calls ran {flash_launches} flash launches (one a call)")
+    elif flash_calls or flash_launches:
+        fail(f"{tag}: a decode block without cross-attention ran {flash_calls} flash calls")
     if model.cfg.family == "moe":
         # the batched kernel's own symbols: its liveness pass and its expert-stack tiles
         tiles = [r for r in rows if EXPERT_KERNELS.search(r[2])]
@@ -2296,14 +2386,14 @@ def stored_ranks(params) -> set:
     return set().union(*(stored_ranks(v) for v in params.values())) if isinstance(params, dict) else set()
 
 
-def divergence(model, m32, params, p32, prompt, want, got, tag):
+def divergence(model, m32, params, p32, prompt, want, got, tag, extras=None):
     """Where a bf16 stream ``got`` first leaves the uninterrupted ``want``: the
     top-2 margin of the uninterrupted run's logits there (the kernels'
     teacher-forced bf16 forward of prompt + want) against the bf16 spread
     at that token (the plain versions' bf16 logits against their fp32 ones
     on the same tokens, max over that row alone, so only a flip that the
     rounding at that token explains passes).  Fails if the margin exceeds
-    the spread."""
+    the spread.  ``extras``: the request's image or frames, unbatched."""
     import numpy as np
     import torch
 
@@ -2311,11 +2401,12 @@ def divergence(model, m32, params, p32, prompt, want, got, tag):
 
     j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
     seq = torch.as_tensor(np.concatenate([prompt, np.asarray(want[:-1], np.int64)])[None], device=model.device)
+    batch = {"tokens": seq, **{k: torch.as_tensor(v[None], device=model.device) for k, v in (extras or {}).items()}}
     L = prompt.size
-    logits = model.forward(params, {"tokens": seq})[0][0, L - 1:].float()
+    logits = model.forward(params, batch)[0][0, L - 1:].float()
     with use_dispatch(backend="reference"):
-        ref16 = model.forward(params, {"tokens": seq})[0][0, L - 1:].float()
-        ref32 = m32.forward(p32, {"tokens": seq})[0][0, L - 1:].float()
+        ref16 = model.forward(params, batch)[0][0, L - 1:].float()
+        ref32 = m32.forward(p32, batch)[0][0, L - 1:].float()
     spread = float((ref16[j] - ref32[j]).abs().max())
     top = torch.topk(logits[j], 2)
     margin = float(top.values[0] - top.values[1])
@@ -2328,48 +2419,53 @@ def divergence(model, m32, params, p32, prompt, want, got, tag):
     return {"token": j, "margin": margin, "spread": spread, "lead_err": lead}
 
 
-def phase_preempt(model, m32, params, p32) -> dict:
+def phase_preempt(model, m32, params, p32, *, gen: int = PREEMPT_GEN, shares=(True, False), tag="preempt") -> dict:
     """(b) Preemption on a pool that holds one of two requests (page 64, 5
-    pages, prompts of 200 and 210 tokens, 96 new each): the priority-1
+    pages, prompts of 200 and 210 tokens, ``gen`` new each): the priority-1
     request arrives after three decode blocks of the first; with
-    ``share_prefix`` True and False.  Gates: one preemption, no page left;
+    ``share_prefix`` in ``shares``.  Gates: one preemption, no page left;
     fp32: both streams equal the uninterrupted runs bit for bit; bf16: the
     count of equal streams, and a divergence only where the uninterrupted
-    run's top-2 margin is within the bf16 spread."""
+    run's top-2 margin is within the bf16 spread.  A vlm or audio request
+    carries its own image or frames (``SyntheticLM``'s, seed 3): a
+    continuation that lost them fails the fp32 gate."""
     import numpy as np
 
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.serving import Engine, Request
 
-    toks = SyntheticLM(model.cfg, batch=2, seq=max(PREEMPT_LENS), kind="serve", seed=3).at_step(0)["tokens"]
-    prompts = [np.asarray(toks[i, :n], np.int64) for i, n in enumerate(PREEMPT_LENS)]
+    data = SyntheticLM(model.cfg, batch=2, seq=max(PREEMPT_LENS), kind="serve", seed=3).at_step(0)
+    prompts = [np.asarray(data["tokens"][i, :n], np.int64) for i, n in enumerate(PREEMPT_LENS)]
+    extras = [{k: v[i] for k, v in data.items() if k != "tokens"} for i in range(2)]
     out = {}
     for dtype, m, p in (("fp32", m32, p32), ("bf16", model, params)):
         base = Engine(m, p, **PREEMPT)
-        want = [base.run([Request(prompt=q, max_new_tokens=PREEMPT_GEN)])[0].tokens for q in prompts]
-        for share in (True, False):
+        want = [base.run([Request(prompt=q, max_new_tokens=gen, extras=e)])[0].tokens
+                for q, e in zip(prompts, extras)]
+        for share in shares:
             eng = Engine(m, p, **PREEMPT, share_prefix=share, preempt=True)
-            r0 = eng.submit(Request(prompt=prompts[0], max_new_tokens=PREEMPT_GEN))
+            r0 = eng.submit(Request(prompt=prompts[0], max_new_tokens=gen, extras=extras[0]))
             for _ in range(3):
                 eng.step()
             emitted = len(r0.tokens)
-            r1 = eng.submit(Request(prompt=prompts[1], max_new_tokens=PREEMPT_GEN, priority=1))
+            r1 = eng.submit(Request(prompt=prompts[1], max_new_tokens=gen, priority=1, extras=extras[1]))
             while eng.has_work:
                 eng.step()
             equal = [r0.tokens == want[0], r1.tokens == want[1]]
-            say(f"[preempt] {dtype} share_prefix={share}: preempted after {emitted} tokens; preemptions "
+            say(f"[{tag}] {dtype} share_prefix={share}: preempted after {emitted} tokens; preemptions "
                 f"{eng.preemptions}, pages in use at the end {eng.pages_in_use}, shared admissions "
                 f"{eng.shared_admissions}; streams equal to the uninterrupted runs {equal}")
-            if eng.preemptions != 1 or eng.pages_in_use != 0 or r0.status != "ok" or len(r0.tokens) != PREEMPT_GEN:
-                fail(f"preempt {dtype} share={share}: preemptions {eng.preemptions}, pages {eng.pages_in_use}, "
+            if eng.preemptions != 1 or eng.pages_in_use != 0 or r0.status != "ok" or len(r0.tokens) != gen:
+                fail(f"{tag} {dtype} share={share}: preemptions {eng.preemptions}, pages {eng.pages_in_use}, "
                      f"status {r0.status}, {len(r0.tokens)} tokens")
             res = {"emitted_before": emitted, "equal": sum(equal)}
             if dtype == "fp32" and not all(equal):
-                fail(f"preempt fp32 share={share}: streams equal {equal}")
+                fail(f"{tag} fp32 share={share}: streams equal {equal}")
             for i, ok in enumerate(equal):
                 if not ok:
                     res[f"stream{i}"] = divergence(model, m32, params, p32, prompts[i], want[i],
-                                                   (r0, r1)[i].tokens, f"preempt bf16 share={share} stream {i}")
+                                                   (r0, r1)[i].tokens, f"{tag} bf16 share={share} stream {i}",
+                                                   extras[i])
             out[f"{dtype}_share{int(share)}"] = res
     return out
 
@@ -4150,6 +4246,338 @@ def phase_deepseek_only() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phases 24-25: llama-3.2-vision-11b and whisper-small (cross-attention,
+# the encoder-decoder, per-request images and audio frames)
+# --------------------------------------------------------------------------- #
+def phase_noncausal_kernels(rnd, gen, attn_tol, records) -> None:
+    """Phase 2 at the modality paths' non-causal shapes (NONCAUSAL_FLASH),
+    bf16 and fp32: the flash kernel against its plain version (whisper's
+    encoder over 1500 frames, 23.4 key tiles; cross-attention at prefill
+    over 1500 frames and 1600 image tokens; at decode, Sq = 1; one key; 65
+    keys, one past a tile), its library call SDPA without a mask.  At Sq = 1
+    the decode kernel's time on the same keys (every position valid) is
+    printed beside it, a comparison only.  Then each decode shape captured
+    in a CUDA graph (q a fixed buffer, new values copied in before the
+    replay): the replay equals an eager launch on the same inputs bit for
+    bit.  The bf16 records go into ``records`` under "flash_attention <label>"."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    card = card_line()
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = attn_tol[dtype]
+        for label, B, Sq, Skv, H, hd in NONCAUSAL_FLASH:
+            q, k, v = rnd((B, Sq, H, hd), dtype), rnd((B, Skv, H, hd), dtype), rnd((B, Skv, H, hd), dtype)
+            qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            extra = {"label": label, "card": card}
+            if Sq == 1 and dtype == torch.bfloat16:
+                valid = torch.ones((B, Skv), dtype=torch.bool, device=q.device)
+                try:  # a comparison only: the model's cross-attention runs the flash kernel
+                    extra["decode_attention_ms_same_keys"] = time_ms(lambda: decode_attention(q, k, v, valid))
+                except (ValueError, RuntimeError) as e:
+                    extra["decode_attention_ms_same_keys"] = f"not measured: {str(e)[:120]}"
+            check("flash_attention", [B, Sq, Skv, H, H, hd, "non-causal", label], dtype,
+                  flash_attention(q, k, v, causal=False), ref.chunked_attention_ref(q, k, v, causal=False), rel, why,
+                  kernel_fn=lambda: flash_attention(q, k, v, causal=False),
+                  plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=False),
+                  library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                  bytes_moved=2 * nbytes(q) + nbytes(k, v), ops=4 * B * H * Sq * Skv * hd,
+                  records=records, key=f"flash_attention {label}", extra=extra)
+            del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+        for label, B, Sq, Skv, H, hd in NONCAUSAL_FLASH:
+            if Sq != 1:
+                continue
+            q, k, v = rnd((B, 1, H, hd), dtype), rnd((B, Skv, H, hd), dtype), rnd((B, Skv, H, hd), dtype)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                flash_attention(q, k, v, causal=False)  # the first use outside the capture
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = flash_attention(q, k, v, causal=False)
+            same = []
+            for _ in range(3):
+                q.copy_(rnd((B, 1, H, hd), dtype))
+                graph.replay()
+                torch.cuda.synchronize()
+                same.append(bool(torch.equal(out, flash_attention(q, k, v, causal=False))))
+            say(f"[kernels] flash_attention {label} {str(dtype).replace('torch.', '')} captured at Sq = 1: three "
+                f"replays on new queries == eager launches bit for bit: {same}")
+            if not all(same):
+                fail(f"flash_attention {label} {dtype}: a captured replay differs from the eager launch {same}")
+            del q, k, v, out, graph
+
+
+def modal_decisions(cfg) -> dict:
+    """The compression decisions the reference's policy makes at full width
+    (alpha 0.3, min_dim 32): every linear and the head compressed; the
+    embedding and the stacked norm scales and biases dense (a 1-D leaf is
+    no candidate, so the report does not list the final norm)."""
+    if cfg.family == "vlm":
+        lin = {**{f"layers/self/attn/{n}": True for n in ("wq", "wk", "wv", "wo")},
+               **{f"layers/self/mlp/{n}": True for n in ("w_gate", "w_up", "w_down")},
+               **{f"layers/cross/cross/{n}": True for n in ("wq", "wk", "wv", "wo")},
+               **{f"layers/cross/mlp/{n}": True for n in ("w_gate", "w_up", "w_down")}}
+        norms = {f"layers/{s}/{n}/scale": False for s in ("self", "cross") for n in ("attn_norm", "mlp_norm")}
+    else:
+        lin = {**{f"{s}/attn/{n}": True for s in ("enc_layers", "dec_layers") for n in ("wq", "wk", "wv", "wo")},
+               **{f"dec_layers/cross/{n}": True for n in ("wq", "wk", "wv", "wo")},
+               **{f"{s}/mlp/{n}": True for s in ("enc_layers", "dec_layers") for n in ("w_up", "w_down")}}
+        norms = {f"{s}/{n}/{leaf}": False for s, ns in (("enc_layers", ("attn_norm", "mlp_norm")),
+                                                        ("dec_layers", ("attn_norm", "cross_norm", "mlp_norm")))
+                 for n in ns for leaf in ("scale", "bias")}
+    return {**lin, **norms, "lm_head": True, "embed": False}
+
+
+def modal_requests(cfg):
+    """The modality trace: MODAL_REQUESTS SyntheticLM prompts (seed 0) of
+    MODAL_PROMPTS tokens and MODAL_GEN new tokens, each request with its
+    own image or frames (SyntheticLM's, the same seed)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(MODAL_PROMPTS[0], MODAL_PROMPTS[1] + 1, size=MODAL_REQUESTS)
+    lens[:2] = MODAL_PROMPTS[::-1]
+    gens = rng.integers(MODAL_GEN[0], MODAL_GEN[1] + 1, size=MODAL_REQUESTS)
+    data = SyntheticLM(cfg, batch=MODAL_REQUESTS, seq=MODAL_PROMPTS[1], kind="serve", seed=0).at_step(0)
+    return [Request(prompt=data["tokens"][i, : lens[i]], max_new_tokens=int(gens[i]),
+                    extras={k: v[i] for k, v in data.items() if k != "tokens"}) for i in range(MODAL_REQUESTS)]
+
+
+def phase_modal_main(arch: str):
+    """``arch`` at every published width and depth (no cut): random weights
+    (seed 0), spectralized (seed 9), RSI-compressed at alpha 0.3 with q = 4;
+    the reference's decisions (``modal_decisions``) and ranks (MODAL_RANKS);
+    q = 1 factorizes one FFN matrix of the first block alone, for the error
+    gate.  Returns (model, params, batch (phase 3's shape, with the images or
+    frames), summary)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, normalized_error_factored, spectralize_params
+    from repro_torch.core.rsi import rsi_factors
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
+    from repro_torch.models.model import analytic_param_count, build_model
+
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    dev = model.device
+    tag = MODAL_TAGS[arch]
+    vlm = cfg.family == "vlm"
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = spectralize_params(model.init(gen(0)), gen(9))  # the random init tree is freed here
+    torch.cuda.synchronize()
+    shape = (f"{cfg.n_layers} layers: {cfg.n_layers // cfg.cross_attn_every} groups of "
+             f"{cfg.cross_attn_every - 1} self blocks + a cross block over {cfg.n_image_tokens} image tokens"
+             if vlm else f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, {cfg.n_audio_frames} "
+             f"frames")
+    say(f"[{tag}] {arch}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), {cfg.dtype}; {shape}; no cut; "
+        f"{analytic_param_count(cfg) / 1e9:.3f}B params ({analytic_param_count(cfg) * 2 / 1e9:.1f} GB in bf16); "
+        f"init + spectralize {time.perf_counter() - t0:.1f}s")
+    W = (dense["layers"]["self"]["mlp"]["w_gate"][0, 0] if vlm else dense["dec_layers"]["mlp"]["w_up"][0]).clone()
+    libs = engine_libs()
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    ALIGN_COPIES.reset()
+    t = time.perf_counter()
+    params, rep = compress_tree(dense, CompressionPolicy(alpha=ALPHA, q=4, min_dim=32), generator=gen(1))
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t
+    comp_launches = {n: lib.launches for n, lib in libs.items()}
+    no_align_copies(f"{arch} compression")
+    if comp_launches["sketch_matmul"] <= 0:
+        fail(f"{arch}: RSI's sketch GEMMs never launched sketch_matmul during compression")
+    del dense
+    torch.cuda.empty_cache()
+    by_path = {l.path: l.compressed for l in rep.layers}
+    want = modal_decisions(cfg)
+    wrong = {p: by_path.get(p) for p, c in want.items() if by_path.get(p) != c}
+    if wrong:
+        fail(f"{arch} compression decisions differ from the reference's: {wrong}")
+    ranks = sorted({l.rank for l in rep.layers if l.compressed})
+    say(f"[{tag}] compress q=4: {rep.summary()} ranks {ranks} in {comp_s:.1f}s; decisions == the reference's "
+        f"({len(want)} leaves); launches {comp_launches}")
+    if ranks != MODAL_RANKS[arch]:
+        fail(f"{arch}: ranks {ranks}, not {MODAL_RANKS[arch]}")
+    fallbacks = {l.path: l.qr_fallbacks for l in rep.layers if l.qr_fallbacks}
+    say(f"[{tag}] sketches orthonormalized by Householder QR: {sum(fallbacks.values())}, by leaf {fallbacks}")
+    leaf = params["layers"]["self"]["mlp"]["w_gate"] if vlm else params["dec_layers"]["mlp"]["w_up"]
+    A, B = (leaf["a"][0, 0], leaf["b"][0, 0]) if vlm else (leaf["a"][0], leaf["b"][0])
+    k = A.shape[-1]
+    sv = torch.linalg.svdvals(W.float())
+    errs = {4: float(normalized_error_factored(W, A, B, sv[k], gen(2), iters=64))}
+    t = time.perf_counter()
+    A1, B1 = rsi_factors(W, k, 1, generator=gen(3))
+    torch.cuda.synchronize()
+    q1_s = time.perf_counter() - t
+    errs[1] = float(normalized_error_factored(W, A1, B1, sv[k], gen(2), iters=64))
+    del A1, B1
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] {'self block 0 w_gate' if vlm else 'decoder layer 0 w_up'} ({W.shape[0]}x{W.shape[1]}, k={k}) "
+        f"normalized error ||W-AB||_2/s_(k+1): q=4 {errs[4]:.4f}, q=1 {errs[1]:.4f} (that one matrix in "
+        f"{q1_s:.2f}s); compression {comp_s:.1f}s, peak device memory {peak / 2**30:.2f} GiB (max_memory_allocated, "
+        f"init to compressed model) on {card_line()}")
+    del W
+    if not errs[4] <= errs[1]:
+        fail(f"{arch}: q=4 normalized error {errs[4]:.4f} > q=1's {errs[1]:.4f}")
+    data = SyntheticLM(cfg, batch=BATCH, seq=PROMPT, kind="serve", seed=0).at_step(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    batch["tokens"] = batch["tokens"].long()
+    summary = {"n_layers": cfg.n_layers, "ratio": rep.ratio, "ranks": ranks, "compress_s": comp_s,
+               "normalized_error": errs, "peak_gib": peak / 2**30, "compress_launches": comp_launches,
+               "qr_fallbacks": fallbacks}
+    return model, params, batch, summary
+
+
+def context_gate(model, params, batch, tag: str) -> dict:
+    """Two rows with the same prompt and different images (frames): their
+    prefill logits must differ, and each must equal a batch of one with its
+    own image (so nothing of one row's context reaches the other)."""
+    import torch
+
+    extra, what = ("image_embed", "images") if model.cfg.family == "vlm" else ("frames", "sets of frames")
+    two = {"tokens": batch["tokens"][:1].expand(2, -1).contiguous(), extra: batch[extra][:2].contiguous()}
+    logits, _ = model.prefill(params, two, PROMPT + GEN)
+    diff = float((logits[0] - logits[1]).abs().max())
+    alone = [model.prefill(params, {"tokens": two["tokens"][i:i + 1], extra: two[extra][i:i + 1]},
+                           PROMPT + GEN)[0][0] for i in range(2)]
+    err = max(float((alone[i] - logits[i]).abs().max()) for i in range(2))
+    tol = 5e-2 * float(logits.abs().max())  # phase 5's: another batch, another M for the low-rank kernel
+    say(f"[{tag}] same prompt, two {what}: first logits differ by {diff:.4e} (max abs; gate > 0); each row "
+        f"against a batch of one with its own {extra}: {err:.4e} (tol {tol:.4e}); argmax "
+        f"{logits.argmax(-1).tolist()}")
+    if not diff > 0 or not err <= tol:
+        fail(f"{tag}: two {what} behind one prompt: logits differ by {diff:.4e}; rows vs alone {err:.4e}")
+    return {"context_logit_diff": diff, "context_row_vs_alone": err}
+
+
+def phase_modal(arch: str, runs: dict) -> dict:
+    """Phase 24 (llama-3.2-vision-11b) or 25 (whisper-small), at every
+    published width and depth, compressed (q = 4): (a) the static path at
+    phase 3's shape, each row with its own image or frames (lowrank_matmul,
+    flash_attention and decode_attention launched); two rows of one prompt
+    and two images give other logits; auto vs reference as phase 22: fp32
+    end to end within 1e-2 and bf16 against the fp32 reference run (RMS 1.2
+    x, largest 1.5 x the plain versions' error); (b) phase 7's engine gates
+    on the modality trace (every request finishing, graph == eager, paged
+    on half the flat pool == flat, every kernel of the path launched, no
+    linear outside the kernels; the prefill monolithic); (c) phase 21's
+    preemption rule with the requests' own images or frames (fp32 bit for
+    bit, bf16 within the spread; ``share_prefix`` is inert for the family,
+    so one engine a dtype); (d) one captured decode block profiled, the
+    cross-attention's flash launches at Sq = 1 in it."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import greedy_generate
+
+    t0 = time.perf_counter()
+    tag = MODAL_TAGS[arch]
+    model, params, batch, summary = phase_modal_main(arch)
+    runs[f"{arch} compression"] = summary["compress_launches"]
+    libs = {n: lib for n, lib in engine_libs().items() if n not in ("sketch_matmul", "ssd_scan")}
+    on_path = ("lowrank_matmul", "flash_attention", "decode_attention")
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    t = time.perf_counter()
+    out = greedy_generate(model, params, batch, steps=GEN, max_len=PROMPT + GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    static = {n: lib.launches for n, lib in libs.items()}
+    runs[f"{arch} static"] = static
+    if tuple(out.shape) != (BATCH, GEN) or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_padded:
+        fail(f"{tag}: static tokens of shape {tuple(out.shape)} out of range")
+    say(f"[{tag}] static path: generated {tuple(out.shape)} in {dt:.3f}s = {BATCH * GEN / dt:.1f} tok/s (host "
+        f"clock, first call) on {card_line()}; launches {static}")
+    if any(static[n] <= 0 for n in on_path) or static["paged_decode_attention"] or static["lowrank_matmul_batched"]:
+        fail(f"{tag}: the static path's launches {static} (want {on_path} > 0)")
+    summary["static_tok_s"] = BATCH * GEN / dt
+    summary.update(context_gate(model, params, batch, tag))
+    summary["reference"] = phase_deep_reference(model, params, batch, tag=f"{tag} reference", fp32_anchored=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = phase_engine(model, params, tag=f"{tag} engine",
+                       on_path=("lowrank_matmul", "flash_attention", "paged_decode_attention"),
+                       requests=modal_requests, base=MODAL_ENGINE)
+    runs[f"{arch} engine"], runs[f"{arch} flat engine"] = eng["launches"], eng["launches_flat_engine"]
+    if eng["prefill_batches"] <= 0:
+        fail(f"{tag}: the engine ran no prefill micro-batch")
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    p32 = params_fp32(params)
+    summary["preempt"] = phase_preempt(model, m32, params, p32, gen=MODAL_PREEMPT_GEN, shares=(False,),
+                                       tag=f"{tag} preempt")
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.update(phase_block_profile(model, params, tag=f"{tag} block"))
+    summary.update({"tok_s": eng["tok_s"], "phase_s": time.perf_counter() - t0})
+    say(f"[{tag}] phase {MODAL_PHASES[arch]} (engine tok/s on the host clock; {card_line()}) " + json.dumps(summary))
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_modal_only(arch: str) -> int:
+    """``--vlm-only`` / ``--whisper-only``: phase 2's non-causal flash checks
+    and phase 24 or 25 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flag = "vlm" if arch == VLM_ARCH else "whisper"
+    say(f"[{flag}-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    built = build_all()
+    for name, so in built.items():
+        log = so.with_suffix(".log")
+        if log.exists():
+            say(f"[ptxas {name}] {ptxas_summary(log.read_text())}")
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    records: dict = {}
+    phase_noncausal_kernels(rnd, gen, attention_tolerances(), records)
+    say(f"[{flag}-only] phase 2 checks in {time.perf_counter() - t:.1f}s")
+    runs: dict = {}
+    phase_modal(arch, runs)
+    say(f"[{flag}-only] launches " + json.dumps(runs))
+    say(f"[{flag}-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
 def phase_sharing_only() -> int:
     """``--sharing-only``: phases 19-20 alone."""
     import torch
@@ -4289,6 +4717,10 @@ def main() -> int:
         return phase_h2o_only()
     if "--deepseek-only" in sys.argv:
         return phase_deepseek_only()
+    if "--vlm-only" in sys.argv:
+        return phase_modal_only(VLM_ARCH)
+    if "--whisper-only" in sys.argv:
+        return phase_modal_only(WHISPER_ARCH)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -4396,6 +4828,12 @@ def main() -> int:
     phase_deepseek(runs)
     say(f"[deepseek] phase 23 in {time.perf_counter() - t:.1f}s")
 
+    # phases 24-25: llama-3.2-vision-11b and whisper-small whole (each model freed inside)
+    for arch in MODAL_ARCHS:
+        t = time.perf_counter()
+        phase_modal(arch, runs)
+        say(f"[{MODAL_TAGS[arch]}] phase {MODAL_PHASES[arch]} in {time.perf_counter() - t:.1f}s")
+
     # `launches`: the kernel's count on the main run of the newest engine path that runs it (the
     # shape and dtype of its `ms`); phase 18's fp32 paper runs stand only in `launches_by_run`, and
     # phases 19-20's runs there and beside the records of their own shapes below
@@ -4453,13 +4891,17 @@ def main() -> int:
                 ("deepseek_wq_b_m4", records, f"{name} deepseek wq_b M 4"),
                 ("deepseek_wq_b_m8", records, f"{name} deepseek wq_b M 8"),
                 ("deepseek_w_gate", records, f"{name} deepseek"),
-                ("deepseek_w_gate_trans_a", records, f"{name} deepseek trans_a"))
+                ("deepseek_w_gate_trans_a", records, f"{name} deepseek trans_a"),
+                # phases 24-25's shapes: the flash kernel's non-causal path (whisper's encoder,
+                # cross-attention at prefill and at Sq = 1, one key, 65 keys)
+                *((label.replace(" ", "_"), records, f"{name} {label}") for label, *_ in NONCAUSAL_FLASH))
         for key, sub, rec_key in subs:
             if rec_key in sub:
                 entry[key] = {k: sub[rec_key][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                            "bound_ms", "bound_by")}
                 arch = next((a for a in [a for a, _ in DENSE_ARCHS] + [H2O_ARCH, DEEPSEEK_ARCH]
                              if key.startswith(a.split("-")[0])), None)
+                arch = arch or next((a for a, t in MODAL_TAGS.items() if key.startswith(t + "_")), None)
                 if arch is not None:  # the count of the same model's run (the window trace's for the 16k prompt)
                     mine = ("window engine",) if key == "h2o_window_16k" else ("engine", "flat engine", "compression")
                     own = next((f"{arch} {r}" for r in mine if runs.get(f"{arch} {r}", {}).get(name, 0) > 0),

@@ -1,7 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution for the ported archs.
+"""Architecture registry: ``--arch <id>`` resolution.
 
-The reference registry knows ten architectures; the port resolves only the
-ones whose model family it carries so far and says so for the rest.
+The port resolves every architecture the reference registry knows.
 """
 
 from __future__ import annotations
@@ -17,6 +16,8 @@ _ARCH_MODULES = {
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama3_2_vision_11b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
@@ -40,11 +41,6 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 
 def get_arch(arch_id: str, *, reduced: bool = False) -> ArchConfig:
     if arch_id not in _ARCH_MODULES:
-        if arch_id in REFERENCE_ARCH_IDS:
-            raise NotImplementedError(
-                f"arch {arch_id!r} is not yet ported to repro_torch "
-                f"(ported: {sorted(_ARCH_MODULES)})"
-            )
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REFERENCE_ARCH_IDS)}")
     mod = importlib.import_module(_ARCH_MODULES[arch_id])
     return mod.REDUCED if reduced else mod.CONFIG

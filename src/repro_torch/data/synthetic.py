@@ -1,15 +1,31 @@
 """Deterministic synthetic data (a copy of the reference's
-``repro/data/synthetic.py`` for the LM case and the Table 4.1 classifier).
+``repro/data/synthetic.py``): token streams, the modality-frontend stubs
+(a vlm's ``image_embed``, an audio model's ``frames``) and the Table 4.1
+classifier.
 
-Contents are a pure function of the seed (and step), so the port and the
-reference build identical prompts and datasets.
+Contents are a pure function of the seed (and step), drawn from the same
+numpy generators in the same order as the reference's, so the port and the
+reference build identical prompts, request payloads and datasets.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "markov_tokens", "classification_dataset"]
+__all__ = ["SyntheticLM", "markov_tokens", "modality_extras", "classification_dataset"]
+
+
+def modality_extras(cfg, rng) -> dict:
+    """Per-REQUEST (unbatched) modality-frontend stubs for serving: the extra
+    model inputs one request of this arch family needs, drawn from ``rng``
+    (a vlm's ``image_embed`` (n_image_tokens, d_model), an audio model's
+    ``frames`` (n_audio_frames, d_model), fp32; nothing otherwise)."""
+    e = {}
+    if cfg.family == "vlm":
+        e["image_embed"] = rng.standard_normal((cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        e["frames"] = rng.standard_normal((cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return e
 
 
 def markov_tokens(seed: int, step: int, batch: int, seq: int, vocab: int) -> np.ndarray:
@@ -23,19 +39,25 @@ def markov_tokens(seed: int, step: int, batch: int, seq: int, vocab: int) -> np.
 
 
 class SyntheticLM:
-    """Iterator of LM batches ({"tokens"} and, for training, {"targets"})."""
+    """Iterator of LM batches: {"tokens"}, for training {"targets"}, and a
+    vlm's {"image_embed"} (B, n_image_tokens, d_model) or an audio model's
+    {"frames"} (B, n_audio_frames, d_model), fp32."""
 
     def __init__(self, cfg, batch: int, seq: int, *, kind: str = "train", seed: int = 0):
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(f"modality inputs of family {cfg.family!r} are not yet ported")
         self.cfg, self.batch, self.seq, self.kind, self.seed = cfg, batch, seq, kind, seed
         self.step = 0
 
     def at_step(self, step: int) -> dict:
-        toks = markov_tokens(self.seed, step, self.batch, self.seq + 1, self.cfg.vocab)
+        cfg = self.cfg
+        toks = markov_tokens(self.seed, step, self.batch, self.seq + 1, cfg.vocab)
         out = {"tokens": toks[:, :-1]}
         if self.kind == "train":
             out["targets"] = toks[:, 1:]
+        rng = np.random.default_rng(np.uint64(self.seed) * np.uint64(7919) + np.uint64(step))
+        if cfg.family == "vlm":
+            out["image_embed"] = rng.standard_normal((self.batch, cfg.n_image_tokens, cfg.d_model), dtype=np.float32)
+        if cfg.family == "audio":
+            out["frames"] = rng.standard_normal((self.batch, cfg.n_audio_frames, cfg.d_model), dtype=np.float32)
         return out
 
     def __iter__(self):

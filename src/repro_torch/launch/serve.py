@@ -29,6 +29,9 @@ shed request.  ``--max-len`` sizes the cache for longer sequences than
 ``--prompt-len + --gen``; a sliding-window arch (``--arch
 h2o-danube-1.8b``) keeps a ring of ``min(max_len, window)`` slots a
 sequence whatever it is, so a prompt past the window costs no more cache.
+A vlm (``--arch llama-3.2-vision-11b``) or audio (``--arch whisper-small``)
+request carries its own image embeddings or audio frames, drawn by
+``SyntheticLM`` beside the prompts; both prefill monolithically.
 The first SIGINT or SIGTERM drains gracefully: the queue
 sheds with ``"shutdown"``, in-flight requests finish, and the default
 handlers come back (a second signal ends the process).  The reference's
@@ -120,7 +123,10 @@ def main(argv=None):
         print("[compress]", rep.summary())
 
     data = SyntheticLM(cfg, batch=args.batch, seq=args.prompt_len, kind="serve", seed=args.seed)
-    prompts = np.asarray(data.at_step(0)["tokens"])
+    np_batch = data.at_step(0)
+    prompts = np.asarray(np_batch["tokens"])
+    # the modality stubs beside the prompts: a vlm's image_embed, an audio model's frames
+    extras = {k: np.asarray(v) for k, v in np_batch.items() if k != "tokens"}
     max_len = args.max_len or args.prompt_len + args.gen
     if max_len < args.prompt_len + args.gen:
         ap.error(f"--max-len {max_len} < --prompt-len + --gen ({args.prompt_len + args.gen})")
@@ -128,7 +134,8 @@ def main(argv=None):
     dispatch.reset_counters()
 
     if args.engine == "static":
-        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev),
+                 **{k: torch.as_tensor(v, device=dev) for k, v in extras.items()}}
         t0 = time.perf_counter()
         with use_dispatch(dcfg):
             out = greedy_generate(model, params, batch, steps=args.gen, max_len=max_len)
@@ -157,6 +164,7 @@ def main(argv=None):
         reqs = [Request(prompt=prompts[b], max_new_tokens=args.gen,
                         sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
                                                 seed=args.seed + b),
+                        extras={k: v[b] for k, v in extras.items()},
                         deadline_ms=args.deadline_ms or None, min_tier=(len(tiers) - 1) if tiers else 0)
                 for b in range(args.batch)]
 

@@ -24,6 +24,13 @@ prefill materializes per-head K (nope + rope, 192 at full width) and V
 page-backed chunk prefill run the reference's absorbed-weight attention in
 latent space, as torch ops (``dispatch.mla_product``): the reference
 computes them in XLA, outside any Pallas kernel.
+
+Cross-attention (llama-3.2-vision's image layers, whisper's decoder)
+attends ``n_heads`` query heads over as many K/V heads (G = 1) computed
+from a context (image embeddings, encoder states) once per request, with
+no rotary embedding and no mask: through the flash kernel's non-causal
+path at prefill and at decode alike (Sq = 1 there), as the reference
+runs ``chunked_attention(causal=False)`` in both.
 """
 
 from __future__ import annotations
@@ -46,6 +53,9 @@ __all__ = [
     "gqa_init_cache_paged",
     "gqa_decode_paged",
     "gqa_prefill_chunk",
+    "cross_attn_init",
+    "cross_attn_kv",
+    "cross_attn",
     "mla_init",
     "mla_forward",
     "mla_init_cache",
@@ -97,7 +107,7 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device) -> dict:
     return p
 
 
-def _qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, positions, *, rope: bool = True):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = nn.dense(p["wq"], x)
@@ -105,14 +115,19 @@ def _qkv(p, x, cfg, positions):
     v = nn.dense(p["wv"], x)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = nn.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = nn.apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
+    if rope:
+        q = nn.apply_rope(q, positions, cfg.rope_theta)
+        k = nn.apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd).contiguous()
     return q, k, v
 
 
-def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, return_cache: bool = False):
+def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, rope: bool = True,
+                return_cache: bool = False):
     """Full-sequence GQA attention (prefill), through the flash kernel.
+    ``rope=False`` (whisper's encoder and decoder prompt) applies no rotary
+    embedding; ``causal=False`` (whisper's encoder) masks nothing.
 
     Returns the output, and with ``return_cache`` also the (k, v) of every
     position for the decode cache."""
@@ -122,7 +137,7 @@ def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, return_cache:
     W = cfg.sliding_window
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, rope=rope)
     out = dispatch.flash_attention(q, k, v, causal=causal, window=W)
     out = nn.dense(p["wo"], out.reshape(B, S, -1))
     if not return_cache:
@@ -311,6 +326,39 @@ def gqa_prefill_chunk(p, x, cache, cfg, bt_row, start: int, n_real: int):
     vv = gather_pages(cache["v"], bt_row[None])
     out = _chunk_masked_attention(q, kk, vv, pos[None, :])
     return nn.dense(p["wo"], out.reshape(B, C, -1)), cache
+
+
+# --------------------------------------------------------------------------- #
+# Cross-attention (llama-3.2-vision's image layers, whisper's decoder)
+# --------------------------------------------------------------------------- #
+def cross_attn_init(generator: torch.Generator, cfg, dtype, device) -> dict:
+    d, Hhd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    return {
+        "wq": nn.dense_init(generator, d, Hhd, dtype, device),
+        "wk": nn.dense_init(generator, d, Hhd, dtype, device),
+        "wv": nn.dense_init(generator, d, Hhd, dtype, device),
+        "wo": nn.dense_init(generator, Hhd, d, dtype, device, scale=Hhd**-0.5),
+    }
+
+
+def cross_attn_kv(p, ctx, cfg):
+    """The cross K/V, (B, T, n_heads, head_dim) each, of a context (B, T, d):
+    computed once a request and kept in the slot's ``cross_kv`` rows."""
+    B, T, _ = ctx.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    return nn.dense(p["wk"], ctx).reshape(B, T, H, hd), nn.dense(p["wv"], ctx).reshape(B, T, H, hd)
+
+
+def cross_attn(p, x, kv, cfg):
+    """x (B, S, d) attends every context position of ``kv`` (no mask, no
+    rotary embedding), through the flash kernel's non-causal path; S is the
+    prompt at prefill and 1 at decode."""
+    from repro_torch.runtime import dispatch
+
+    B, S, _ = x.shape
+    q = nn.dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out = dispatch.flash_attention(q, kv[0], kv[1], causal=False)
+    return nn.dense(p["wo"], out.reshape(B, S, -1))
 
 
 # --------------------------------------------------------------------------- #

@@ -1,10 +1,10 @@
-"""Decoder-only LM, dense, moe, ssm and hybrid families: init, forward,
-prefill and decode.
+"""Decoder-only LM, dense, moe, vlm, ssm and hybrid families: init,
+forward, prefill and decode.
 
 The port's counterpart of the dense and moe (GQA or MLA attention, routed
-and shared experts, dense first layers), ssm (mamba2) and hybrid (zamba2)
-families of ``repro/models/lm.py``.  The params tree mirrors the
-reference's: ``embed``, ``final_norm``, ``lm_head`` where the head is not
+and shared experts, dense first layers), vlm (llama-3.2-vision), ssm
+(mamba2) and hybrid (zamba2) families of ``repro/models/lm.py``.  The
+params tree mirrors the reference's: ``embed``, ``final_norm``, ``lm_head`` where the head is not
 tied, and a ``layers`` subtree whose leaves are stacked over layers, shape
 (L, ...); a moe layer holds ``moe`` (router, (L, E, ...) expert stacks,
 ``shared`` experts) where a dense one holds ``mlp``, and a mamba layer
@@ -16,8 +16,14 @@ attention (``kv_lora_rank`` set, moe family) holds ``wq_a``, ``q_norm``,
 ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b`` and ``wo`` in place of
 ``wq``/``wk``/``wv``/``wo``.  The hybrid family adds ONE unstacked
 ``shared_attn`` block (attention + MLP) applied after every full segment of
-``attn_every`` mamba layers, with tied weights.  The reference scans over
-the layer axis; here a Python loop takes each layer's slice (a view).
+``attn_every`` mamba layers, with tied weights.  The vlm family's
+``layers`` holds ``n_layers // cross_attn_every`` groups, as the
+reference's: ``layers/self`` stacks ``cross_attn_every - 1`` GQA blocks a
+group, shape (n_groups, n_self, ...), and ``layers/cross`` one cross block
+a group (``attn_norm``, ``cross``, ``mlp_norm``, ``mlp``), shape (n_groups,
+...); each group runs its self blocks, then its cross block over the
+request's ``image_embed``.  The reference scans over the layer axis; here
+a Python loop takes each layer's slice (a view).
 
 The decode cache is ``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}`` (a
 mamba layer: its conv tails and fp32 state, ``models/ssm.py``; an MLA
@@ -25,18 +31,24 @@ layer: the latent ``"c_kv": (L, B, S, kv_lora_rank)`` and ``"k_rope": (L,
 B, S, qk_rope_dim)``); a ``dense_layers`` stack adds a ``"dense_layers"``
 subtree of the same leaves; the hybrid
 family's adds ``"shared_attn": {"k": (n_apps, B, S, KV, hd), ...}``, one
-cache per application of the shared block.  ``lm_decode_step`` updates it
-IN PLACE: each layer writes its new K/V row (or its state) into its slice
-of the stacked tensors.  This replaces the reference's scan-carry cache
-(``lm.py:795-822``), whose point was the same in-place aliasing.  The
+cache per application of the shared block.  The vlm family's self blocks
+take ``"layers"`` with the groups flattened, (n_groups * n_self, B, S, KV,
+hd) (the reference keeps (n_groups, n_self, ...)), and its cross blocks a
+``"cross_kv": {"k": (n_groups, B, n_image_tokens, n_heads, hd), "v": ...}``
+written once by the prefill and only read by decode.  ``lm_decode_step``
+updates the cache IN PLACE: each layer writes its new K/V row (or its
+state) into its slice of the stacked tensors.  This replaces the
+reference's scan-carry cache (``lm.py:795-822``), whose point was the
+same in-place aliasing.  The
 paged cache (``lm_init_cache_paged``) holds the K/V leaves as page pools,
 ``(L, P + 1, page, KV, hd)`` (MLA: ``(L, P + 1, page, kv_lora_rank)`` and
 ``(L, P + 1, page, qk_rope_dim)``), plus a ``"block_table": (B, n_tbl)``;
-the conv tails and states stay slot-resident.  Its ``block_table`` routes
-``lm_decode_step``'s attention through the paged decode, and
-``lm_prefill_chunk`` writes one chunk of one slot's prompt into its pages
-(dense and moe only: a recurrent state cannot be prefilled in page-backed
-chunks).
+the conv tails, states and a vlm's ``cross_kv`` stay slot-resident.  Its
+``block_table`` routes ``lm_decode_step``'s attention through the paged
+decode, and ``lm_prefill_chunk`` writes one chunk of one slot's prompt
+into its pages (dense and moe only: a recurrent state cannot be
+prefilled in page-backed chunks, nor a vlm's cross blocks enter
+mid-prompt, as in the reference).
 """
 
 from __future__ import annotations
@@ -63,7 +75,7 @@ __all__ = [
 ]
 
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 # the fields an MLA attention (kv_lora_rank set) needs besides it
 _MLA_FIELDS = ("q_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim")
 
@@ -77,6 +89,10 @@ def _check_family(cfg) -> None:
             raise ValueError(f"MLA attention (kv_lora_rank={cfg.kv_lora_rank}) needs {', '.join(missing)}")
     if _n_dense_first(cfg) and not (cfg.dense_d_ff or cfg.d_ff):
         raise ValueError(f"first_dense_layers={cfg.first_dense_layers} needs dense_d_ff or d_ff")
+    if cfg.family == "vlm" and not (cfg.cross_attn_every >= 2 and cfg.n_image_tokens > 0
+                                    and cfg.n_layers >= cfg.cross_attn_every):
+        raise ValueError(f"vlm needs cross_attn_every >= 2 (got {cfg.cross_attn_every}), n_image_tokens > 0 "
+                         f"(got {cfg.n_image_tokens}) and n_layers >= cross_attn_every (got {cfg.n_layers})")
 
 
 def _mla(cfg) -> bool:
@@ -107,17 +123,18 @@ def _layer(stack, i: int):
 
 def _block_init(generator, cfg, dtype, device, *, layer_kind: str) -> dict:
     """One block: ``mamba`` (norm + Mamba2), or attention (MLA under
-    :func:`_mla`, else GQA) with a routed (``moe``) or dense feed-forward
-    half: ``gqa``'s of width ``d_ff``, ``dense_ffn``'s of ``dense_d_ff``."""
+    :func:`_mla`, else GQA; ``cross``: cross-attention under ``"cross"``)
+    with a routed (``moe``) or dense feed-forward half: ``gqa``'s and
+    ``cross``'s of width ``d_ff``, ``dense_ffn``'s of ``dense_d_ff``."""
     if layer_kind == "mamba":
         return {"ssm_in_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
                 "mamba": ssm_mod.mamba2_init(generator, cfg, dtype, device)}
-    attn_init = attn.mla_init if _mla(cfg) else attn.gqa_init
-    p = {
-        "attn_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attn_init(generator, cfg, dtype, device),
-        "mlp_norm": nn.rmsnorm_init(cfg.d_model, dtype, device),
-    }
+    p = {"attn_norm": nn.rmsnorm_init(cfg.d_model, dtype, device)}
+    if layer_kind == "cross":
+        p["cross"] = attn.cross_attn_init(generator, cfg, dtype, device)
+    else:
+        p["attn"] = (attn.mla_init if _mla(cfg) else attn.gqa_init)(generator, cfg, dtype, device)
+    p["mlp_norm"] = nn.rmsnorm_init(cfg.d_model, dtype, device)
     if layer_kind == "moe":
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device)
     else:
@@ -128,7 +145,7 @@ def _block_init(generator, cfg, dtype, device, *, layer_kind: str) -> dict:
 
 def _layer_kind(cfg) -> str:
     """The kind of every stacked layer of the family."""
-    return {"dense": "gqa", "moe": "moe", "ssm": "mamba", "hybrid": "mamba"}[cfg.family]
+    return {"dense": "gqa", "moe": "moe", "vlm": "gqa", "ssm": "mamba", "hybrid": "mamba"}[cfg.family]
 
 
 def _hybrid_segments(cfg):
@@ -144,15 +161,25 @@ def _hybrid_segments(cfg):
     return segs
 
 
-# the params / cache subtree of each kind of block in a schedule
-_SUB = {"dense": "dense_layers", "layer": "layers", "shared": "shared_attn"}
+# the cache subtree of each kind of block in a schedule (but for a vlm, its params subtree too)
+_SUB = {"dense": "dense_layers", "layer": "layers", "shared": "shared_attn", "cross": "cross_kv"}
+
+
+def _vlm_groups(cfg) -> tuple:
+    """(n_groups, self blocks a group) of the vlm family."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
 
 def _schedule(cfg):
     """The blocks in the order the trunk runs them: ("dense", i) for block i
     of the ``dense_layers`` stack, then ("layer", i) for stacked layer i,
     and (hybrid) ("shared", j) for the shared block's j-th application,
-    with its own cache entry j."""
+    with its own cache entry j.  A vlm's group g runs ("layer", g * n_self
+    + s) for its self blocks s, then ("cross", g)."""
+    if cfg.family == "vlm":
+        n_groups, n_self = _vlm_groups(cfg)
+        return [e for g in range(n_groups)
+                for e in [("layer", g * n_self + s) for s in range(n_self)] + [("cross", g)]]
     if cfg.family != "hybrid":
         n0 = _n_dense_first(cfg)
         return [("dense", i) for i in range(n0)] + [("layer", i) for i in range(cfg.n_layers - n0)]
@@ -170,10 +197,23 @@ def _n_shared_apps(cfg) -> int:
     return sum(1 for kind, _ in _schedule(cfg) if kind == "shared")
 
 
+def _n_stacked(cfg) -> int:
+    """Blocks of the ``layers`` stack (and of its cache)."""
+    return sum(1 for kind, _ in _schedule(cfg) if kind == "layer")
+
+
 def _block(p, kind: str, i: int):
-    """The params of scheduled block (kind, i): a slice (views) of its stack,
-    or the hybrid's one unstacked shared block."""
-    return p["shared_attn"] if kind == "shared" else _layer(p[_SUB[kind]], i)
+    """The params of scheduled block (kind, i): a slice (views) of its stack
+    (a vlm's self block i of the flattened groups, or its group i's cross
+    block), or the hybrid's one unstacked shared block."""
+    if kind == "shared":
+        return p["shared_attn"]
+    if "self" in p["layers"]:  # vlm: a group's self block, or its cross block
+        if kind == "cross":
+            return _layer(p["layers"]["cross"], i)
+        n_self = p["layers"]["self"]["attn_norm"]["scale"].shape[1]
+        return _layer(_layer(p["layers"]["self"], i // n_self), i % n_self)
+    return _layer(p[_SUB[kind]], i)
 
 
 def _stack(trees):
@@ -197,6 +237,13 @@ def lm_init(generator: torch.Generator, cfg, device) -> dict:
     if n0:
         p["dense_layers"] = _stack([_block_init(generator, cfg, dtype, device, layer_kind="dense_ffn")
                                     for _ in range(n0)])
+    if cfg.family == "vlm":
+        n_groups, n_self = _vlm_groups(cfg)
+        p["layers"] = _stack([{"self": _stack([_block_init(generator, cfg, dtype, device, layer_kind="gqa")
+                                               for _ in range(n_self)]),
+                               "cross": _block_init(generator, cfg, dtype, device, layer_kind="cross")}
+                              for _ in range(n_groups)])
+        return p
     p["layers"] = _stack([_block_init(generator, cfg, dtype, device, layer_kind=kind)
                           for _ in range(cfg.n_layers - n0)])
     if cfg.family == "hybrid":
@@ -245,6 +292,23 @@ def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
     return x + m, kv, aux
 
 
+def _cross_block(lp, x, kv, cfg):
+    """A vlm cross block: cross-attention over the image's (k, v), then the
+    SwiGLU feed-forward half (``repro/models/lm.py::_cross_block``)."""
+    h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    x = x + attn.cross_attn(lp["cross"], h, kv, cfg)
+    h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    return x + moe_mod.ffn_forward(lp["mlp"], h)
+
+
+def _image(batch, x) -> torch.Tensor:
+    """A vlm batch's ``image_embed`` (B, n_image_tokens, d) in the model's
+    dtype, on the tokens' device."""
+    if "image_embed" not in batch:
+        raise ValueError("a vlm batch needs 'image_embed' (B, n_image_tokens, d_model)")
+    return torch.as_tensor(batch["image_embed"], device=x.device).to(x.dtype)
+
+
 def _mamba_block(lp, x, cfg, *, return_cache: bool = False):
     h = nn.rmsnorm(lp["ssm_in_norm"], x, cfg.norm_eps)
     if not return_cache:
@@ -255,7 +319,8 @@ def _mamba_block(lp, x, cfg, *, return_cache: bool = False):
 
 def lm_forward(p, batch, cfg):
     """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss): the
-    sum of the moe layers' load-balance losses (0.0 for any other family)."""
+    sum of the moe layers' load-balance losses (0.0 for any other family).
+    A vlm batch also holds ``image_embed`` (B, n_image_tokens, d)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -263,8 +328,12 @@ def lm_forward(p, batch, cfg):
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = 0.0
     mamba = _layer_kind(cfg) == "mamba"
+    img = _image(batch, x) if cfg.family == "vlm" else None
     for kind, i in _schedule(cfg):
-        if kind == "layer" and mamba:
+        if kind == "cross":
+            lp = _block(p, kind, i)
+            x = _cross_block(lp, x, attn.cross_attn_kv(lp["cross"], img, cfg), cfg)
+        elif kind == "layer" and mamba:
             x, _ = _mamba_block(_layer(p["layers"], i), x, cfg)
         else:
             x, _, a = _self_block(_block(p, kind, i), x, cfg, positions)
@@ -282,6 +351,12 @@ def _attn_cache(cfg, batch_size: int, max_len: int, device) -> dict:
     return init(cfg, batch_size, max_len, _dtype(cfg), device)
 
 
+def _cross_kv_cache(cfg, batch_size: int, device) -> dict:
+    """A vlm's slot-resident cross K/V, (n_groups, B, n_image_tokens, n_heads, hd)."""
+    shape = (_vlm_groups(cfg)[0], batch_size, cfg.n_image_tokens, cfg.n_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=_dtype(cfg), device=device) for n in ("k", "v")}
+
+
 def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
     _check_family(cfg)
     if _layer_kind(cfg) == "mamba":
@@ -289,7 +364,9 @@ def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
     else:
         one = _attn_cache(cfg, batch_size, max_len, device)
     n0 = _n_dense_first(cfg)
-    cache = {"layers": _stacked_zeros(one, cfg.n_layers - n0, device)}
+    cache = {"layers": _stacked_zeros(one, _n_stacked(cfg), device)}
+    if cfg.family == "vlm":
+        cache["cross_kv"] = _cross_kv_cache(cfg, batch_size, device)
     if n0:
         cache["dense_layers"] = _stacked_zeros(one, n0, device)
     if cfg.family == "hybrid":
@@ -311,10 +388,12 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     block table) with one bool per leaf, telling the engine which prefill
     scatter each leaf takes — pages for the K/V leaves (every leaf of the
     dense and moe families, a moe model's ``dense_layers`` and MLA's latent
-    ``c_kv`` / ``k_rope``, the hybrid's ``shared_attn``), the slot row for
-    the mamba layers' conv tails and states, which are O(1) per slot
-    (``False``, as in ``repro/models/lm.py:392-395``), and so does a
-    sliding-window arch's ring (``repro/models/lm.py:398-400``).  A mamba2
+    ``c_kv`` / ``k_rope``, the hybrid's ``shared_attn``, a vlm's self
+    blocks), the slot row for the mamba layers' conv tails and states,
+    which are O(1) per slot (``False``, as in ``repro/models/lm.py:392-395``),
+    and so does a sliding-window arch's ring (``repro/models/lm.py:398-400``)
+    and a vlm's ``cross_kv``, a fixed n_image_tokens a slot
+    (``repro/models/lm.py:443-461``).  A mamba2
     or h2o-danube cache has no paged leaf at all.
     """
     _check_family(cfg)
@@ -332,8 +411,11 @@ def lm_init_cache_paged(cfg, batch_size: int, max_len: int, *, page_size: int, n
     else:
         one, paged = kv_cache()
     n0 = _n_dense_first(cfg)
-    cache = {"layers": _stacked_zeros(one, cfg.n_layers - n0, device)}
+    cache = {"layers": _stacked_zeros(one, _n_stacked(cfg), device)}
     mask = {"layers": {k: paged for k in one}}
+    if cfg.family == "vlm":
+        cache["cross_kv"] = _cross_kv_cache(cfg, batch_size, device)
+        mask["cross_kv"] = {k: False for k in cache["cross_kv"]}
     if n0:
         cache["dense_layers"] = _stacked_zeros(one, n0, device)
         mask["dense_layers"] = {k: paged for k in one}
@@ -357,7 +439,8 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     right-padded micro-batches); by default the last column.  A
     sliding-window arch's prompt may be longer than its ring
     (``min(max_len, W)`` slots): the ring then holds the prompt's last W
-    positions, position p in slot p % W.
+    positions, position p in slot p % W.  A vlm's cross blocks write their
+    image's K/V into ``cross_kv``, where every decode step reads it.
     """
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -368,7 +451,15 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     x = nn.embed_lookup(p["embed"], tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     mamba = _layer_kind(cfg) == "mamba"
+    img = _image(batch, x) if cfg.family == "vlm" else None
     for kind, i in _schedule(cfg):
+        if kind == "cross":
+            lp = _block(p, kind, i)
+            k, v = attn.cross_attn_kv(lp["cross"], img, cfg)
+            cache["cross_kv"]["k"][i] = k
+            cache["cross_kv"]["v"][i] = v
+            x = _cross_block(lp, x, (k, v), cfg)
+            continue
         if kind == "layer" and mamba:
             x, c = _mamba_block(_layer(p["layers"], i), x, cfg, return_cache=True)
             for name, t in c.items():
@@ -442,8 +533,8 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
     Returns (logits (B, Vp) fp32, cache); the cache is updated in place.  A
     cache with a ``block_table`` (``lm_init_cache_paged``) takes the paged
     decode in every attention block but a sliding-window arch's, whose ring
-    is a slot row; the mamba layers' conv tails and states are slot rows
-    either way."""
+    is a slot row; the mamba layers' conv tails and states, and a vlm's
+    ``cross_kv``, are slot rows either way."""
     _check_family(cfg)
     x = nn.embed_lookup(p["embed"], tokens)
     pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
@@ -451,6 +542,9 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
     mamba = _layer_kind(cfg) == "mamba"
     mla = _mla(cfg)
     for kind, i in _schedule(cfg):
+        if kind == "cross":
+            x = _cross_block(_block(p, kind, i), x, (cache["cross_kv"]["k"][i], cache["cross_kv"]["v"][i]), cfg)
+            continue
         if kind == "layer" and mamba:
             lp = _layer(p["layers"], i)
             h = nn.rmsnorm(lp["ssm_in_norm"], x, cfg.norm_eps)

@@ -3,11 +3,13 @@
 The port's counterpart of ``repro/models/model.py``.  ``build_model(cfg)``
 returns a :class:`ModelApi` of functions over a params tree (nested dicts
 mirroring the reference's pytree); :class:`LMModule` is the ``nn.Module``
-that owns such a tree's tensors.  The ``dense`` family (with or without a
-sliding window), the ``moe`` family (GQA or MLA attention, dense first
-layers, shared experts), and the ``ssm``
-(mamba2) and ``hybrid`` (zamba2) families are ported; any other family
-raises.
+that owns such a tree's tensors.  Every family of the reference is ported:
+``dense`` (with or without a sliding window), ``moe`` (GQA or MLA
+attention, dense first layers, shared experts), ``vlm`` (cross-attention
+image layers), ``ssm`` (mamba2) and ``hybrid`` (zamba2) through
+``models/lm.py``, and ``audio`` (whisper's encoder-decoder) through
+``models/encdec.py``.  A vlm batch carries ``image_embed`` and an audio
+batch ``frames`` beside its ``tokens``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Callable, Mapping, Optional, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ed_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.runtime.device import resolve_device
 
@@ -42,16 +45,28 @@ class ModelApi:
     # (params, cache, tokens (1, C), bt_row, start, n_real) -> (logits, cache):
     # one prefill chunk at any start (page-aligned, or mid-page where a shared
     # prefix re-enters) through the slot's block-table row; None
-    # where prefill carries state across the whole prompt (ssm, hybrid) or
-    # the cache is a sliding window's ring: the engine prefills those
-    # monolithically
+    # where prefill carries state across the whole prompt (ssm, hybrid), the
+    # cache is a sliding window's ring, or the prompt attends a per-request
+    # context (vlm, audio): the engine prefills those monolithically
     prefill_chunk: Any = None
 
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
     """The model's functions, running on ``device`` (default: the card)."""
-    lm_mod._check_family(cfg)  # dense, moe, ssm or hybrid: raises for the rest
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        return ModelApi(
+            cfg=cfg,
+            device=dev,
+            init=lambda generator: ed_mod.encdec_init(generator, cfg, dev),
+            forward=lambda p, b: ed_mod.encdec_forward(p, b, cfg),
+            init_cache=lambda bs, ml: ed_mod.encdec_init_cache(cfg, bs, ml, dev),
+            prefill=lambda p, b, ml, **kw: ed_mod.encdec_prefill(p, b, cfg, ml, **kw),
+            decode_step=lambda p, c, t, pos: ed_mod.encdec_decode_step(p, c, t, pos, cfg),
+            init_cache_paged=lambda bs, ml, ps, npg: ed_mod.encdec_init_cache_paged(
+                cfg, bs, ml, page_size=ps, n_pages=npg, device=dev),
+        )
+    lm_mod._check_family(cfg)  # raises for an unknown family
     # a chunk enters mid-prompt through the pages: not for recurrent state, nor for a
     # sliding window's ring (the reference's gate, repro/models/lm.py:690)
     chunkable = cfg.family in ("dense", "moe") and cfg.sliding_window is None
@@ -116,12 +131,11 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def analytic_param_count(cfg: ArchConfig) -> int:
-    """Analytic parameter count N of a dense, moe (GQA or MLA attention, dense
-    first layers, shared experts), ssm or hybrid decoder: the reference's
-    formula (``repro/models/model.py::analytic_param_count``), the linears
-    and the embeddings."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"param count of {cfg.name!r} is not yet ported")
+    """Analytic parameter count N of any family: the reference's formula
+    (``repro/models/model.py::analytic_param_count``), the linears and the
+    embeddings (norm scales and biases not counted)."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     d, V = cfg.d_model, cfg.vocab_padded
     if cfg.kv_lora_rank:  # MLA
         H, lq, lkv = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
@@ -136,6 +150,14 @@ def analytic_param_count(cfg: ArchConfig) -> int:
         n += cfg.n_layers * (2 * d * din + 2 * d * s + d * nh + din * d)
         # the hybrid's shared attention + MLP block, counted once
         return n + (attn + 3 * d * cfg.d_ff if cfg.family == "hybrid" else 0)
+    Hhd = cfg.n_heads * cfg.head_dim
+    if cfg.family == "vlm":  # n_groups x (n_self GQA blocks + one cross block), SwiGLU FFNs
+        n_groups = cfg.n_layers // cfg.cross_attn_every
+        n_self = n_groups * (cfg.cross_attn_every - 1)
+        return n + n_self * (attn + 3 * d * cfg.d_ff) + n_groups * (4 * d * Hhd + 3 * d * cfg.d_ff)
+    if cfg.family == "audio":  # encoder blocks, then decoder blocks with cross-attention; GELU FFNs
+        return (n + cfg.n_encoder_layers * (attn + 2 * d * cfg.d_ff)
+                + cfg.n_layers * (attn + 4 * d * Hhd + 2 * d * cfg.d_ff))
     n += cfg.n_layers * attn
     if cfg.family == "dense":
         return n + cfg.n_layers * 3 * d * cfg.d_ff

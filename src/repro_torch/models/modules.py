@@ -20,11 +20,15 @@ __all__ = [
     "dense",
     "rmsnorm_init",
     "rmsnorm",
+    "layernorm_init",
+    "layernorm",
     "embed_init",
     "embed_lookup",
     "rope_freqs",
     "apply_rope",
+    "sinusoidal_positions",
     "swiglu",
+    "gelu",
 ]
 
 
@@ -49,6 +53,20 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and population variance in fp32 (``jnp.var``'s ddof 0)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:
@@ -78,5 +96,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) fp32 sinusoidal position table: sines in the first half of the
+    columns, cosines in the second."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)  # a scalar base: no host-to-device copy (graph capture)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in fp32, stored in x's dtype: the tanh form, ``jax.nn.gelu``'s
+    default (``approximate=True``), not torch's exact default."""
+    return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)

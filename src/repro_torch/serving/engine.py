@@ -159,6 +159,10 @@ class Request:
     prompt: np.ndarray  # (S,) prompt tokens
     max_new_tokens: int
     sampling: SamplingParams = SamplingParams()
+    # per-request model inputs besides the prompt, unbatched: a vlm's
+    # "image_embed" (n_image_tokens, d_model), an audio model's "frames"
+    # (n_audio_frames, d_model) (``data.synthetic.modality_extras``)
+    extras: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     # the overload contract (the defaults are plain FIFO):
     deadline_ms: Optional[float] = None  # shed if not admitted within this
     min_tier: int = 0  # deepest rank tier the client accepts under pressure
@@ -714,6 +718,10 @@ class Engine:
         last_index[: len(reqs)] = lens - 1
         dev = self.device
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        for name in reqs[0].extras:  # stacked over the group, dummy rows zero
+            rows = [np.asarray(r.extras[name], np.float32) for r in reqs]
+            rows += [np.zeros_like(rows[0])] * (G - len(reqs))
+            batch[name] = torch.from_numpy(np.stack(rows)).to(dev)
         tier = reqs[0].tier  # _admission_groups splits by tier
         logits, part = self.model.prefill(self._tier_params[tier], batch, self.max_len,
                                           last_index=torch.from_numpy(last_index).to(dev))
@@ -1206,9 +1214,11 @@ class Engine:
     def _evict_slot(self, slot: int) -> Request:
         """Evict one running request, keeping its work, and return the
         continuation that resumes it: prompt + tokens so far as a new
-        prompt, the remaining budget, the original uid, submit time and
-        tier.  With sharing, its decode-filled full pages are rewritten by
-        the chunk program and indexed first, so the continuation matches
+        prompt, the remaining budget, its extras (a vlm's image, an audio
+        model's frames: the re-prefill attends them again), the original
+        uid, submit time and tier.  With sharing, its decode-filled full
+        pages are rewritten by the chunk program and indexed first, so the
+        continuation matches
         them and prefills only its tail.  Greedy streams resume with the
         uninterrupted run's tokens where no argmax is a near tie between
         the prefill and decode paths' roundings; sampled streams restart
@@ -1222,7 +1232,8 @@ class Engine:
             root.tokens.extend(req.tokens)
         cont = Request(prompt=np.concatenate([req.prompt, np.asarray(req.tokens, np.int64)]),
                        max_new_tokens=req.max_new_tokens - len(req.tokens), sampling=req.sampling,
-                       deadline_ms=req.deadline_ms, min_tier=req.min_tier, tier=req.tier, priority=req.priority)
+                       extras=req.extras, deadline_ms=req.deadline_ms, min_tier=req.min_tier, tier=req.tier,
+                       priority=req.priority)
         cont.uid, cont.t_submit, cont._parent = req.uid, req.t_submit, root
         return cont
 

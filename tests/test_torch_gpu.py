@@ -477,6 +477,63 @@ def test_gpu_flash_attention_hd80(cuda, S, window, q_offset, dtype):
     assert torch.equal(got, flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset))
 
 
+# the non-causal shapes of cross-attention and whisper's encoder (batch cut where the
+# sequence is long): (B, Sq, Skv, H = KV, head_dim)
+NONCAUSAL = {"whisper_encoder": (1, 1500, 1500, 12, 64), "whisper_cross_prefill": (2, 70, 1500, 12, 64),
+             "whisper_cross_decode": (8, 1, 1500, 12, 64), "vlm_cross_prefill": (2, 70, 1600, 32, 128),
+             "vlm_cross_decode": (8, 1, 1600, 32, 128), "one_key": (2, 64, 1, 12, 64),
+             "one_key_past_a_tile": (2, 64, 65, 12, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(NONCAUSAL))
+def test_gpu_flash_attention_noncausal(cuda, shape, dtype):
+    """The non-causal path (cross-attention, whisper's encoder) at G = 1:
+    1500 and 1600 keys (the last key tile partly out of range), one query
+    (one live row of a 64-row tile), one key and 65; two launches give the
+    same bits."""
+    B, Sq, Skv, H, hd = NONCAUSAL[shape]
+    q = _rand((B, Sq, H, hd), 60, dtype, cuda)
+    k, v = _rand((B, Skv, H, hd), 61, dtype, cuda), _rand((B, Skv, H, hd), 62, dtype, cuda)
+    got = flash_attention(q, k, v, causal=False)
+    _close(got, ref.chunked_attention_ref(q, k, v, causal=False), ATTN_TOL[dtype])
+    assert torch.equal(got, flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ["whisper_cross_decode", "vlm_cross_decode"])
+def test_gpu_flash_attention_cross_decode_graph_replay(cuda, shape, dtype):
+    """Cross-attention at decode as the engine's captured block runs it: one
+    flash launch captured over a fixed query buffer and fixed keys, replayed
+    after new queries (and new keys) were copied in place, equals an eager
+    launch on the same inputs bit for bit."""
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    B, Sq, Skv, H, hd = NONCAUSAL[shape]
+    q = _rand((B, Sq, H, hd), 63, dtype, cuda)
+    k, v = _rand((B, Skv, H, hd), 64, dtype, cuda), _rand((B, Skv, H, hd), 65, dtype, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, causal=False)  # build and warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = flash_mod.KERNEL.captured
+    with torch.cuda.graph(graph, stream=side):
+        out = flash_attention(q, k, v, causal=False)
+    assert flash_mod.KERNEL.captured == captured + 1  # one launch a call
+    for seed in range(3):
+        q.copy_(_rand((B, Sq, H, hd), 70 + seed, dtype, cuda))
+        if seed == 2:
+            k.copy_(_rand((B, Skv, H, hd), 80, dtype, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_attention(q, k, v, causal=False))
+        _close(out, ref.chunked_attention_ref(q, k, v, causal=False), ATTN_TOL[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,q_offset", [(4, 256, 128, 0), (2, 70, 16, 230), (1, 200, 16, 0)])
@@ -772,7 +829,7 @@ def test_gpu_decode_graph_replay_equals_eager(cuda, kernel, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "mamba2-130m",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "llama-3.2-vision-11b", "whisper-small"])
 @pytest.mark.parametrize("page_size,chunk", [(None, None), (4, 5)])
 def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
     """The captured decode block (greedy and sampled variants, one request of
@@ -780,9 +837,13 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
     reduced phi3.5-moe runs RSI-compressed, so its expert stacks go through
     the batched kernel, inside the graph as well.  The ssm and hybrid
     families prefill through the SSD scan kernel (the chunk is inert there)
-    and decode their recurrent state inside the graph."""
+    and decode their recurrent state inside the graph.  The vlm and audio
+    requests carry their own image or frames, and their cross-attention
+    runs the flash kernel at Sq = 1 inside the graph."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.data.synthetic import modality_extras
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import lowrank_matmul_batched as batched_mod
     from repro_torch.kernels import paged_decode_attention as paged_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -805,7 +866,10 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
         before = paged_mod.KERNEL.launches
         before_batched = batched_mod.KERNEL.launches
         before_ssd = ssd_mod.KERNEL.launches
-        reqs = [eng.submit(Request(prompt=p, max_new_tokens=10, sampling=s)) for p, s in zip(prompts, sampling)]
+        before_flash = flash_mod.KERNEL.launches
+        extras = [modality_extras(model.cfg, np.random.default_rng(i)) for i in range(len(prompts))]
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=10, sampling=s, extras=e))
+                for p, s, e in zip(prompts, sampling, extras)]
         while eng.has_work:
             eng.step()
         assert all(r.status == "ok" and len(r.tokens) == 10 for r in reqs)
@@ -816,6 +880,8 @@ def test_gpu_engine_graph_equals_eager(cuda, page_size, chunk, arch):
             assert ssd_mod.KERNEL.launches == before_ssd + model.cfg.n_layers * len(eng.prefill_batches)
         if moe:
             assert batched_mod.KERNEL.launches > before_batched
+        if model.cfg.family in ("vlm", "audio"):  # the prefill's calls and every decode step's
+            assert flash_mod.KERNEL.launches > before_flash + eng.steps
         out[graph] = [r.tokens for r in reqs]
     assert out[True] == out[False]
 

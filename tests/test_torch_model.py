@@ -31,7 +31,7 @@ from repro.models.model import analytic_param_count as j_analytic_param_count  #
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro.train.serve_step import greedy_generate as j_greedy  # noqa: E402
 from repro_torch.bridge import params_from_numpy, tensor_to_numpy  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, REFERENCE_ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.core import lowrank  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.models.model import LMModule, analytic_param_count, build_model  # noqa: E402
@@ -52,8 +52,12 @@ def params_by_dtype():
     """Reference params per dtype: dense (spectralized, the paper's regime)
     and RSI-compressed from them; the bf16 trees are the fp32 ones cast."""
     jm, _ = _models("float32")
-    dense = j_spectralize(jm.init(jax.random.PRNGKey(0)), jax.random.PRNGKey(9))
-    comp, _, _ = j_compress_tree(dense, JPolicy(alpha=0.3, q=2, min_dim=32), jax.random.PRNGKey(1))
+
+    def build(k_init, k_spec, k_rsi):  # one compile for the three (eager takes twice the time)
+        dense = j_spectralize(jm.init(k_init), k_spec)
+        return dense, j_compress_tree(dense, JPolicy(alpha=0.3, q=2, min_dim=32), k_rsi)[0]
+
+    dense, comp = jax.jit(build)(jax.random.PRNGKey(0), jax.random.PRNGKey(9), jax.random.PRNGKey(1))
     f32 = {"dense": dense, "compressed": comp}
     bf16 = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), f32)
     return {"float32": f32, "bfloat16": bf16}
@@ -166,16 +170,31 @@ def test_build_model_runs_on_the_card_by_default():
         params_from_numpy({"w": np.zeros(3, np.float32)})
 
 
-def test_unported_archs_and_families_raise():
-    # llama-3.2-vision (the vlm family) and whisper (audio) are not ported
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("llama-3.2-vision-11b")
-    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="vlm")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg, device="cpu")
-    cfg = dataclasses.replace(get_arch("llama3.2-1b", reduced=True), family="audio")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg, device="cpu")
+@pytest.mark.parametrize("arch", REFERENCE_ARCH_IDS)
+def test_every_reference_arch_resolves_and_builds(arch):
+    """Every arch of the reference registry resolves to the reference's
+    config (the fields the port carries) and its parameter count, and its
+    reduced model builds, initializes and takes a forward on the CPU."""
+    from repro.configs.registry import get_arch as j_get_arch
+
+    for reduced in (False, True):
+        want = dataclasses.asdict(j_get_arch(arch, reduced=reduced))
+        got = dataclasses.asdict(get_arch(arch, reduced=reduced))
+        assert got == {k: want[k] for k in got}
+    assert analytic_param_count(get_arch(arch)) == j_analytic_param_count(j_get_arch(arch))
+    cfg = get_arch(arch, reduced=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticLM(cfg, 1, 4, kind="serve").at_step(0).items()}
+    batch["tokens"] = batch["tokens"].long()
+    logits, _ = model.forward(params, batch)
+    assert tuple(logits.shape) == (1, 4, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+
+
+def test_unknown_arch_raises_key_error():
+    assert set(ARCH_IDS) == set(REFERENCE_ARCH_IDS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("llama-9-vision")
 
 
 def test_port_imports_no_jax_and_no_reference():
