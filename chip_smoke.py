@@ -28,6 +28,9 @@
     python3 chip_smoke.py --whisper-only
                              # phase 2's non-causal flash checks and phase 25
                              # (whisper-small) alone
+    python3 chip_smoke.py --cluster-only
+                             # phases 26-27 (the replicated cluster, the examples and
+                             # kernels/ops.py) alone, on the q = 4 llama3.2-1b
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -340,6 +343,52 @@ Phases, in order; any failure exits non-zero before the last line:
    hd 64, 1500 frames, vocab 51865 padded to 51968; 0.278 B params; rank
    231): phase 24's gates with audio frames in place of images, the error
    gate on decoder layer 0's w_up.
+26. The replicated cluster (``serving/cluster.py``) on phase 21's q = 4
+   llama3.2-1b, before it is freed: two replicas, each 4 slots, page 64,
+   max_len 640, 20 pages (half of its flat pool), prefill chunk 256, decode
+   block 8, prefix sharing and the CUDA-graph block, sharing one set of
+   weights, each stepped by its own thread on its own CUDA stream; phase
+   7's 16 requests.  The reference is one replica serving the trace (its
+   time against two replicas', and two replicas' again with the
+   interpreter's thread switch interval at 0.2 ms, is printed, not
+   gated).  (i) No fault: every root ok with the single replica's tokens
+   bit for bit; lowrank_matmul, paged_decode_attention and flash_attention
+   launched (counts and the dispatch table printed).  (ii) kill_replica (0, 3): one death whose
+   step_error is the injected ReplicaKilled, failovers, and the
+   per-compute-path contract (a root that never failed over equals the
+   single replica's stream; a failed-over root's credited prefix equals it
+   and each resumed tail equals a fresh engine serving that continuation,
+   bit for bit); then restart_replica(0) while replica 1 serves four more
+   requests, probation, rejoin, two more requests routed after the rejoin,
+   each equal to a fresh engine's tokens; graph replays > 0 on every
+   engine, the restarted one (which captures its graph while replica 1
+   serves) among them; the event log holds replica_dead, failover,
+   failover_resumed, replica_restart, replica_probation and replica_rejoin.
+   (iii) After a warm-up in the replicas' own threads (a thread's first
+   step pays its CUDA set-up), hang_replica at replica 0's third step for 4
+   x the replicas' adapted deadline (a 1 s floor): exactly one heartbeat
+   miss, failover, the per-path contract, the hung replica drains and
+   rejoins with no error.  (iv) A cluster of backend "reference" engines,
+   replica 0 dying of one 1.5 s engine step (the watchdog's straggler path,
+   above a 1 s floor; its thread then drains it, so export_inflight's
+   rewrites run in a replica thread): no kernel launched or captured, every
+   path reference.  (v) ``launch/
+   serve.py --reduced --replicas 2 --event-log PATH`` in-process, 8
+   requests on 2 slots a replica under ``--tiers 1.0,0.5
+   --degrade-queue-depth 1``: every request served, each event line
+   parses, one degrade event a request, both replicas tagged.  The phase's
+   seconds are printed.
+27. The examples and ``kernels/ops.py`` on the card: ``experiments.
+   compress_and_serve`` at its defaults, ``experiments.continuous_serving``
+   plain and with ``--sessions`` through ``main(argv)`` (their own
+   assertion: the greedy request equals ``greedy_generate`` bit for bit;
+   the captured paged block replayed); each ``ops`` function at one
+   main-path shape (the sketch GEMM at llama's w_gate, the low-rank apply
+   with batch dims and with phi3.5-moe's stacked experts, the SSD scan at
+   zamba2's (1, 512) with raw x̄, the causal flash at (4, 256), the decode
+   at B 4 over 288 positions) against the same call under backend
+   "reference", within phase 2's tolerances, its kernel's launch count
+   rising.  The phase's seconds are printed.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -377,6 +426,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # --src DIR: the package tree to import (default this checkout's src/), so that
@@ -2651,6 +2701,568 @@ def phase_stage4(model, params) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 26: the replicated cluster at full width
+# --------------------------------------------------------------------------- #
+# each replica: 4 slots, page 64, max_len 640, 20 pages (half of its flat pool), prefill chunk 256,
+# decode block 8, prefix sharing, the CUDA-graph block
+CLUSTER_ENGINE = dict(n_slots=4, max_len=640, page_size=64, kv_pages=20, prefill_chunk=256, decode_block=8,
+                      share_prefix=True)
+CLUSTER_KILL = (0, 3)  # replica 0 dies at its third step
+# the hang case's deadline floor: two replicas' concurrent steps ran to ~0.4 s on an H100 (their host work
+# shares one interpreter), and a floor of 250 ms declared a healthy replica dead
+CLUSTER_HEARTBEAT_MS = 1000.0
+CLUSTER_KILL_HEARTBEAT_MS = 60000.0  # the kill and no-fault cases: never the death signal
+CLUSTER_HANG_X = 4.0  # a hang of this many times the replica's adapted deadline
+CLUSTER_SLOW_S, CLUSTER_STRAGGLER_S = 1.5, 1.0  # (iv): one slow engine step, and the death floor it clears
+
+
+def cluster_factory(model, params, pool=None, **kw):
+    """``factory(rid)`` of the cluster: an engine of CLUSTER_ENGINE (and
+    ``kw``) on the one shared model and params.  ``pool``: warm engines of
+    earlier clusters, handed out first by replica id with their prefix cache
+    (whose pages would turn a repeated prompt into a shared prefix, another
+    compute path), counters and event sink reset."""
+    from repro_torch.serving import Engine
+
+    def make(rid):
+        if pool and rid in pool:
+            eng = pool.pop(rid)
+            eng.reset_prefix_cache()
+            eng.reset_counters()
+            eng.on_event = eng.scheduler.on_event = None
+            return eng
+        return Engine(model, params, **{**CLUSTER_ENGINE, **kw})
+
+    return make
+
+
+def cluster_requests(cfg, n: int, seed: int, prompts=(32, 256), gens=(16, 64)):
+    """``n`` SyntheticLM prompts (seed ``seed``) of ``prompts`` tokens, ``gens`` new ones each."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompts[0], prompts[1] + 1, size=n)
+    gen = rng.integers(gens[0], gens[1] + 1, size=n)
+    toks = SyntheticLM(cfg, batch=n, seq=prompts[1], kind="serve", seed=seed).at_step(0)["tokens"]
+    return [Request(prompt=toks[i, : lens[i]], max_new_tokens=int(gen[i])) for i in range(n)]
+
+
+def cluster_run(clu, reqs, label, libs, **kw):
+    """One ``Cluster.run`` over ``reqs``, the launch and dispatch counts reset
+    just before it and read just after (the replica threads idle by then);
+    returns (finished roots, seconds, launches)."""
+    import torch
+
+    from repro_torch.kernels.sketch_matmul import ALIGN_COPIES
+    from repro_torch.runtime import dispatch
+
+    torch.cuda.synchronize()
+    for lib in libs.values():
+        lib.reset()
+    dispatch.reset_counters()
+    ALIGN_COPIES.reset()
+    t = time.perf_counter()
+    done = clu.run(reqs, timeout_s=300.0, **kw)
+    dt = time.perf_counter() - t
+    launches = {n: lib.launches for n, lib in libs.items()}
+    no_align_copies(f"the cluster run ({label})")
+    n_tok = sum(len(r.tokens) for r in done)
+    st = clu.stats()
+    engines = [r.eng for r in clu.replicas]
+    say(f"[cluster] {label}: {len(done)} roots, {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s; "
+        f"failovers {st['failovers']} (prefix match {st['failovers_prefix_match']}), deaths {st['replica_deaths']}, "
+        f"heartbeat misses {st['heartbeat_misses']}, rejoins {st['rejoins']}, exhausted {st['exhausted']}; per "
+        f"replica (decode steps, graph replays, prefill chunks, capture s so far): "
+        f"{[(e.steps, e.graph_replays, e.prefill_chunks, round(e.capture_seconds, 3)) for e in engines]}; "
+        f"launches {launches}")
+    return done, dt, launches
+
+
+def cluster_replay(model, params, items) -> list:
+    """Tokens an engine of the replicas' configuration that has seen none of
+    them emits for each (prompt, max_new): the continuations a failover
+    resumed, replayed.  One engine serves every replay (its block captured
+    once), its prefix index emptied first."""
+    from repro_torch.serving import Engine, Request
+
+    eng = getattr(cluster_replay, "engine", None)
+    if eng is None or eng.model is not model:
+        eng = cluster_replay.engine = Engine(model, params, **CLUSTER_ENGINE)
+    eng.reset_prefix_cache()
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in items]
+    eng.run(reqs)
+    if any(r.status != "ok" for r in reqs):
+        fail("cluster: a replayed continuation did not finish")
+    return [list(r.tokens) for r in reqs]
+
+
+def cluster_streams(model, params, clu, reqs, refs, tag) -> dict:
+    """The per-compute-path contract (tests/test_cluster.py's): every root ok
+    with its token count; a root that never failed over equals the single
+    replica's stream bit for bit; a failed-over root's credited prefix equals
+    it, and each resumed tail equals a fresh engine serving that
+    continuation.  On a failure, which rows differ and where, first."""
+    import numpy as np
+
+    bad = [i for i, r in enumerate(reqs) if r.status != "ok" or len(r.tokens) != r.max_new_tokens]
+    if bad:
+        fail(f"{tag}: roots {bad} did not finish ok with their token counts "
+             f"({[(reqs[i].status, reqs[i].rejected) for i in bad]})")
+    points = clu.stats()["resume_points"]
+    unfailed = [i for i, r in enumerate(reqs) if not points.get(r.uid)]
+    diverged = [(i, next(j for j, (a, b) in enumerate(zip(reqs[i].tokens, refs[i])) if a != b))
+                for i in unfailed if list(reqs[i].tokens) != refs[i]]
+    prefix_bad, items, where = [], [], []
+    for i, r in enumerate(reqs):
+        splits = points.get(r.uid) or []
+        got = list(r.tokens)
+        if splits and got[: splits[0]] != refs[i][: splits[0]]:
+            prefix_bad.append((i, splits[0]))
+        bounds = list(splits) + [len(got)]
+        for j, k in enumerate(splits):
+            if bounds[j + 1] > k:  # the resume emitted something
+                items.append((np.concatenate([r.prompt, np.asarray(got[:k], np.int64)]), r.max_new_tokens - k))
+                where.append((i, k, bounds[j + 1]))
+    tails = cluster_replay(model, params, items) if items else []
+    tail_bad = [(i, k) for (i, k, end), want in zip(where, tails) if list(reqs[i].tokens)[k:end] != want[: end - k]]
+    out = {"roots": len(reqs), "failed_over": len(reqs) - len(unfailed), "resumes_replayed": len(items),
+           "unfailed_equal": len(unfailed) - len(diverged), "prefix_equal": len(reqs) - len(unfailed) - len(prefix_bad),
+           "tails_equal": len(items) - len(tail_bad)}
+    say(f"[{tag}] tokens per compute path: {json.dumps(out)}; resume points {points}")
+    if diverged or prefix_bad or tail_bad:
+        say(f"[{tag}] diverging rows (request, first differing token): unfailed {diverged}, credited prefixes "
+            f"{prefix_bad}, resumed tails (request, split) {tail_bad}")
+        fail(f"{tag}: the bitwise per-path contract failed (unfailed {diverged}, prefixes {prefix_bad}, "
+             f"tails {tail_bad})")
+    return out
+
+
+def cluster_warm(clu, cfg, tag) -> list:
+    """Warm every replica in its own thread, then time steady steps for the
+    adaptive heartbeat deadline: short requests through the cluster (two a
+    replica; a thread's first step on the card pays its per-thread CUDA set-up,
+    which the cold grace covers, but a deadline from steps timed on another
+    thread would not), then fresh watchdogs timing one more request a
+    replica.  Returns each replica's first step seconds in its thread."""
+    from repro_torch.serving import StepWatchdog
+
+    n = len(clu.replicas)
+    seen = [len(r.eng.watchdog.durations) if r.eng.watchdog is not None else 0 for r in clu.replicas]
+    clu.run(cluster_requests(cfg, 2 * n, seed=90, prompts=(16, 48), gens=(8, 16)), timeout_s=300.0)
+    first = [r.eng.watchdog.durations[k] if len(r.eng.watchdog.durations) > k else None
+             for r, k in zip(clu.replicas, seen)]
+    for r in clu.replicas:
+        r.eng.watchdog = StepWatchdog()  # the replica thread reads it only inside a step; it is idle
+    clu.run(cluster_requests(cfg, n, seed=91, prompts=(16, 48), gens=(24, 24)), timeout_s=300.0)
+    say(f"[cluster] {tag} warm-up: each replica's first step in its own thread {first} s; steady step medians "
+        f"{[round(r.eng.watchdog.median * 1e3, 2) for r in clu.replicas]} ms")
+    return first
+
+
+def cluster_events(path) -> list:
+    events = [json.loads(line) for line in open(path, encoding="utf-8")]
+    if any(not isinstance(e.get("t_ms"), float) or "event" not in e for e in events):
+        fail(f"cluster: an event line of {path} lacks t_ms or event")
+    return events
+
+
+def cluster_dead_errors(clu, tag) -> list:
+    """Each dead replica's ``step_error``: only the injector's host-side
+    faults (ReplicaKilled, or none raised: a hang) may have killed one; a
+    real device fault would have been hidden behind a failover."""
+    from repro_torch.runtime.fault_tolerance import ReplicaKilled
+
+    errs = []
+    for rep in clu.replicas:
+        with rep.health_lock:
+            err = rep.step_error
+        errs.append(None if err is None else f"{type(err).__name__}: {err}")
+        if err is not None and not isinstance(err, ReplicaKilled):
+            fail(f"{tag}: replica {rep.id} died of {type(err).__name__}: {err} (not an injected fault)")
+    return errs
+
+
+def phase_cluster(model, params) -> dict:
+    """Phase 26: the replicated cluster (``serving/cluster.py``) on the q = 4
+    llama3.2-1b, two replicas of CLUSTER_ENGINE sharing its one set of
+    weights, each stepped by its own thread on its own CUDA stream, over
+    phase 7's 16 requests.  The reference of (e) is a cluster of one
+    replica (one engine of the replicas' configuration serving the trace);
+    its time against two replicas' (both warmed in their own threads first)
+    is reported, not gated, with each replica's first step in a new thread.
+    (i) No fault: every root ok, tokens bit for bit the single replica's;
+    lowrank_matmul, paged_decode_attention and flash_attention launched.
+    (ii) kill_replica (0, 3): one death of the injected ReplicaKilled,
+    failovers, the per-path token contract; then restart_replica(0) while
+    replica 1 serves four more requests, probation, rejoin, two more
+    requests routed after it (the restarted engine captures its graph while
+    replica 1 serves); graph replays > 0 on every engine, the restarted one
+    among them; the event log holds the life-cycle events.  (iii) After a
+    warm-up in the replicas' threads, a hang of 4 x the replicas' adapted
+    deadline at replica 0's third step: one heartbeat miss, failover, every
+    root ok by the contract, the hung replica drains and rejoins.  (iv) A
+    cluster of backend "reference" engines, warmed likewise, replica 0 dying
+    of one 1.5 s step (the watchdog's straggler path, above a 1 s floor) and
+    its thread draining it (export_inflight's rewrites): no kernel launched
+    or captured.  (v) ``launch/serve.py --reduced --replicas 2
+    --event-log`` in-process: every request served, the event lines parse,
+    each admission's degrade event tagged with its replica."""
+    t_phase = time.perf_counter()
+    live = []  # every cluster made here, closed however the phase ends (fail() raises SystemExit)
+    try:
+        out = _phase_cluster(model, params, live)
+    finally:
+        for clu in live:
+            clu.close()
+        if getattr(cluster_replay, "engine", None) is not None:
+            cluster_replay.engine.close()
+            cluster_replay.engine = None
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _phase_cluster(model, params, live) -> dict:
+    import os
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.dispatch import DispatchConfig
+    from repro_torch.serving import Cluster, EventLog, FailoverBudget, FaultInjector
+
+    libs = engine_libs()
+    cfg = model.cfg
+    trace = lambda: engine_requests(cfg)  # noqa: E731
+    out_dir = os.path.join(HERE, "build", "cluster")  # the event logs (build/ is not committed)
+    os.makedirs(out_dir, exist_ok=True)
+    budget = FailoverBudget(max_failovers=3, base_ms=10.0)
+
+    def cluster(n, pool=None, **kw):
+        kw.setdefault("heartbeat_ms", CLUSTER_KILL_HEARTBEAT_MS)
+        clu = Cluster(cluster_factory(model, params, pool, **kw.pop("engine_kw", {})), n, budget=budget,
+                      probation_s=0.05, straggler_min_s=1e9, **kw)
+        live.append(clu)
+        return clu
+
+    def log_at(name):
+        path = os.path.join(out_dir, name)
+        if os.path.exists(path):
+            os.remove(path)
+        return path, EventLog(path)
+
+    parts, t_part = {}, time.perf_counter()
+    # the reference: one replica serving the trace, warm (its thread set up, its graph captured)
+    one = cluster(1)
+    first = {"one": cluster_warm(one, cfg, "one replica")}
+    ref_reqs = trace()
+    _, t_one, _ = cluster_run(one, ref_reqs, "one replica (the reference)", libs)
+    one.close()
+    refs = [list(r.tokens) for r in ref_reqs]
+    if any(r.status != "ok" or len(r.tokens) != r.max_new_tokens for r in ref_reqs):
+        fail("cluster: the single replica did not finish every request")
+    pool = {0: one.replicas[0].eng}
+    parts["one"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (i) two replicas, no fault, warm likewise
+    clu = cluster(2, pool)
+    first["two"] = cluster_warm(clu, cfg, "(i) two replicas")
+    reqs = trace()
+    _, t_two, launches = cluster_run(clu, reqs, "(i) two replicas, no fault", libs)
+    say("[cluster] (i) dispatch table (graph calls counted per replay):")
+    for line in dispatch.format_counters().splitlines():
+        say(f"[cluster]   {line}")
+    # informational: the trace once more with the interpreter's thread switch interval at 0.2 ms
+    # (default 5 ms): the replicas' host work shares one interpreter lock
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(2e-4)
+    try:
+        again = trace()
+        _, t_two_fast, _ = cluster_run(clu, again, "(i) two replicas again, switch interval 0.2 ms", libs)
+    finally:
+        sys.setswitchinterval(interval)
+    clu.close()
+    if [list(r.tokens) for r in again] != refs:
+        fail("cluster (i): the second two-replica run's tokens differ from the single replica's")
+    missing = [n for n in ("lowrank_matmul", "paged_decode_attention", "flash_attention") if launches[n] <= 0]
+    if missing:
+        fail(f"cluster (i): kernels never launched: {missing}")
+    out = {"one_replica_s": t_one, "two_replicas_s": t_two, "two_vs_one": t_one / t_two,
+           "two_replicas_switch_0p2ms_s": t_two_fast, "first_step_s": first,
+           "launches_i": launches, "i": cluster_streams(model, params, clu, reqs, refs, "cluster (i)")}
+    if clu.stats()["failovers"] or any(r.eng.graph_replays <= 0 or r.eng.steps <= 0 for r in clu.replicas):
+        fail(f"cluster (i): failovers {clu.stats()['failovers']}, or a replica never stepped or replayed its graph")
+    say(f"[cluster] warm, the same 16 requests: one replica {t_one:.3f}s, two {t_two:.3f}s: two run "
+        f"{t_one / t_two:.2f}x one's rate; two again at a 0.2 ms switch interval {t_two_fast:.3f}s "
+        f"({t_one / t_two_fast:.2f}x; host clock, not a gate)")
+    pool = {r.id: r.eng for r in clu.replicas}
+    parts["i"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (ii) kill, failover, restart while replica 1 serves, probation, rejoin, more requests
+    log_path, log = log_at("cluster_events.jsonl")
+    inj = FaultInjector(kill_replica=CLUSTER_KILL)
+    clu = cluster(2, pool, injector=inj, event_log=log)
+    reqs = trace()
+    cluster_run(clu, reqs, "(ii) kill_replica (0, 3)", libs)
+    errs = cluster_dead_errors(clu, "cluster (ii)")
+    st = clu.stats()
+    if inj.fired.get("kill_replica") != 1 or errs[0] is None or clu.replicas[0].thread_alive:
+        fail(f"cluster (ii): the kill did not land (fired {inj.fired}, errors {errs})")
+    if st["replica_deaths"] != 1 or st["failovers"] < 1 or st["exhausted"]:
+        fail(f"cluster (ii): deaths {st['replica_deaths']}, failovers {st['failovers']}, exhausted {st['exhausted']}")
+    out["ii"] = cluster_streams(model, params, clu, reqs, refs, "cluster (ii)")
+    if out["ii"]["failed_over"] < 1:
+        fail("cluster (ii): the kill failed no root over")
+    inj.kill_replica = None
+    survivor = clu.replicas[1].eng
+    more = cluster_requests(cfg, 4, seed=31, gens=(48, 64))
+    late = cluster_requests(cfg, 2, seed=32, gens=(16, 32))
+    state = {"restart_active": None, "late": False}
+
+    def during():  # polled on the monitor thread by Cluster.run
+        if state["restart_active"] is None and survivor.n_active > 0:
+            state["restart_active"] = survivor.n_active
+            clu.restart_replica(0)  # replica 1 is serving: its engine is mid-run
+        elif state["restart_active"] is not None and not state["late"] and clu.replicas[0].state == "healthy":
+            for r in late:
+                clu.submit(r)
+            state["late"] = True
+        return False
+
+    cluster_run(clu, more, "(ii) restart while replica 1 serves, then 2 more", libs, stop=during)
+    if not state["late"]:  # replica 1 finished before the rejoin: route the two now
+        cluster_run(clu, late, "(ii) 2 more after the rejoin", libs)
+    clu.close()
+    log.close()
+    restarted = clu.replicas[0].eng
+    say(f"[cluster] (ii) restarted replica 0 while replica 1 had {state['restart_active']} active slots; graph "
+        f"replays per engine {[r.eng.graph_replays for r in clu.replicas]}; rejoins {clu.stats()['rejoins']}")
+    if state["restart_active"] is None or clu.stats()["rejoins"] != 1 or restarted.graph_replays <= 0:
+        fail(f"cluster (ii): restart while serving {state['restart_active']}, rejoins {clu.stats()['rejoins']}, "
+             f"the restarted engine's graph replays {restarted.graph_replays}")
+    if survivor.graph_replays <= 0 or any(r.status != "ok" or len(r.tokens) != r.max_new_tokens for r in more + late):
+        fail("cluster (ii): a request after the restart did not finish, or replica 1 never replayed its graph")
+    want = cluster_replay(model, params, [(r.prompt, r.max_new_tokens) for r in more + late])
+    if [list(r.tokens) for r in more + late] != want:
+        fail("cluster (ii): the requests after the restart differ from a fresh engine's tokens")
+    events = cluster_events(log_path)
+    kinds = [e["event"] for e in events]
+    need = ("replica_dead", "failover", "failover_resumed", "replica_restart", "replica_probation", "replica_rejoin")
+    say(f"[cluster] (ii) event log {log_path}: {len(events)} lines, " + json.dumps(dict(Counter(kinds))))
+    if any(k not in kinds for k in need) or next(e for e in events if e["event"] == "replica_dead")["replica"] != 0:
+        fail(f"cluster (ii): the event log lacks life-cycle events ({sorted(set(kinds))})")
+    out["ii"].update(events=dict(Counter(kinds)), step_errors=errs, restart_active=state["restart_active"],
+                     graph_replays=[r.eng.graph_replays for r in clu.replicas])
+    pool = {r.id: r.eng for r in clu.replicas}
+    parts["ii"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (iii) hang: the heartbeat alone catches it
+    log_path, log = log_at("cluster_hang_events.jsonl")
+    inj = FaultInjector()
+    clu = cluster(2, pool, injector=inj, event_log=log)
+    first["iii"] = cluster_warm(clu, cfg, "(iii)")
+    clu.heartbeat_ms = CLUSTER_HEARTBEAT_MS
+    deadline = max(clu._deadline_s(r) for r in clu.replicas)
+    inj.hang_s = CLUSTER_HANG_X * deadline
+    inj.hang_replica = (0, clu.replicas[0].step_count + 3)  # its thread is idle: the count is settled
+    say(f"[cluster] (iii) adapted deadline {deadline:.3f}s; hang {inj.hang_s:.3f}s at replica 0's step "
+        f"{inj.hang_replica[1]}")
+    reqs = trace()
+    cluster_run(clu, reqs, "(iii) hang_replica", libs)
+    st = clu.stats()
+    if inj.fired.get("hang_replica") != 1 or st["heartbeat_misses"] != 1 or st["replica_deaths"] != 1 \
+            or st["failovers"] < 1 or st["exhausted"]:
+        fail(f"cluster (iii): fired {inj.fired}, stats {st}")
+    out["iii"] = cluster_streams(model, params, clu, reqs, refs, "cluster (iii)")
+    cluster_rejoin(clu, 0, inj.hang_s + 30.0, "cluster (iii)")
+    errs = cluster_dead_errors(clu, "cluster (iii)")
+    clu.close()
+    log.close()
+    kinds = Counter(e["event"] for e in cluster_events(log_path))
+    if errs[0] is not None or not {"replica_dead", "replica_drained", "replica_rejoin"} <= set(kinds):
+        fail(f"cluster (iii): replica 0's error {errs[0]}, events {dict(kinds)}")
+    out["iii"].update(deadline_s=deadline, hang_s=inj.hang_s, events=dict(kinds),
+                      pages_after_drain=clu.replicas[0].eng.pages_in_use)
+    for r in clu.replicas:
+        r.eng.close()
+    del pool
+
+    # (iv) engines of backend "reference": nothing launches or is captured, the drain included.  Replica 0
+    # dies of one slow step inside its engine (the watchdog's straggler path; the heartbeat floor of 60 s
+    # never fires), and its thread drains it: export_inflight's rewrites run in the replica thread
+    parts["iii"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    before = {n: lib.captured for n, lib in libs.items()}
+    for lib in libs.values():
+        lib.reset()
+    slow = FaultInjector()
+    ref_dcfg = DispatchConfig(backend="reference")
+    clu = cluster(2, engine_kw={"dispatch": ref_dcfg})
+    clu.replicas[0].eng.injector = slow
+    first["iv"] = cluster_warm(clu, cfg, "(iv) backend reference")
+    warm_launches = {n: lib.launches for n, lib in libs.items()}
+    clu.straggler_min_s = CLUSTER_STRAGGLER_S
+    at = clu.replicas[0].eng._step_idx + 3  # its thread is idle: the engine's step count is settled
+    slow.slow_ms, slow.slow_steps = CLUSTER_SLOW_S * 1e3, (at, at + 1)
+    # 40-64 new tokens: 5-8 decode blocks, so every request is still running at the slow third step
+    reqs = cluster_requests(cfg, 6, seed=41, prompts=(32, 128), gens=(40, 64))
+    cluster_run(clu, reqs, f"(iv) backend reference, one {CLUSTER_SLOW_S}s step on replica 0", libs)
+    cluster_rejoin(clu, 0, 60.0, "cluster (iv)")
+    cluster_dead_errors(clu, "cluster (iv)")
+    clu.close()
+    launched = {n: lib.launches + warm_launches[n] for n, lib in libs.items()}
+    captured = {n: lib.captured - before[n] for n, lib in libs.items()}
+    paths = sorted({(op, path) for op, path in dispatch.counters_by_path()})
+    st = clu.stats()
+    out["iv"] = {"launches": launched, "captured": captured, "paths": paths,
+                 "stats": {k: st[k] for k in ("failovers", "heartbeat_misses", "replica_deaths", "rejoins")},
+                 "straggler_flags": [r.eng.straggler_flags for r in clu.replicas],
+                 "exported": sum(r.eng.exported for r in clu.replicas),
+                 "graph_replays": [r.eng.graph_replays for r in clu.replicas]}
+    say("[cluster] (iv) " + json.dumps(out["iv"]))
+    if any(launched.values()) or any(captured.values()):
+        fail(f"cluster (iv): the reference backend launched {launched} and captured {captured} kernel launches")
+    if any(p not in ("reference", "two_gemm", "torch") for _, p in paths) or slow.fired.get("slow_step") != 1 \
+            or st["heartbeat_misses"] or st["replica_deaths"] != 1 or out["iv"]["exported"] < 1 \
+            or any(r.status != "ok" for r in reqs):
+        fail(f"cluster (iv): paths {paths}, fired {slow.fired}, stats {st}, exported {out['iv']['exported']}, "
+             f"statuses {[r.status for r in reqs]}")
+    for r in clu.replicas:
+        r.eng.close()
+    parts["iv"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (v) the launcher in-process
+    log_path = os.path.join(out_dir, "serve_events.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    done = serve_cli.main(["--arch", "llama3.2-1b", "--reduced", "--replicas", "2", "--max-failovers", "2",
+                           "--heartbeat-ms", str(CLUSTER_KILL_HEARTBEAT_MS), "--event-log", log_path, "--batch", "8",
+                           "--n-slots", "2", "--page-size", "16", "--prompt-len", "32", "--gen", "24",
+                           "--compress-alpha", "0.3", "--tiers", "1.0,0.5", "--degrade-queue-depth", "1"])
+    events = cluster_events(log_path)
+    degrade = [e for e in events if e["event"] == "degrade"]
+    say(f"[cluster] (v) launcher: {len(done)} requests {dict(Counter(r.status for r in done))}; {len(events)} event "
+        f"lines, {len(degrade)} degrade, replicas {sorted({e.get('replica') for e in events})}")
+    if len(done) != 8 or any(r.status != "ok" or len(r.tokens) != 24 for r in done) or len(degrade) != 8 \
+            or {e.get("replica") for e in events} != {0, 1}:
+        fail("cluster (v): the launcher's cluster run or its event log")
+    out["v"] = {"requests": len(done), "events": len(events)}
+    parts["v"] = time.perf_counter() - t_part
+    out["parts_s"] = parts
+    say(f"[cluster] phase 26 parts, seconds: {json.dumps(parts)}")
+    return out
+
+
+def cluster_rejoin(clu, rid, timeout_s, tag) -> None:
+    """Poll the monitor until a hung replica's thread has drained and walked
+    probation back to healthy."""
+    t = time.monotonic()
+    while time.monotonic() - t < timeout_s:
+        clu.check_health()
+        if clu.replicas[rid].state == "healthy":
+            return
+        time.sleep(0.01)
+    fail(f"{tag}: replica {rid} never rejoined (state {clu.replicas[rid].state})")
+
+
+# --------------------------------------------------------------------------- #
+# phase 27: the examples' twins and kernels/ops.py
+# --------------------------------------------------------------------------- #
+def phase_examples() -> dict:
+    """Phase 27: ``experiments.compress_and_serve`` at its defaults and
+    ``experiments.continuous_serving`` plain and with ``--sessions``,
+    through ``main(argv)`` on the card (their own assertions gate: the greedy
+    request equals ``greedy_generate`` bit for bit, the captured paged block
+    against the static path); then each ``kernels.ops`` function at one
+    main-path shape against the same call under backend "reference", within
+    phase 2's tolerances, its kernel's launch count rising."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.lowrank import lowrank_params
+    from repro_torch.experiments import compress_and_serve, continuous_serving
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import aligned_rows
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    t_phase = time.perf_counter()
+    out = {}
+    t = time.perf_counter()
+    res = compress_and_serve.main([])
+    dense = res["dense_tokens"]
+    runs = {q: {"ratio": r["ratio"], "agreement": r["agreement"]} for q, r in res["runs"].items()}
+    if any(not 0.0 < r["ratio"] < 1.0 or not 0.0 <= r["agreement"] <= 1.0 or r["tokens"].shape != dense.shape
+           for r in res["runs"].values()):
+        fail(f"compress_and_serve: {runs}")
+    out["compress_and_serve"] = {"runs": runs, "s": time.perf_counter() - t}
+    for argv in ([], ["--sessions"]):
+        t = time.perf_counter()
+        res = continuous_serving.main(argv)  # raises if the greedy request leaves greedy_generate's tokens
+        eng = res["engine"]
+        bad = [r.uid for r in res["done"] if r.status != "ok" or len(r.tokens) != r.max_new_tokens]
+        if bad or eng.graph_replays <= 0 or (argv and (len(res["turns"]) != 3 or any(
+                r.prefill_skipped < 16 for r in res["turns"][1:]))):
+            fail(f"continuous_serving {argv}: requests {bad} unfinished, graph replays {eng.graph_replays}, "
+                 f"turns {[(r.prefill_skipped, r.status) for r in res['turns']]}")
+        out["continuous_serving" + "".join(argv)] = {"requests": len(res["done"]), "graph_replays": eng.graph_replays,
+                                                     "s": time.perf_counter() - t}
+
+    libs = engine_libs()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2727)
+
+    def rnd(shape, scale=None):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(torch.bfloat16)
+
+    w = lowrank_params(rnd((2048, 615)), rnd((615, 8192)))  # llama's w_gate at alpha 0.3
+    ex = lowrank_params(rnd((16, 4096, 1229)), rnd((16, 1229, 6400)))  # phi3.5-moe's expert w_gate stack
+    q, k, v = rnd((4, PROMPT, 32, 64)), rnd((4, PROMPT, 8, 64)), rnd((4, PROMPT, 8, 64))
+    qd, kc, vc = rnd((4, 1, 32, 64)), rnd((4, 288, 8, 64)), rnd((4, 288, 8, 64))
+    valid = (torch.arange(288, device=dev) < 257)[None, :].expand(4, -1).contiguous()
+    x, dt = rnd((1, 512, 64, 64), scale=1.0), F.softplus(torch.randn((1, 512, 64), generator=gen, device=dev))
+    Bm, Cm, A = rnd((1, 512, 64), scale=8.0), rnd((1, 512, 64), scale=8.0), -torch.linspace(1.0, 16.0, 64, device=dev)
+    gemm, attn = gemm_tolerances()[torch.bfloat16], attention_tolerances()[torch.bfloat16]
+    cases = [  # (name, kernel, call, tolerance)
+        ("sketch_matmul W @ Y, 2048x8192 @ 8192x615", "sketch_matmul",
+         lambda Y=aligned_rows(rnd((8192, 615))), W=rnd((2048, 8192)): ops.sketch_matmul(W, Y), gemm),
+        ("lowrank_matmul x (4, 1, 2048), w_gate 2048x615x8192", "lowrank_matmul",
+         lambda xx=rnd((4, 1, 2048)): ops.lowrank_matmul(xx, w["a"], w["b"]), gemm),
+        ("lowrank_matmul stacked, 16 experts x C 128, 4096x1229x6400", "lowrank_matmul_batched",
+         lambda xx=rnd((16, 128, 4096)): ops.lowrank_matmul(xx, ex["a"], ex["b"]), gemm),
+        ("ssd_scan zamba2 (1, 512), 64 x 64, s 64, raw x̄, chunk 128", "ssd_scan",
+         lambda: ops.ssd_scan(x, dt, Bm, Cm, A)[0], (1e-2, "phase 2's ssd_scan bf16 tolerance")),
+        ("flash_attention (4, 256), 32/8 heads, hd 64, causal", "flash_attention",
+         lambda: ops.flash_attention(q, k, v, causal=True), attn),
+        ("decode_attention B 4, S 288, 32/8 heads, hd 64, 257 valid", "decode_attention",
+         lambda: ops.decode_attention(qd, kc, vc, valid), attn),
+    ]
+    out["ops"] = {}
+    for name, kernel, call, (rel, why) in cases:
+        before = libs[kernel].launches
+        got = call()
+        torch.cuda.synchronize()
+        rose = libs[kernel].launches - before
+        with use_dispatch(backend="reference"):
+            want = call()
+        err, tol = float((got.float() - want.float()).abs().max()), rel * float(want.float().abs().max())
+        ok = err <= tol and bool(torch.isfinite(got.float()).all()) and rose >= 1
+        rec = {"name": f"ops.{name}", "kernel": kernel, "launches": rose, "max_abs_err": err, "tol": tol,
+               "tol_reason": why, "ok": ok}
+        say("[ops] " + json.dumps(rec))
+        if not ok:
+            fail(f"ops {name}: err {err:.3e} (tol {tol:.3e}), {kernel} launches {rose}")
+        out["ops"][kernel] = {"max_abs_err": err, "tol": tol, "launches": rose}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 9: the MoE main path at full width
 # --------------------------------------------------------------------------- #
 def phase_moe_main():
@@ -4633,6 +5245,29 @@ def phase_overload_only() -> int:
     return 0
 
 
+def phase_cluster_only() -> int:
+    """``--cluster-only``: phases 26-27 alone, on the q = 4 llama3.2-1b."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[cluster-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    build_all()
+    model, params = stage4_model()
+    say(f"[cluster-only] build and compression in {time.perf_counter() - t:.1f}s")
+    cluster = phase_cluster(model, params)
+    examples = phase_examples()
+    say(f"[cluster-only] phase 26 in {cluster['phase_s']:.1f}s, phase 27 in {examples['phase_s']:.1f}s, together "
+        f"{cluster['phase_s'] + examples['phase_s']:.1f}s: " + json.dumps({"26": cluster, "27": examples}))
+    say(f"[cluster-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
 def phase_chunk_only() -> int:
     """``--chunk-only [--src DIR]``: phase 8's profiled (1, 256) prefill chunk
     on each dense model (llama3.2-1b, minitron-4b, qwen2-72b at 8 layers),
@@ -4713,6 +5348,8 @@ def main() -> int:
         return phase_overload_only()
     if "--chunk-only" in sys.argv:
         return phase_chunk_only()
+    if "--cluster-only" in sys.argv:
+        return phase_cluster_only()
     if "--h2o-only" in sys.argv:
         return phase_h2o_only()
     if "--deepseek-only" in sys.argv:
@@ -4766,6 +5403,12 @@ def main() -> int:
     t = time.perf_counter()
     phase_stage4(model, params_q4)
     say(f"[stage4] phase 21 in {time.perf_counter() - t:.1f}s")
+    # phases 26-27 (the replicated cluster, then the examples and kernels/ops.py) on the same model
+    cluster = phase_cluster(model, params_q4)
+    runs["llama3.2-1b cluster"] = cluster["launches_i"]
+    examples = phase_examples()
+    say(f"[cluster] phase 26 in {cluster['phase_s']:.1f}s, phase 27 in {examples['phase_s']:.1f}s, together "
+        f"{cluster['phase_s'] + examples['phase_s']:.1f}s: " + json.dumps({"26": cluster, "27": examples}))
     del model, params_q4, batch  # the llama phases' model, before the MoE phases
     gc.collect()
     torch.cuda.empty_cache()

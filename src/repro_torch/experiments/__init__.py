@@ -1,6 +1,8 @@
-"""The paper's experiments on the port: Fig 4.1, Fig 4.2, Table 4.1 and the
-quickstart, twins of the reference's ``benchmarks/fig4_1.py``,
-``fig4_2.py``, ``table4_1.py`` and ``examples/quickstart.py``.
+"""The paper's experiments and the examples on the port: Fig 4.1, Fig 4.2,
+Table 4.1, the quickstart and the two serving examples, twins of the
+reference's ``benchmarks/fig4_1.py``, ``fig4_2.py``, ``table4_1.py``,
+``examples/quickstart.py``, ``examples/compress_and_serve.py`` and
+``examples/continuous_serving.py`` (llama-only, as the reference's are).
 
 Every random draw of a reference script (test matrices, each Omega, the
 MLP's init, the blend matrices, the power method's start vectors) can be

@@ -8,7 +8,8 @@ engine (default) or one static batched prefill + greedy decode.
          --prefill-chunk C --temperature T --top-k K] \\
         [--share-prefix [--warm-cache-pages N] [--close-sessions]] \\
         [--tiers 1.0,0.5 --tier-q 2 --deadline-ms MS --degrade-queue-depth N \\
-         --degrade-free-frac F --preempt]
+         --degrade-free-frac F --preempt] \\
+        [--replicas N --heartbeat-ms MS --max-failovers K] [--event-log PATH]
 
 The port's counterpart of ``repro/launch/serve.py``.  Runs on the card
 unless ``--device cpu`` is given.  ``--engine continuous`` serves ``--batch``
@@ -32,10 +33,20 @@ sequence whatever it is, so a prompt past the window costs no more cache.
 A vlm (``--arch llama-3.2-vision-11b``) or audio (``--arch whisper-small``)
 request carries its own image embeddings or audio frames, drawn by
 ``SyntheticLM`` beside the prompts; both prefill monolithically.
+``--replicas N`` serves through a :class:`repro_torch.serving.Cluster`: N
+engine replicas, each stepped by its own thread (on the card, on its own
+CUDA stream, all sharing one set of weights), behind one shared admission
+queue with least-loaded routing, per-replica heartbeats (``--heartbeat-ms``
+is the deadline's floor; the deadline adapts up from observed step times)
+and bit-exact failover: a dead replica's in-flight requests resume on the
+survivors, at most ``--max-failovers`` times each before a structured
+``replica_lost`` rejection.  It prints a ``[cluster]`` counters line and
+one ``[paged rN]`` line a replica.  ``--event-log PATH`` appends one JSON
+line per serving event (shed, degrade, preempt, quarantine, straggler,
+failover, replica life cycle), from the single engine too.
 The first SIGINT or SIGTERM drains gracefully: the queue
 sheds with ``"shutdown"``, in-flight requests finish, and the default
-handlers come back (a second signal ends the process).  The reference's
-cluster and event-log flags are not ported yet.
+handlers come back (a second signal ends the process).
 """
 
 from __future__ import annotations
@@ -96,6 +107,17 @@ def main(argv=None):
     ap.add_argument("--preempt", action="store_true",
                     help="a queue head of higher priority may preempt a running request, which resumes as a "
                          "continuation (with --share-prefix, from its own indexed pages)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind one shared admission queue (thread-backed; heartbeat failure "
+                         "detection and bit-exact failover; continuous engine only)")
+    ap.add_argument("--heartbeat-ms", type=float, default=1000.0,
+                    help="replica heartbeat deadline floor; each replica's deadline adapts up from its observed "
+                         "step times")
+    ap.add_argument("--max-failovers", type=int, default=2,
+                    help="failovers per request before it is rejected with reason 'replica_lost'")
+    ap.add_argument("--event-log", default="",
+                    help="append one JSON line per serving event (shed, degrade, preempt, quarantine, straggler, "
+                         "failover, replica life cycle) to this path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -146,7 +168,8 @@ def main(argv=None):
               f"kernels={dcfg.backend}, device={dev})")
         print("first sequences:", out[: min(2, args.batch), :12].tolist())
     else:
-        from repro_torch.serving import AdmissionPolicy, Engine, Request, SamplingParams, percentile
+        from repro_torch.serving import (AdmissionPolicy, Cluster, Engine, EventLog, FailoverBudget, Request,
+                                         SamplingParams, percentile)
 
         tiers = tuple(float(f) for f in args.tiers.split(",") if f) or None
         admission = None
@@ -155,11 +178,27 @@ def main(argv=None):
                                         degrade_queue_depth=args.degrade_queue_depth or None,
                                         degrade_free_frac=args.degrade_free_frac or None)
         n_slots = args.n_slots or args.batch
-        eng = Engine(model, params, n_slots=n_slots, max_len=max_len, dispatch=dcfg,
-                     decode_block=args.decode_block, page_size=args.page_size or None,
-                     kv_pages=args.kv_pages or None, prefill_chunk=args.prefill_chunk or None,
-                     share_prefix=args.share_prefix, warm_cache_pages=args.warm_cache_pages or None,
-                     tiers=tiers, tier_q=args.tier_q, admission=admission, preempt=args.preempt)
+        event_log = EventLog(args.event_log) if args.event_log else None
+
+        def make_engine(rid=0):  # every replica shares the one model and params
+            return Engine(model, params, n_slots=n_slots, max_len=max_len, dispatch=dcfg,
+                          decode_block=args.decode_block, page_size=args.page_size or None,
+                          kv_pages=args.kv_pages or None, prefill_chunk=args.prefill_chunk or None,
+                          share_prefix=args.share_prefix, warm_cache_pages=args.warm_cache_pages or None,
+                          tiers=tiers, tier_q=args.tier_q, admission=admission, preempt=args.preempt)
+
+        cluster = None
+        if args.replicas > 1:
+            cluster = Cluster(make_engine, args.replicas, heartbeat_ms=args.heartbeat_ms,
+                              budget=FailoverBudget(max_failovers=args.max_failovers, base_ms=10.0),
+                              event_log=event_log)
+            eng = cluster.replicas[0].eng  # the tiers and their certificates are every replica's
+        else:
+            eng = make_engine()
+            if event_log is not None:
+                sink = event_log.sink()
+                eng.on_event = sink
+                eng.scheduler.on_event = sink
         # one seed per request, so sampled continuations are not correlated across the batch
         reqs = [Request(prompt=prompts[b], max_new_tokens=args.gen,
                         sampling=SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -187,12 +226,25 @@ def main(argv=None):
                 break
         t0 = time.perf_counter()
         try:
-            done = eng.run(reqs, stop=lambda: draining["on"])
+            if cluster is not None:
+                try:
+                    done = cluster.run(reqs, stop=lambda: draining["on"])
+                finally:
+                    cluster.close()
+            else:
+                done = eng.run(reqs, stop=lambda: draining["on"])
         finally:
             for sig, handler in prev_handlers.items():
                 if signal.getsignal(sig) == _drain:
                     signal.signal(sig, handler)
         dt = time.perf_counter() - t0
+        engines = [r.eng for r in cluster.replicas] if cluster is not None else [eng]
+        if cluster is not None:
+            st = cluster.stats()
+            print(f"[cluster] replicas={args.replicas} failovers={st['failovers']} "
+                  f"prefix_match={st['failovers_prefix_match']} replica_deaths={st['replica_deaths']} "
+                  f"heartbeat_misses={st['heartbeat_misses']} rejoins={st['rejoins']} "
+                  f"replica_lost_rejections={st['exhausted']}")
         n_tok = sum(len(r.tokens) for r in done)
         ok = [r for r in done if r.status == "ok"]
         shed = [r for r in done if r.status == "shed"]
@@ -207,32 +259,42 @@ def main(argv=None):
             certs = " ".join(f"t{i}<= {c.prob_deviation_bound:.3g}" for i, c in enumerate(eng.tier_certificates)
                              if c is not None)
             print(f"[overload] ok={len(ok)} shed={len(shed)} errored={len(errored)} "
-                  f"degraded={eng.degraded_admissions} preemptions={eng.preemptions} "
-                  f"quarantined={eng.quarantined} tier_counts={by_tier}" + (f" cert_bounds[{certs}]" if certs else ""))
+                  f"degraded={sum(e.degraded_admissions for e in engines)} "
+                  f"preemptions={sum(e.preemptions for e in engines)} "
+                  f"quarantined={sum(e.quarantined for e in engines)} tier_counts={by_tier}"
+                  + (f" cert_bounds[{certs}]" if certs else ""))
             for r in shed:
                 print(f"[shed] uid={r.rejected.uid} reason={r.rejected.reason} waited={r.rejected.waited_ms:.0f}ms "
                       f"queue_depth={r.rejected.queue_depth}")
         lats = sorted(r.latency for r in ok)
         lat_s = (f"p50={percentile(lats, 0.5) * 1e3:.0f}ms p95={percentile(lats, 0.95) * 1e3:.0f}ms"
                  if lats else "p50=n/a p95=n/a (0 completed)")
-        print(f"latency {lat_s} decode_steps={eng.steps} host_syncs={eng.host_syncs} "
-              f"graph_replays={eng.graph_replays} tok_per_sync={eng.tokens_per_sync:.1f} "
-              f"util={eng.batch_utilization:.3f} decode_s={eng.decode_seconds:.3f} "
-              f"errored={len(errored)}")
-        if eng.paged:
-            print(f"[paged] page_size={eng.page_size} pool={eng.kv_pages} pages "
-                  f"peak_pages={eng.peak_pages_in_use} peak_active={eng.peak_active} "
-                  f"prefill_chunks={eng.prefill_chunks} kv_bytes_cap={eng.kv_bytes_capacity} "
-                  f"kv_bytes_peak={eng.kv_bytes_peak}")
+        syncs = sum(e.host_syncs for e in engines)
+        print(f"latency {lat_s} decode_steps={sum(e.steps for e in engines)} host_syncs={syncs} "
+              f"graph_replays={sum(e.graph_replays for e in engines)} "
+              f"tok_per_sync={sum(e.decoded_tokens for e in engines) / max(syncs, 1):.1f} "
+              f"util={sum(e.batch_utilization for e in engines) / len(engines):.3f} "
+              f"decode_s={sum(e.decode_seconds for e in engines):.3f} errored={len(errored)}")
+        for i, e in enumerate(engines):
+            if not e.paged:
+                continue
+            tag = f" r{i}" if cluster is not None else ""
+            print(f"[paged{tag}] page_size={e.page_size} pool={e.kv_pages} pages "
+                  f"peak_pages={e.peak_pages_in_use} peak_active={e.peak_active} "
+                  f"prefill_chunks={e.prefill_chunks} kv_bytes_cap={e.kv_bytes_capacity} "
+                  f"kv_bytes_peak={e.kv_bytes_peak}")
             if args.share_prefix:
-                print(f"[shared] shared_pages={eng.shared_page_hits} cow_forks={eng.cow_forks} "
-                      f"matched_admissions={eng.shared_admissions} "
-                      f"prefill_tok_skipped={eng.skipped_prefill_tokens} "
-                      f"cached_pages={eng.prefix_cached_pages} evictions={eng.prefix_evictions}")
-        if args.close_sessions and args.share_prefix:
+                print(f"[shared{tag}] shared_pages={e.shared_page_hits} cow_forks={e.cow_forks} "
+                      f"matched_admissions={e.shared_admissions} "
+                      f"prefill_tok_skipped={e.skipped_prefill_tokens} "
+                      f"cached_pages={e.prefix_cached_pages} evictions={e.prefix_evictions}")
+        if args.close_sessions and args.share_prefix and cluster is None:
             freed = sum(eng.drop_session(r.prompt) for r in done)
             print(f"[sessions] closed {len(done)}, freed {freed} cached pages "
                   f"(cached now {eng.prefix_cached_pages})")
+        if event_log is not None:
+            event_log.close()
+            print(f"[events] JSON lines appended to {args.event_log}")
         first = next((r for r in done if r.status == "ok" and r.tokens), None)
         if first is not None:
             print("first sequence:", first.tokens[:12])

@@ -1,23 +1,42 @@
-"""Step-time watchdog and deterministic fault injection for the serving engine.
+"""Step-time watchdog, retries with backoff, and deterministic fault injection.
 
-The port's own copy of the parts of ``repro/runtime/fault_tolerance.py``
-that the engine uses: :class:`StepWatchdog` (straggler detection against a
-rolling median of step times) and :class:`FaultInjector`'s engine-level
-fault classes (``nan_logits``, ``deny_pages``, ``slow_steps``).  The
-replica-level faults, the retry wrapper and the training runner belong to
-the cluster and training layers, which the port does not have yet.
+The port's own copy of the serving half of ``repro/runtime/fault_tolerance.py``:
+:class:`StepWatchdog` (straggler detection against a rolling median of step
+times), :func:`backoff_s` and :class:`RetryableStep` (bounded retries with
+capped-exponential backoff and deterministic jitter), :class:`ReplicaKilled`,
+and :class:`FaultInjector` with its engine-level fault classes
+(``nan_logits``, ``deny_pages``, ``slow_steps``) and its replica-level ones
+(``kill_replica``, ``hang_replica``, ``slow_replica``), which the serving
+cluster (:mod:`repro_torch.serving.cluster`) applies.  The training
+runner and the elastic re-shard belong to the training and sharding layers,
+which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["StepWatchdog", "FaultInjector"]
+__all__ = ["StepWatchdog", "RetryableStep", "FaultInjector", "ReplicaKilled", "backoff_s"]
+
+
+def backoff_s(attempt: int, *, base_s: float, cap_s: float, salt: int = 0) -> float:
+    """Capped exponential backoff with DETERMINISTIC jitter: ``base_s *
+    2**attempt`` capped at ``cap_s``, scaled by a factor in [0.5, 1.0] hashed
+    (blake2b) from ``(salt, attempt)``, so retries of different salts spread
+    out while every run of one (salt, attempt) sleeps the same time, to the
+    bit of the reference's (no global RNG state)."""
+    if base_s <= 0:
+        return 0.0
+    raw = min(base_s * (2.0 ** max(attempt, 0)), cap_s)
+    h = hashlib.blake2b(f"{salt}:{attempt}".encode(), digest_size=8).digest()
+    frac = 0.5 + (int.from_bytes(h, "big") / 2.0**64) * 0.5
+    return raw * frac
 
 
 @dataclasses.dataclass
@@ -48,6 +67,52 @@ class StepWatchdog:
         return float(np.median(self.durations[-self.window:])) if self.durations else 0.0
 
 
+class RetryableStep:
+    """Wrap a step function with bounded retries and capped-exponential backoff.
+
+    After ``max_retries`` consecutive failures of a ``retryable`` class the
+    last error propagates; any other error passes through at once.  Backoff
+    is off by default (``base_delay_s=0``: hot retries); armed, attempt ``k``
+    sleeps ``backoff_s(k, base_s, cap_s, salt=jitter_salt)``, never after the
+    final failure.  ``sleep`` is injectable, so tests record the delays.
+    """
+
+    def __init__(self, fn: Callable, *, max_retries: int = 2, retryable=(Exception,), base_delay_s: float = 0.0,
+                 max_delay_s: float = 1.0, jitter_salt: int = 0, sleep: Callable[[float], None] = time.sleep):
+        self.fn, self.max_retries, self.retryable = fn, max_retries, retryable
+        self.base_delay_s = base_delay_s
+        self.max_delay_s = max_delay_s
+        self.jitter_salt = jitter_salt
+        self._sleep = sleep
+        self.total_retries = 0  # failures observed (the final one too)
+        self.total_attempts = 0  # calls into fn
+        self.backoffs = 0  # sleeps taken
+        self.total_backoff_s = 0.0
+
+    def __call__(self, *args, **kw):
+        for attempt in range(self.max_retries + 1):
+            self.total_attempts += 1
+            try:
+                return self.fn(*args, **kw)
+            except self.retryable:
+                self.total_retries += 1
+                if attempt == self.max_retries:
+                    raise
+                delay = backoff_s(attempt, base_s=self.base_delay_s, cap_s=self.max_delay_s, salt=self.jitter_salt)
+                if delay > 0:
+                    self.backoffs += 1
+                    self.total_backoff_s += delay
+                    self._sleep(delay)
+        raise AssertionError("unreachable")
+
+
+class ReplicaKilled(RuntimeError):
+    """Raised in a replica's step loop by ``FaultInjector.kill_replica`` (a
+    lost process).  The cluster takes any exception out of a replica's step
+    as that replica's death; this type tells an injected kill from a real
+    fault."""
+
+
 @dataclasses.dataclass
 class FaultInjector:
     """Deterministic fault injection for the serving engine (tests and the
@@ -67,14 +132,32 @@ class FaultInjector:
     step in the window (a straggling device), so that wall-clock deadlines
     expire and the watchdog flags.
 
+    Replica-level classes (the cluster's; a step index here is the
+    REPLICA's local step counter, checked by ``on_replica_step``):
+
+    ``kill_replica = (replica, local_step)``: raise :class:`ReplicaKilled`
+    from that replica's step loop at exactly that step (a dead process).
+
+    ``hang_replica = (replica, local_step)`` with ``hang_s``: block that
+    replica's loop for ``hang_s`` seconds once (a wedged device): no
+    exception, the heartbeat just stops.
+
+    ``slow_replica = (replica, start, stop)`` with ``slow_ms``: sleep
+    ``slow_ms`` before each of that replica's steps in ``[start, stop)``.
+
     ``fired`` counts what actually triggered, so a test that armed a fault
-    can assert that it happened.
+    can assert that it happened.  One injector may serve every replica
+    thread: its count is locked.
     """
 
     nan_logits: Optional[Tuple[int, int]] = None
     deny_pages: Optional[Tuple[int, int]] = None
     slow_steps: Optional[Tuple[int, int]] = None
     slow_ms: float = 0.0
+    kill_replica: Optional[Tuple[int, int]] = None
+    hang_replica: Optional[Tuple[int, int]] = None
+    hang_s: float = 0.5
+    slow_replica: Optional[Tuple[int, int, int]] = None
     fired: Dict[str, int] = dataclasses.field(default_factory=dict)  # guarded by: _fired_lock
     _fired_lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False, compare=False)
 
@@ -100,6 +183,27 @@ class FaultInjector:
         if a <= step_idx < b:
             self._hit("slow_step")
             time.sleep(self.slow_ms / 1e3)
+
+    def on_replica_step(self, replica: int, step_idx: int) -> None:
+        """Replica-step hook (the cluster's): applies the replica-level faults.
+        Called by the replica thread BEFORE it steps its engine, with the
+        replica id and its local step counter; raising here counts as the
+        engine step raising."""
+        if self.kill_replica is not None:
+            rid, at = self.kill_replica
+            if replica == rid and step_idx == at:
+                self._hit("kill_replica")
+                raise ReplicaKilled(f"injected kill: replica {rid} at step {at}")
+        if self.hang_replica is not None:
+            rid, at = self.hang_replica
+            if replica == rid and step_idx == at:
+                self._hit("hang_replica")
+                time.sleep(self.hang_s)
+        if self.slow_replica is not None:
+            rid, a, b = self.slow_replica
+            if replica == rid and a <= step_idx < b and self.slow_ms > 0:
+                self._hit("slow_replica")
+                time.sleep(self.slow_ms / 1e3)
 
     def poison_for(self, uid_of_slot: Callable[[int], Optional[int]], n_slots: int, steps_done: int,
                    block: int) -> Tuple[int, int]:

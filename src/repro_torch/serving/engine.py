@@ -107,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
+import threading
 import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence
@@ -136,6 +137,15 @@ _NO_EOS = -1
 # _POISON: the step within the block at which a slot's logits turn NaN
 # (the fault injector's), -1 for none
 _TOK, _POS, _ACT, _EMIT, _MAXNEW, _SEED, _TOPK, _TEMP, _POISON, _BT = range(10)
+
+# One capture at a time in the process, and no engine's graphs released during
+# one: several engines may share a process, each stepped by its own thread (the
+# serving cluster's replicas).  A capture counts the launches recorded while it
+# runs (``KernelLib.captured``), turns Python's cyclic collector off (a
+# process-wide switch) and must not see a graph exec destroyed by another
+# thread; holding this lock around every capture and every release keeps all
+# three to the one capture that runs.
+GRAPH_LOCK = threading.Lock()
 
 # Families whose decode state integrates every prefill token (recurrent and
 # convolutional state): right-padding would corrupt it, so their admission
@@ -426,6 +436,7 @@ class Engine:
         self.steps = 0  # device decode steps executed
         self.host_syncs = 0  # fused-block host round-trips
         self.graph_replays = 0  # fused blocks run by replaying a captured graph
+        self.capture_seconds = 0.0  # host time building captured blocks (cumulative: reset_counters keeps it)
         self.decode_seconds = 0.0  # host wall time in fused blocks, drain included
         self.decoded_tokens = 0  # tokens emitted by decode (prefill's first token excluded)
         self.peak_active = 0  # max concurrently admitted requests
@@ -1000,10 +1011,25 @@ class Engine:
         per graph and counted per replay.  Python's cyclic garbage collector
         is off during the capture: a dead engine's graph freed inside it
         (its destructor destroys a graph exec, which a capture does not
-        permit) would invalidate the capture."""
+        permit) would invalidate the capture.  The capture holds
+        :data:`GRAPH_LOCK` and runs in ``thread_local`` capture mode: another
+        thread's engine may sync, allocate or launch on its own stream
+        meanwhile (the default ``global`` mode would make those calls fail),
+        but no other capture or graph release runs beside it.
+        ``capture_seconds`` adds up the host time of the warm-ups and
+        captures."""
         entry = self._graphs.get((tier, greedy))
         if entry is not None:
             return entry
+        t0 = time.perf_counter()
+        with GRAPH_LOCK:
+            entry = self._capture(tier, greedy)
+        self._graphs[(tier, greedy)] = entry
+        self.capture_seconds += time.perf_counter() - t0
+        return entry
+
+    def _capture(self, tier: int, greedy: bool):
+        """The warm-up pass and the capture of :meth:`_graph` (lock held)."""
         saved = [(t, t.clone()) for sub in self._subtrees for t in self.cache[sub].values()]
         active = self._state[_ACT].clone()
         self._state[_ACT].zero_()
@@ -1022,15 +1048,22 @@ class Engine:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with dispatch.recording_capture() as calls, torch.cuda.graph(graph, stream=side):
+            with (dispatch.recording_capture() as calls,
+                  torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local")):
                 self._block_body(tier, greedy)
         finally:
             if gc_on:
                 gc.enable()
         launches = {lib: lib.captured - b for lib, b in zip(libs, before) if lib.captured > b}
-        entry = (graph, Counter(calls), launches)
-        self._graphs[(tier, greedy)] = entry
-        return entry
+        return graph, Counter(calls), launches
+
+    def close(self) -> None:
+        """Release the captured decode blocks, under :data:`GRAPH_LOCK`: a
+        graph exec destroyed while another thread captures would invalidate
+        that capture.  The engine captures anew if it steps again."""
+        with GRAPH_LOCK:
+            graphs, self._graphs = self._graphs, {}
+            graphs.clear()
 
     def _fused_pass(self, tier: int, mask: np.ndarray, poison: tuple) -> List[Request]:
         """Run one fused decode block over the slots in ``mask`` (one tier);
@@ -1269,15 +1302,20 @@ class Engine:
         """Evict every in-flight request and return what resumes it elsewhere:
         a chunk-prefilling request as it was submitted (it emitted nothing),
         an active one as its continuation (:meth:`_evict_slot`).  Every slot
-        and page is released."""
+        and page is released.  With sharing, the eviction rewrites decode-
+        filled pages through the chunk program, so this runs under the
+        engine's own dispatch config, as :meth:`step` does (the config is
+        per thread, and a cluster's replica thread calls this outside a
+        step)."""
         out: List[Request] = []
-        for slot in list(self._chunking):
-            req = self._chunking.pop(slot)[0]
-            self._clear_slot(slot)
-            out.append(req)
-        for slot in range(self.n_slots):
-            if self._reqs[slot] is not None:
-                out.append(self._evict_slot(slot))
+        with torch.no_grad(), use_dispatch(self._dcfg):
+            for slot in list(self._chunking):
+                req = self._chunking.pop(slot)[0]
+                self._clear_slot(slot)
+                out.append(req)
+            for slot in range(self.n_slots):
+                if self._reqs[slot] is not None:
+                    out.append(self._evict_slot(slot))
         self.exported += len(out)
         return out
 

@@ -7,7 +7,9 @@ nothing of the reference): :class:`SlotAllocator`, the refcounted
 :class:`PrefixIndex` of shared prompt pages, the FIFO :class:`Scheduler`
 and its overload layer: :class:`AdmissionPolicy` (rank-tier degradation
 under pressure, deadline shedding) and the :class:`RejectedOverload`
-record a shed request carries.
+record a shed request carries; and the serving cluster's
+:class:`RoutingPolicy` (least-loaded routing) and :class:`FailoverBudget`
+(per-request failover retries with deterministic backoff).
 
 The engine owns a fixed pool of ``n_slots`` cache slots.  Requests queue
 FIFO; whenever a slot frees up, the scheduler admits the oldest waiting
@@ -31,7 +33,7 @@ from typing import Callable, Deque, Iterator, List, Optional, Tuple
 import numpy as np
 
 __all__ = ["SlotAllocator", "PageAllocator", "PageGrant", "PrefixIndex", "RejectedOverload", "AdmissionPolicy",
-           "Scheduler"]
+           "RoutingPolicy", "FailoverBudget", "Scheduler"]
 
 
 class SlotAllocator:
@@ -494,6 +496,49 @@ class AdmissionPolicy:
         if not pressured:
             return base
         return max(base, min(int(getattr(request, "min_tier", 0)), self.n_tiers - 1))
+
+
+@dataclasses.dataclass
+class RoutingPolicy:
+    """Load-aware replica routing for the cluster's front door.
+
+    ``pick`` takes one ``(replica_id, queue_depth, pages_used)`` triple per
+    HEALTHY replica and returns the replica to route the next request to:
+    least queue depth first (waiters dominate time to first token), then
+    fewest pages in use (outstanding decode work), then the lowest id: a
+    total order, so a deterministic trace routes deterministically.
+    """
+
+    def pick(self, loads: List[Tuple[int, int, int]]) -> int:
+        if not loads:
+            raise ValueError("no healthy replicas to route to")
+        return min(loads, key=lambda t: (t[1], t[2], t[0]))[0]
+
+
+@dataclasses.dataclass
+class FailoverBudget:
+    """Per-request failover accounting for the cluster.
+
+    A request whose replica dies re-enters the shared queue at most
+    ``max_failovers`` times, each time after capped exponential backoff with
+    deterministic jitter (``runtime.fault_tolerance.backoff_s``'s formula,
+    kept here too so this layer imports nothing else): attempt ``k`` waits
+    ``min(base_ms * 2**k, cap_ms)`` scaled by a factor in [0.5, 1.0] hashed
+    (blake2b) from ``(salt, k)``, salted with the request's uid so that
+    concurrent failovers spread out instead of returning in lockstep.
+    """
+
+    max_failovers: int = 2
+    base_ms: float = 0.0
+    cap_ms: float = 250.0
+
+    def backoff_ms(self, attempt: int, salt: int = 0) -> float:
+        if self.base_ms <= 0:
+            return 0.0
+        raw = min(self.base_ms * (2.0 ** max(attempt, 0)), self.cap_ms)
+        h = hashlib.blake2b(f"{salt}:{attempt}".encode(), digest_size=8).digest()
+        frac = 0.5 + (int.from_bytes(h, "big") / 2.0**64) * 0.5
+        return raw * frac
 
 
 class Scheduler:

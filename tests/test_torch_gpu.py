@@ -1020,6 +1020,95 @@ def test_gpu_engine_graph_capture_in_a_fresh_process(cuda):
     assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-3000:]
 
 
+@pytest.mark.gpu
+def test_gpu_cluster_replicas_capture_concurrently_and_restart(cuda):
+    """Two replicas of one reduced, compressed llama3.2-1b on the card, each
+    stepped by its own thread on its own stream, capture their decode blocks
+    as they first need them (one capture at a time, ``engine.GRAPH_LOCK``,
+    in thread-local capture mode while the other replica runs): every root
+    equals one engine's tokens.  Then replica 0 is killed at its third step
+    and restarted while replica 1 serves; the restarted engine captures its
+    own block and replays it, and every failed-over root resumes bit for bit
+    (its credited prefix the single engine's, its tail a fresh engine's on
+    the continuation)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault_tolerance import ReplicaKilled
+    from repro_torch.serving import Cluster, Engine, FailoverBudget, FaultInjector, Request
+
+    model = build_model(get_arch("llama3.2-1b", reduced=True), device=cuda)
+    gen = torch.Generator(device=cuda)
+    params, _ = compress_tree(model.init(gen.manual_seed(0)), CompressionPolicy(alpha=0.3, q=2, min_dim=16),
+                              generator=gen.manual_seed(1))
+    kw = dict(n_slots=2, max_len=48, page_size=8, prefill_chunk=8, decode_block=4, share_prefix=True)
+    rng = np.random.default_rng(0)
+    trace = [(rng.integers(0, model.cfg.vocab, size=int(rng.integers(4, 20))), int(rng.integers(10, 24)))
+             for _ in range(10)]
+
+    def build(items):
+        return [Request(prompt=p.copy(), max_new_tokens=n) for p, n in items]
+
+    def single(items):
+        reqs = build(items)
+        Engine(model, params, **kw).run(reqs)
+        return [list(r.tokens) for r in reqs]
+
+    refs = single(trace)
+    inj = FaultInjector()
+    clu = Cluster(lambda rid: Engine(model, params, **kw), 2, heartbeat_ms=60000.0, injector=inj,
+                  budget=FailoverBudget(max_failovers=3, base_ms=10.0), probation_s=0.05, straggler_min_s=1e9)
+    try:
+        reqs = build(trace)
+        clu.run(reqs, timeout_s=300.0)
+        assert [list(r.tokens) for r in reqs] == refs
+        assert all(r.eng.graph_replays > 0 for r in clu.replicas)
+
+        for r in clu.replicas:
+            r.eng.reset_prefix_cache()
+        inj.kill_replica = (0, clu.replicas[0].step_count + 3)  # the local step count runs on across runs
+        reqs = build(trace)
+        clu.run(reqs, timeout_s=300.0)
+        with clu.replicas[0].health_lock:
+            assert isinstance(clu.replicas[0].step_error, ReplicaKilled)
+        points = clu.stats()["resume_points"]
+        assert points
+        for i, r in enumerate(reqs):
+            assert r.status == "ok"
+            split = (points.get(r.uid) or [None])[0]
+            if split is None:
+                assert list(r.tokens) == refs[i]
+                continue
+            assert list(r.tokens)[:split] == refs[i][:split]
+            cont = (np.concatenate([trace[i][0], np.asarray(r.tokens[:split], np.int64)]), trace[i][1] - split)
+            assert list(r.tokens)[split:] == single([cont])[0]
+
+        inj.kill_replica = None
+        survivor, state = clu.replicas[1].eng, {"restarted": False, "late": False}
+        late = build(trace[:2])
+
+        def during():  # on the monitor thread: restart while replica 1 serves
+            if not state["restarted"] and survivor.n_active > 0:
+                clu.restart_replica(0)
+                state["restarted"] = True
+            elif state["restarted"] and not state["late"] and clu.replicas[0].state == "healthy":
+                for r in late:
+                    clu.submit(r)
+                state["late"] = True
+            return False
+
+        survivor.reset_prefix_cache()
+        more = build(trace[2:6])
+        clu.run(more, stop=during, timeout_s=300.0)
+        if not state["late"]:
+            clu.run(late, timeout_s=300.0)
+        assert state["restarted"] and clu.stats()["rejoins"] == 1
+        assert [list(r.tokens) for r in more + late] == refs[2:6] + refs[:2]
+        assert clu.replicas[0].eng.graph_replays > 0
+    finally:
+        clu.close()
+
+
 # --------------------------------------------------------------------------- #
 # the paper's experiments and the rest of the core on the card
 # --------------------------------------------------------------------------- #
