@@ -31,6 +31,9 @@
     python3 chip_smoke.py --cluster-only
                              # phases 26-27 (the replicated cluster, the examples and
                              # kernels/ops.py) alone, on the q = 4 llama3.2-1b
+    python3 chip_smoke.py --train-only
+                             # phase 2's training cases and phase 28 (training) alone,
+                             # on the q = 4 llama3.2-1b, then mamba2-130m
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -101,6 +104,19 @@ Phases, in order; any failure exits non-zero before the last line:
    captured in a CUDA graph and replayed on new queries, equal to the
    eager launch bit for bit.  Phase 1 also prints each
    flash instance's registers and spills, (192, 128) among them.
+   The training cases (``[grad]`` lines), bf16 then fp32: each autograd
+   Function of ``runtime/dispatch.py`` (the kernel forward, the plain
+   backward) against autograd through the plain version on the same inputs
+   and cotangent, every output and gradient within 3e-2 (bf16) or 1e-4
+   (fp32) of its largest value and every gradient nonzero: the low-rank
+   Function at llama's w_gate over 2048 rows and at phi3.5-moe's expert
+   stack (16 x 128, rank 1229), the flash Function causal at (8, 256) G 4,
+   windowed (hd 80, window 128), non-causal (G 1) and MLA's 192 / 128, the
+   logits Function tied (llama's 128256 x 2048 table, 128 rows) and untied
+   (phi's head), the SSD Function at mamba2-130m's (8, 64); each with the
+   kernel forward's time, the Function backward's and the plain forward +
+   backward's.  The flash kernel's lse within 1e-3 (bf16; fp32 1e-4) of
+   the plain forward's, and its output the same bits with and without it.
 3. Main path at full width: llama3.2-1b (16 layers, d 2048, bf16, random
    weights from a seed, spectralized to a pretrained-like spectrum), RSI
    compression at alpha 0.3 with q = 1 and q = 4, and greedy generation of
@@ -389,6 +405,28 @@ Phases, in order; any failure exits non-zero before the last line:
    at B 4 over 288 positions) against the same call under backend
    "reference", within phase 2's tolerances, its kernel's launch count
    rising.  The phase's seconds are printed.
+28. Training (``train/train_step.py``, ``launch/train.py``), on phase 3's
+   q = 4 llama3.2-1b whole, batch 8 x 256 (2048 tokens), bf16: (1) one
+   step's loss and gradients with the kernels and with the plain versions
+   (backend "reference") from the same params and batch: the dispatch
+   shows lowrank_matmul fused, flash_attention and logits on the kernel
+   path, the loss within 1e-2, the global gradient norm within 5e-2, every
+   factor leaf's gradient nonzero with cosine >= 0.99 against the plain
+   run's; (2) the same at full width on 4 of the 16 layers in fp32 (loss
+   1e-4, grad norm 1e-3, cosine 0.9999); (3) eight AdamW steps (lr 1e-5, one
+   batch) through ``TrainLoopRunner`` lower the loss; (5) with no copy into
+   aligned rows (``_build.ALIGN_COPIES``); one step profiled: device time of
+   the forward, the backward (recomputation included) and the optimizer,
+   the idle share against the host step, peak memory; (4) a run failed at
+   step 5 by ``fail_at``, restored from its step-4 checkpoint (codec raw)
+   and resumed to step 8 ends on the uninterrupted run's bits.  Then
+   mamba2-130m whole through ``launch/train.py`` with
+   ``experiments.train_lowrank_lm --full``'s arguments (alpha 0.5, q 4, batch
+   8 x 64) for 10 steps: ssd_scan launched on the forward, the loss finite;
+   and ``experiments.train_lowrank_lm`` at its default size for 30 steps,
+   its own assertion (final loss < 7.0) gating (at full width the loss
+   stays near ln(50280): see MAMBA_FULL_STEPS).  The phase's seconds are
+   printed.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -403,7 +441,9 @@ decode over the wrapped ring, h2o's w_gate at M 4 and 8) and phase 23's
 (the MLA flash at q/k 192 / v 128, the batched kernel over 160 experts
 every row live and at top-6's decode occupancy, wo and wq_b at M 4 and 8,
 the sketch GEMM at an expert's w_gate) and phases 24-25's (the flash
-kernel's non-causal shapes), each beside its
+kernel's non-causal shapes), and under ``backward`` phase 2's training
+cases of the kernel (its forward's time beside its Function's backward),
+each beside its
 launches on the same model's run (``launches_run``:
 its engine, its flat engine for decode_attention, its compression for the
 sketch GEMM, since the compressed heads' logits are low-rank applies).  The line
@@ -1590,7 +1630,7 @@ def phase_deep_reference(model, params, batch, tag: str, *, fp32_anchored: bool 
     branch-by-branch check (phase_blocks_reference) holds each kernel to its
     bf16 tolerance in place, and the plain 5% comparison is printed.
 
-    ``fp32_anchored`` (phase 22, h2o-danube): the dense bf16 rule measures
+    ``fp32_anchored`` (phases 19-20, 22, 24 and 25): the dense bf16 rule measures
     each bf16 run against the fp32 reference run (fed the same token)
     instead of one against the other.  The kernels' bf16 logits' RMS error
     is held to 1.2 x the plain versions' bf16 RMS error and their largest
@@ -1753,6 +1793,11 @@ def phase_reference(model, params, batch, tag: str = "reference", rel: float = 5
 # --------------------------------------------------------------------------- #
 # where a decode step's time goes (after the gated phases; informational)
 # --------------------------------------------------------------------------- #
+# the profiler's own and the port's record_function ranges: on the device side they span whole
+# regions (idle gaps included), not work
+ANNOTATIONS = ("ProfilerStep", "train_step.")
+
+
 def device_rows(prof, per: int = 1) -> list:
     """(device us, count, kernel name) of every device-side event of a
     ``torch.profiler`` trace, divided by ``per`` runs, largest first.  Only
@@ -1761,8 +1806,8 @@ def device_rows(prof, per: int = 1) -> list:
 
     rows = []
     for e in prof.key_averages():
-        # a scheduled profile's step annotation spans its whole step: not device work
-        if getattr(e, "device_type", None) != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+        # a scheduled profile's step annotation and the train step's ranges span device idle time too
+        if getattr(e, "device_type", None) != DeviceType.CUDA or e.key.startswith(ANNOTATIONS):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -1783,7 +1828,7 @@ def device_busy_ms(prof, per: int = 1) -> float:
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if getattr(e, "device_type", None) == DeviceType.CUDA and e.time_range.end > e.time_range.start
-                   and not e.name.startswith("ProfilerStep"))
+                   and not e.name.startswith(ANNOTATIONS))
     if not spans:
         fail("the profiler trace holds no device event with a time range")
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
@@ -4232,9 +4277,11 @@ def phase_dense(runs: dict) -> dict:
         tag = arch.split("-")[0]
         model, params, batch, summary = phase_dense_main(arch, n_layers)
         # phase 5's 5% gate between two bf16 runs does not hold at 32 layers of random spectralized
-        # weights (each bf16 run lies ~8% from the fp32 run): the recurrent models' three gates
+        # weights (each bf16 run lies ~8% from the fp32 run): the recurrent models' three gates, the
+        # bf16 runs each held against the fp32 reference run (the rule of phases 22, 24 and 25)
         summary["branch_err_ratio"] = phase_blocks_reference(model, params, batch, tag=f"{tag} reference")
-        summary["reference"] = phase_deep_reference(model, params, batch, tag=f"{tag} reference")
+        summary["reference"] = phase_deep_reference(model, params, batch, tag=f"{tag} reference",
+                                                    fp32_anchored=True)
         runs[f"{arch} compression"] = summary["compress_launches"]
         # the compressed head's logits are a low-rank apply: the sketch GEMM is RSI's, above
         eng = phase_engine(model, params, tag=f"{tag} engine",
@@ -5328,6 +5375,481 @@ def phase_paper_only() -> int:
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 2 (training): each autograd Function against autograd through the plain version
+# --------------------------------------------------------------------------- #
+def grad_tolerances() -> dict:
+    """{dtype: (relative tolerance, reason)} of a Function's outputs and gradients
+    against autograd through the plain version."""
+    import torch
+
+    return {torch.bfloat16: (3e-2, "bf16: the forward's roundings (the kernel's x@A, p) differ by an ulp where "
+                             "fp32 sums straddle a boundary, and the twins round ds / d(xA) to bf16 where "
+                             "autograd through the plain version keeps fp32"),
+            torch.float32: (1e-4, "fp32: the same products summed in another order (kernel tiles, "
+                            "chunked backward)")}
+
+
+def grad_check(name, shape, dtype, fn, inputs, rel, why, records):
+    """``fn(*inputs)`` under backend auto (the Function: the kernel forward, the
+    plain backward) and under "reference" (autograd through the plain
+    version), with the same inputs and cotangent: every output and every
+    input's gradient within ``rel`` of its largest |value|, every gradient
+    nonzero.  Times: the kernel forward alone (no grad), the Function's
+    backward alone (``torch.autograd.grad`` on a kept graph) and the plain
+    forward + backward.  One JSON line; the record kept under
+    ``"<name> backward <shape> <dtype>"``."""
+    import torch
+
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+
+    def outs(backend):
+        with use_dispatch(backend=backend):
+            o = fn(*leaves)
+        return list(o) if isinstance(o, tuple) else [o]
+
+    got = outs("auto")
+    cot = [torch.randn(o.shape, device=o.device, dtype=torch.float32).to(o.dtype) for o in got]
+    g_got = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+    want = outs("reference")
+    g_want = torch.autograd.grad(want, leaves, cot)
+    torch.cuda.synchronize()
+    errs = []
+    for a, b in zip(got + list(g_got), want + list(g_want)):
+        scale = float(b.float().abs().max())
+        errs.append((float((a.float() - b.float()).abs().max()), scale))
+    ok = all(e <= rel * s and s > 0 for e, s in errs) and all(bool(torch.isfinite(g.float()).all()) for g in g_got)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: fn(*inputs), iters=10, warmup=2)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(got, leaves, cot, retain_graph=True), iters=5, warmup=1)
+
+    def plain_step():
+        with use_dispatch(backend="reference"):
+            o = fn(*leaves)
+        torch.autograd.grad(list(o) if isinstance(o, tuple) else [o], leaves, cot)
+
+    plain_ms = time_ms(plain_step, iters=3, warmup=1)
+    dname = str(dtype).replace("torch.", "")
+    rec = {"name": name, "shape": shape, "dtype": dname, "ok": ok, "tol": rel, "tol_reason": why,
+           "max_rel_err": [e / s for e, s in errs], "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_bwd_ms": plain_ms}
+    say("[grad] " + json.dumps(rec))
+    if not ok:
+        fail(f"{name} {shape} {dname}: Function vs plain autograd, errors {errs} beyond {rel} of scale "
+             "(or a zero / non-finite gradient)")
+    records[f"{name} backward {shape} {dname}"] = rec
+    del got, want, g_got, g_want
+    return rec
+
+
+def phase_grad_kernels(records) -> dict:
+    """Phase 2's training cases: each Function at the training path's shapes,
+    bf16 then fp32.  The low-rank Function at llama3.2-1b's w_gate over phase
+    28's 2048 rows (2-D) and at phi3.5-moe's expert stack (batched); the flash
+    Function causal at phase 28's (8, 256) with G = 4, windowed (h2o-danube's
+    hd 80, window 128), non-causal (G = 1) and MLA's q/k 192 / v 128; the
+    logits Function tied (llama3.2-1b's table, one 128-row sequence chunk)
+    and untied (phi3.5-moe's head); the SSD Function at mamba2-130m's
+    training shape (8, 64).  Then the flash kernel's lse against the plain
+    forward's, and its output with and without lse, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.lowrank import lowrank_params
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.runtime import dispatch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def rnd(shape, dtype, scale=None):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x / (shape[-1] ** 0.25 if scale is None else scale)).to(dtype)
+
+    tol = grad_tolerances()
+    t = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, why = tol[dtype]
+        M = TRAIN["batch"] * TRAIN["seq"]
+        x = rnd((M, 2048), dtype)
+        f = lowrank_params(rnd((2048, 615), dtype, 2048**0.5), rnd((615, 8192), dtype, 615**0.5))
+        grad_check("lowrank_matmul", [M, 2048, 615, 8192], dtype, dispatch.lowrank_apply, (x, f["a"], f["b"]),
+                   rel, why, records)
+        del x, f
+        x = rnd((16, 128, 4096), dtype)
+        f = lowrank_params(rnd((16, 4096, 1229), dtype, 4096**0.5), rnd((16, 1229, 6400), dtype, 1229**0.5))
+        grad_check("lowrank_matmul_batched", [16, 128, 4096, 1229, 6400], dtype, dispatch.lowrank_apply,
+                   (x, f["a"], f["b"]), rel, why, records)
+        del x, f
+        for label, (B, S, Skv, H, KV, hd, vd, causal, window) in (
+                ("causal G 4", (TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 32, 8, 64, 64, True, None)),
+                ("window 128 hd 80", (4, 256, 256, 32, 8, 80, 80, True, 128)),
+                ("non-causal G 1", (4, 256, 256, 12, 12, 64, 64, False, None)),
+                ("mla 192/128", (2, 256, 256, 128, 128, 192, 128, True, None))):
+            q, k, v = rnd((B, S, H, hd), dtype), rnd((B, Skv, KV, hd), dtype), rnd((B, Skv, KV, vd), dtype)
+            fn = lambda q, k, v, c=causal, w=window: dispatch.flash_attention(q, k, v, causal=c, window=w)  # noqa: E731
+            grad_check("flash_attention", [B, S, Skv, H, KV, hd, vd, label], dtype, fn, (q, k, v), rel, why, records)
+            with torch.no_grad():
+                out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+                _, want_lse = ref.flash_fwd_ref(q, k, v, causal=causal, window=window)
+                same = torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+            lse_err = float((lse - want_lse).abs().max()) / float(want_lse.abs().max())
+            lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+            say(f"[grad] flash_attention {label} {dtype}: lse vs the plain forward's {lse_err:.3e} x max |lse| "
+                f"(tol {lse_tol}); out with lse == out without, bitwise: {same}")
+            if not (lse_err <= lse_tol and same):
+                fail(f"flash_attention {label} {dtype}: lse error {lse_err:.3e} > {lse_tol} or out changed with lse")
+            del q, k, v, out, lse, want_lse
+        rows = TRAIN["batch"] * TRAIN["seq"] // 16  # one of the chunked loss's 16 sequence chunks
+        for label, d, V, tied in (("tied llama3.2-1b", 2048, 128256, True), ("untied phi3.5-moe", 4096, 32064, False)):
+            x, table = rnd((rows, d), dtype), rnd((V, d) if tied else (d, V), dtype)
+            fn = lambda x, t, tied=tied: dispatch.logits_apply(x, t, tied=tied)  # noqa: E731
+            grad_check("sketch_matmul", [rows, d, V, f"logits {label}"], dtype, fn, (x, table), rel, why, records)
+            del x, table
+        B, L, nh, hd, s = 8, 64, 24, 64, 128  # mamba2-130m at phase 28's (8, 64)
+
+        def ssd(x, dtr, Bi, Ci, alog):
+            return dispatch.ssd_scan(x, F.softplus(dtr.float()), Bi, Ci, -torch.exp(alog.float()), chunk=256,
+                                     round_xbar=True)
+
+        grad_check("ssd_scan", [B, L, nh, hd, s], dtype, ssd,
+                   (rnd((B, L, nh, hd), dtype), rnd((B, L, nh), torch.float32, 1.0), rnd((B, L, s), dtype),
+                    rnd((B, L, s), dtype), torch.log(torch.linspace(1.0, 16.0, nh, device=dev))),
+                   rel, why, records)
+        torch.cuda.empty_cache()
+    say(f"[grad] phase 2's training cases in {time.perf_counter() - t:.1f}s")
+    return records
+
+
+# --------------------------------------------------------------------------- #
+# phase 28: training llama3.2-1b (q = 4) and mamba2-130m on the card
+# --------------------------------------------------------------------------- #
+# AdamW at a constant 1e-5 on one fixed batch.  Adam's first steps move every weight by ~lr: at 1e-3
+# (5% of a d**-0.5 weight at d 2048) the random spectralized model's loss went 12.1 -> 25.7 -> 34.5, at
+# 1e-4 12.1 -> 16.4 before it fell; at 1e-5 it falls every step on a fixed batch (12.14 -> 11.71), while
+# on fresh batches eight steps moved it by 0.04, under the batches' own spread at lr 0 (12.14 vs 12.18)
+# (my chip runs, PR 26)
+TRAIN = dict(batch=8, seq=256, steps=8, fail_at=5, save_every=4, lr=1e-5)
+# mamba2-130m at full width through the launcher with train_lowrank_lm's --full arguments, for this many
+# steps; the example's own assertion (final loss < 7.0) is run at its default (reduced) size, for
+# EXAMPLE_STEPS steps: at full width the synthetic tokens are uniform over 50280 ids and each is seen
+# ~once in 120 steps, so the loss stays near ln(50280) = 10.8 (11.19 after the example's 120 steps, my
+# chip run, PR 26)
+MAMBA_FULL_STEPS = 10
+EXAMPLE_STEPS = 30
+
+
+def _factor_paths(params) -> list:
+    """Paths of every factor leaf (the a and b of each factored linear)."""
+    from repro_torch.core.lowrank import is_lowrank
+
+    out = []
+
+    def walk(node, prefix):
+        if is_lowrank(node):
+            out.extend((f"{prefix}/a", f"{prefix}/b"))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}/{k}" if prefix else k)
+
+    walk(params, "")
+    return out
+
+
+def grads_agree(tag, model, params, batch, *, loss_rel, norm_rel, cos_min) -> dict:
+    """One step's loss and gradients with the kernels (auto) and with the plain
+    versions (reference) from the same params and batch: the loss within
+    ``loss_rel``, the global gradient norm within ``norm_rel``, and every
+    factor leaf's gradient nonzero with cosine >= ``cos_min`` against the
+    plain run's.  The auto run's dispatch paths and launches are returned."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, lowrank_matmul, sketch_matmul
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.dispatch import use_dispatch
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import loss_and_grads, tree_paths
+
+    libs = {"lowrank_matmul": lowrank_matmul.KERNEL, "flash_attention": flash_attention.KERNEL,
+            "sketch_matmul": sketch_matmul.KERNEL}
+    for lib in libs.values():
+        lib.reset()
+    dispatch.reset_counters()
+    g_k, loss_k, _ = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    launches = {n: lib.launches for n, lib in libs.items()}
+    paths = dispatch.counters_by_path()
+    with use_dispatch(backend="reference"):
+        g_r, loss_r, _ = loss_and_grads(model, params, batch)
+    n_k, n_r = float(opt_mod.global_norm(g_k)), float(opt_mod.global_norm(g_r))
+    flat_k, flat_r = dict(tree_paths(g_k)), dict(tree_paths(g_r))
+    cos, zero = {}, []
+    for path in _factor_paths(params):
+        a, b = flat_k[path].float().flatten(), flat_r[path].float().flatten()
+        if float(a.abs().max()) == 0.0:
+            zero.append(path)
+        cos[path] = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    loss_err = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    out = {"loss_auto": float(loss_k), "loss_reference": float(loss_r), "loss_rel_err": loss_err,
+           "grad_norm_auto": n_k, "grad_norm_reference": n_r, "grad_norm_rel_err": abs(n_k - n_r) / n_r,
+           "factor_leaves": len(cos), "min_factor_cosine": min(cos.values()) if cos else None,
+           "launches": launches, "paths": {f"{o} {p}": n for (o, p), n in sorted(paths.items())}}
+    say(f"[{tag}] " + json.dumps(out))
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    say(f"[{tag}] lowest factor cosines: {worst}; tolerances: loss {loss_rel}, grad norm {norm_rel}, "
+        f"cosine >= {cos_min}")
+    need = [("lowrank_matmul", "fused"), ("flash_attention", "kernel"), ("logits", "kernel")]
+    if any(paths.get(k, 0) <= 0 for k in need) or any(n <= 0 for n in launches.values()):
+        fail(f"{tag}: the step did not run through the kernels: paths {paths}, launches {launches}")
+    if zero or not cos:
+        fail(f"{tag}: factor leaves with an all-zero gradient (a detach): {zero[:5]}, or none at all")
+    if not (loss_err <= loss_rel and out["grad_norm_rel_err"] <= norm_rel and min(cos.values()) >= cos_min):
+        fail(f"{tag}: kernels vs plain versions beyond tolerance: {json.dumps(out)}")
+    del g_k, g_r
+    return out
+
+
+def step_profile(step_fn, state, batch) -> dict:
+    """One profiled training step: device busy time (the union of the device
+    events' intervals) and the device time of the forward (under
+    ``train_step.forward``), the backward (autograd's engine, checkpoint
+    recomputation included) and the optimizer (``train_step.optimizer``),
+    each kernel charged to the range its launching CPU op sits under."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t
+    parts = Counter()
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels:
+            continue
+        part, p = "other", e
+        while p is not None:
+            if p.name.startswith("autograd::engine::evaluate_function"):
+                part = "backward"
+                break
+            if p.name in ("train_step.forward", "train_step.optimizer"):
+                part = p.name.split(".")[1]
+                break
+            p = p.cpu_parent
+        parts[part] += sum(k.duration for k in kernels) / 1e3
+    total = sum(parts.values())
+    rows = device_rows(prof)
+    if not rows or total <= 0:
+        return {"device_ms": None, "note": "not measured: the trace holds no device time"}
+    return {"wall_ms_profiler_on": wall_prof * 1e3, "device_busy_ms": device_busy_ms(prof),
+            "device_ms_by_part": dict(parts),
+            "shares": {k: v / total for k, v in parts.items()},
+            "top_kernels": [(round(us / 1e3, 3), n, key[:70]) for us, n, key in rows[:8]]}
+
+
+def phase_train(model, params, runs: dict) -> dict:
+    """Phase 28: training on the card.  llama3.2-1b whole at full width,
+    compressed at q = 4 (phase 3's model), batch 8 x 256 (gates 1-5), then
+    mamba2-130m whole through ``experiments.train_lowrank_lm --full``."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.experiments import train_lowrank_lm
+    from repro_torch.kernels import _build, flash_attention, lowrank_matmul, sketch_matmul, ssd_scan
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import dispatch
+    from repro_torch.runtime.fault_tolerance import TrainLoopRunner
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainState, make_train_step, tree_paths
+
+    t_phase = time.perf_counter()
+    tag = "train"
+    cfg = model.cfg
+    out = {"card": card_line()}
+    data = SyntheticLM(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], seed=0)
+
+    def to_dev(b):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    batch = to_dev(data.at_step(0))
+    # gate 1: step 1 with the kernels and with the plain versions, bf16, all 16 layers
+    t = time.perf_counter()
+    out["bf16"] = grads_agree(f"{tag} bf16", model, params, batch, loss_rel=1e-2, norm_rel=5e-2, cos_min=0.99)
+    # gate 2: the same at full width on 4 of the 16 layers in fp32
+    n4 = min(4, cfg.n_layers)
+    cfg4 = dataclasses.replace(cfg, dtype="float32", n_layers=n4)
+    p4 = params_fp32({k: _slice_layers(v, n4) if k == "layers" else v for k, v in params.items()})
+    out["fp32"] = grads_agree(f"{tag} fp32 4 layers", build_model(cfg4), p4, batch, loss_rel=1e-4, norm_rel=1e-3,
+                              cos_min=0.9999)
+    del p4
+    torch.cuda.empty_cache()
+    out["gates_1_2_s"] = time.perf_counter() - t
+
+    # gates 3 and 5: eight steps lower the loss, with no aligned-row copy; the launches of the run
+    opt = opt_mod.adamw(opt_mod.constant_schedule(TRAIN["lr"]), weight_decay=0.01)
+    step_fn = make_train_step(model, opt)
+
+    def fresh():
+        return TrainState(params=params, opt_state=opt.init(params), step=torch.zeros((), dtype=torch.int32))
+
+    libs = {"lowrank_matmul": lowrank_matmul.KERNEL, "flash_attention": flash_attention.KERNEL,
+            "sketch_matmul": sketch_matmul.KERNEL}
+    for lib in libs.values():
+        lib.reset()
+    _build.ALIGN_COPIES.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def at_step(step):  # one batch for every step: see TRAIN
+        return data.at_step(0)
+
+    runner = TrainLoopRunner(step_fn, at_step, None, save_every=10**9)
+    t = time.perf_counter()
+    state_a, _ = runner.run(fresh(), TRAIN["steps"], shard_fn=to_dev,
+                            on_metrics=lambda s, m: losses.append(float(m["loss"])))
+    torch.cuda.synchronize()
+    out["steps_s"] = time.perf_counter() - t
+    runs["llama3.2-1b train"] = {n: lib.launches for n, lib in libs.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    host = sorted(runner.watchdog.durations[1:])  # the first step pays the allocator's warm-up
+    out.update(losses=losses, step_host_ms_median=host[len(host) // 2] * 1e3, align_copies=_build.ALIGN_COPIES.count,
+               launches=runs["llama3.2-1b train"])
+    say(f"[{tag}] 8 steps, AdamW at {TRAIN['lr']}, one batch: losses {[round(x, 4) for x in losses]}; host step median {out['step_host_ms_median']:.1f} "
+        f"ms; peak {out['peak_gib']:.2f} GiB; ALIGN_COPIES {out['align_copies']}; launches {out['launches']}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: eight steps did not lower the loss: {losses}")
+    if out["align_copies"]:
+        fail(f"{tag}: the training steps copied {out['align_copies']} operands into aligned rows")
+    if any(n <= 0 for n in out["launches"].values()):
+        fail(f"{tag}: a kernel of the training path never launched: {out['launches']}")
+    prof = step_profile(step_fn, state_a, batch)
+    if prof.get("device_busy_ms"):
+        prof["host_ms"] = out["step_host_ms_median"]
+        prof["idle_share"] = max(0.0, 1 - prof["device_busy_ms"] / out["step_host_ms_median"])
+    out["profile"] = prof
+    say(f"[{tag}] one step profiled (batch {TRAIN['batch']} x {TRAIN['seq']}; {out['card']}): " + json.dumps(prof))
+    want = dict(tree_paths(state_a.params))
+    del state_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate 4: fail at step 5, restore the step-4 checkpoint, resume to step 8: the same bits
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        c = ckpt.Checkpointer(d, keep=1, codec="raw")
+        t = time.perf_counter()
+        try:
+            TrainLoopRunner(step_fn, at_step, c, save_every=TRAIN["save_every"]).run(
+                fresh(), TRAIN["steps"], shard_fn=to_dev, fail_at=lambda s: s == TRAIN["fail_at"])
+            fail(f"{tag}: the injected failure at step {TRAIN['fail_at']} did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        c.wait()
+        out["interrupted_s"] = time.perf_counter() - t
+        if ckpt.latest_step(d) != TRAIN["save_every"]:
+            fail(f"{tag}: latest checkpoint {ckpt.latest_step(d)}, expected step {TRAIN['save_every']}")
+        t = time.perf_counter()
+        restored, manifest = ckpt.restore(fresh(), d)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t
+        out["checkpoint_gib"] = sum(os.path.getsize(os.path.join(d, f"step_{TRAIN['save_every']}", m["file"]))
+                                    for m in manifest["leaves"]) / 2**30
+        t = time.perf_counter()
+        state_b, _ = TrainLoopRunner(step_fn, at_step, None).run(restored, TRAIN["steps"], shard_fn=to_dev,
+                                                                 start_step=int(restored.step))
+        torch.cuda.synchronize()
+        out["resumed_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    differ = [p for p, t in tree_paths(state_b.params)
+              if not torch.equal(t.view(torch.int16) if t.dtype == torch.bfloat16 else t,
+                                 want[p].view(torch.int16) if t.dtype == torch.bfloat16 else want[p])]
+    say(f"[{tag}] restart: failed at step {TRAIN['fail_at']} ({out['interrupted_s']:.1f}s with the step-4 save), "
+        f"restored step {TRAIN['save_every']} ({out['checkpoint_gib']:.2f} GiB, codec raw) in {out['restore_s']:.1f}s, "
+        f"resumed to {TRAIN['steps']} in {out['resumed_s']:.1f}s: {len(want) - len(differ)}/{len(want)} param leaves "
+        f"bit-identical to the uninterrupted run; gates 1-2 took {out['gates_1_2_s']:.1f}s, the 8 steps "
+        f"{out['steps_s']:.1f}s")
+    if differ:
+        fail(f"{tag}: the resumed run's params differ from the uninterrupted run's: {differ[:5]}")
+    del state_b, restored, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-130m whole, through the launcher with the example's --full arguments: ssd_scan on its forward
+    mamba_libs = {"ssd_scan": ssd_scan.KERNEL, "lowrank_matmul": lowrank_matmul.KERNEL,
+                  "sketch_matmul": sketch_matmul.KERNEL}
+    for lib in mamba_libs.values():
+        lib.reset()
+    dispatch.reset_counters()
+    t = time.perf_counter()
+    _, metrics = train_cli.main(["--arch", "mamba2-130m", "--steps", str(MAMBA_FULL_STEPS), "--batch", "8", "--seq",
+                                 "64", "--compress-alpha", "0.5", "--compress-q", "4"])
+    paths = dispatch.counters_by_path()
+    out["mamba2"] = {"steps": MAMBA_FULL_STEPS, "final_loss": float(metrics["loss"]), "seconds": time.perf_counter() - t,
+                     "launches": {n: lib.launches for n, lib in mamba_libs.items()},
+                     "ssd_scan_kernel_calls": paths.get(("ssd_scan", "kernel"), 0)}
+    runs["mamba2-130m train"] = out["mamba2"]["launches"]
+    say(f"[{tag}] mamba2-130m full width, {MAMBA_FULL_STEPS} steps: " + json.dumps(out["mamba2"]))
+    if (out["mamba2"]["launches"]["ssd_scan"] <= 0 or out["mamba2"]["ssd_scan_kernel_calls"] <= 0
+            or not math.isfinite(out["mamba2"]["final_loss"])):
+        fail(f"{tag} mamba2-130m: ssd_scan was not on the training forward, or the loss is not finite: "
+             f"{out['mamba2']}")
+    # the example itself at its default size, its own assertion (final loss < 7.0) gating
+    t = time.perf_counter()
+    try:
+        _, metrics = train_lowrank_lm.main(["--steps", str(EXAMPLE_STEPS)])
+    except AssertionError as e:
+        fail(f"{tag} train_lowrank_lm: {e}")
+    out["example"] = {"final_loss": float(metrics["loss"]), "seconds": time.perf_counter() - t}
+    say(f"[{tag}] experiments.train_lowrank_lm (reduced mamba2-130m, {EXAMPLE_STEPS} steps): "
+        + json.dumps(out["example"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{tag}] phase 28 in {out['phase_s']:.1f}s")
+    return out
+
+
+def _slice_layers(tree, n: int):
+    """The first ``n`` layers of a stacked (L, ...) subtree (views)."""
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def phase_train_only() -> int:
+    """``--train-only``: phase 2's training cases and phase 28 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[train-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    build_all()
+    time_ms.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    phase_grad_kernels({})
+    model, params = stage4_model()
+    say(f"[train-only] build, phase 2's training cases and compression in {time.perf_counter() - t:.1f}s")
+    phase_train(model, params, {})
+    say(f"[train-only] in {time.perf_counter() - t:.1f}s")
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5358,6 +5880,8 @@ def main() -> int:
         return phase_modal_only(VLM_ARCH)
     if "--whisper-only" in sys.argv:
         return phase_modal_only(WHISPER_ARCH)
+    if "--train-only" in sys.argv:
+        return phase_train_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -5389,6 +5913,7 @@ def main() -> int:
 
     t = time.perf_counter()
     records, phi, g1, dense = phase_kernels()
+    phase_grad_kernels(records)
     say(f"[kernels] all checks within tolerance in {time.perf_counter() - t:.1f}s")
     runs = {}  # launches per kernel on each main run, counts reset just before it
     model, params_q4, batch, runs["llama3.2-1b static"] = phase_main()
@@ -5409,6 +5934,10 @@ def main() -> int:
     examples = phase_examples()
     say(f"[cluster] phase 26 in {cluster['phase_s']:.1f}s, phase 27 in {examples['phase_s']:.1f}s, together "
         f"{cluster['phase_s'] + examples['phase_s']:.1f}s: " + json.dumps({"26": cluster, "27": examples}))
+    # phase 28 (training) on the same q = 4 model, then mamba2-130m through the launcher
+    phase_train(model, params_q4, runs)
+    gc.collect()
+    torch.cuda.empty_cache()
     del model, params_q4, batch  # the llama phases' model, before the MoE phases
     gc.collect()
     torch.cuda.empty_cache()
@@ -5550,6 +6079,11 @@ def main() -> int:
                     own = next((f"{arch} {r}" for r in mine if runs.get(f"{arch} {r}", {}).get(name, 0) > 0),
                                f"{arch} {mine[0]}")
                     entry[key].update(launches=runs.get(own, {}).get(name, 0), launches_run=own)
+        # phase 2's training cases: the Function's forward (this kernel) beside its plain backward
+        backward = [{k: r[k] for k in ("shape", "dtype", "fwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "max_rel_err")}
+                    for key, r in records.items() if key.startswith(f"{name} ") and " backward " in key]
+        if backward:
+            entry["backward"] = backward
         line.append(entry)
     say(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     say("[earlier] times of the redesigned kernels before this round, copied from PERF.md section 6 "

@@ -2,7 +2,7 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 subpackage layout (``configs``, ``kernels``, ``runtime``, ``core``,
-``models``, ``train``, ``data``, ``launch``) so each module's counterpart is
+``models``, ``train``, ``checkpoint``, ``data``, ``launch``) so each module's counterpart is
 found under the same name.  It imports torch and numpy only — never jax and
 nothing of ``repro``.
 

@@ -69,15 +69,19 @@ class ArchConfig:
     n_encoder_layers: int = 0
     n_audio_frames: int = 1500
 
-    # --- numerics ---
+    # --- numerics / training ---
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    remat: str = "block"  # none | block (checkpoint each group of remat_group blocks in training)
+    remat_group: int = 1  # layers per activation checkpoint (memory knob)
     # kernel backend policy, consumed by repro_torch.runtime.dispatch:
     #   auto      — the hand-written CUDA kernel on a CUDA tensor, the plain
     #               PyTorch version on a CPU tensor
     #   reference — the plain PyTorch version everywhere
     kernels: str = "auto"
+    optimizer: str = "adamw"  # adamw | adafactor (memory-bound giants) | sgdm
+    accum_steps: int = 1  # microbatch gradient accumulation (train memory knob)
 
     def __post_init__(self):
         if self.kernels not in ("auto", "reference"):

@@ -3,10 +3,6 @@
 60L d5120 128H, MLA kv_lora=512 q_lora=1536 (nope 128 / rope 64 / v 128),
 2 shared + 160 routed experts top-6, expert d_ff=1536, first layer dense
 (d_ff 12288), vocab=102400.  [arXiv:2405.04434]
-
-The reference's config also sets ``optimizer="adafactor"`` and
-``accum_steps=8``, training knobs that the port's ``ArchConfig`` does not
-carry yet: they come with the training slice.
 """
 
 from repro_torch.configs.base import ArchConfig
@@ -32,6 +28,8 @@ CONFIG = ArchConfig(
     qk_rope_dim=64,
     v_head_dim=128,
     rope_theta=10_000.0,
+    optimizer="adafactor",
+    accum_steps=8,  # microbatch the 256-seq global batch: activations /8
 )
 
 REDUCED = ArchConfig(

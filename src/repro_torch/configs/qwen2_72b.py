@@ -1,10 +1,6 @@
 """qwen2-72b — dense, 80L d8192 64H (GQA kv=8, head_dim 128), QKV bias.
 
 d_ff=29568 vocab=152064.  [arXiv:2407.10671]
-
-The reference's config also sets ``optimizer="adafactor"`` and
-``accum_steps=4``, training knobs that the port's ``ArchConfig`` does not
-carry yet: they come with the training slice.
 """
 
 from repro_torch.configs.base import ArchConfig
@@ -21,6 +17,8 @@ CONFIG = ArchConfig(
     vocab=152064,
     qkv_bias=True,
     rope_theta=1_000_000.0,
+    optimizer="adafactor",
+    accum_steps=4,  # microbatch the 256-seq global batch: activations /4
 )
 
 REDUCED = ArchConfig(

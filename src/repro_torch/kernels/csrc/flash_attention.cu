@@ -17,6 +17,11 @@
 // contribution is exp(-1e30 - m) = 0, or is zeroed by the next correction).
 // There are no atomics and no data-dependent order: two launches on the same
 // inputs give the same bits.
+// On request (a training forward) each row's fp32 log-sum-exp,
+// m + log(max(l, 1e-30)), is written too: the lse _flash_fwd_pass returns for
+// the backward, in its (B, KV, G, Sq) layout.  The request adds one store a
+// row at the end and changes no other instruction's inputs, so out's bits are
+// the same with or without it.
 //
 // What bounds it on the H100: at the main path's prefills (B 4, S 256, causal;
 // 32/8 heads at head_dim 64 or 128, or 32/32 heads at 64) the work is
@@ -84,8 +89,8 @@ size_t smem_bytes() {
 template <typename T, int HD, int VD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ out, int Sq, int Skv, int H, int KV, int causal, int window,
-                       int q_offset, float scale) {
+                       T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
+                       int window, int q_offset, float scale) {
     extern __shared__ float smem[];
     float* Qs = smem;                    // [BQ][HD+1]
     float* Ks = Qs + BQ * (HD + 1);      // [BKV][HD+1]
@@ -172,20 +177,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
         T* o = out + (((size_t)b * Sq + qi) * H + h) * VD;
 #pragma unroll
         for (int e = 0; e < VD / 4; ++e) o[sub + 4 * e] = repro::from_f32<T>(acc[e] / l_safe);
+        if (lse != nullptr && sub == 0) lse[((size_t)b * H + h) * Sq + qi] = m + logf(l_safe);
     }
 }
 
 template <typename T, int HD, int VD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KV,
-           int causal, int window, int q_offset, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv, int H,
+           int KV, int causal, int window, int q_offset, float scale, void* stream) {
     auto kernel = flash_attention_kernel<T, HD, VD>;
     size_t bytes = smem_bytes<HD, VD>();
     cudaError_t e = repro::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), Sq,
-        Skv, H, KV, causal, window, q_offset, scale);
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse,
+        Sq, Skv, H, KV, causal, window, q_offset, scale);
     return cudaGetLastError();
 }
 
@@ -293,8 +299,9 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
 template <int HD, int VD>
 __global__ void __launch_bounds__(THREADS, Pair<HD, VD>::MIN_BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                   int H, int KV, int GP, int causal, int window, int q_offset, float scale) {
+                   const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Skv, int H, int KV, int GP, int causal, int window,
+                   int q_offset, float scale) {
     using Pr = Pair<HD, VD>;
     using Cf = typename Pr::QK;
     using Cv = typename Pr::V;
@@ -420,12 +427,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_const
         for (int t = 0; t < VD / 8; ++t)
             *reinterpret_cast<__nv_bfloat162*>(dst + 8 * t) =
                 __floats2bfloat162_rn(o[4 * t + 2 * i] / l_safe, o[4 * t + 2 * i + 1] / l_safe);
+        // a row's four threads hold the same m and l (both reduced over the quad)
+        if (lse != nullptr && quad == 0) lse[((size_t)b * H + h0 + r % GP) * Sq + qi] = m[i] + logf(l_safe);
     }
 }
 
 template <int HD, int VD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KV,
-           int causal, int window, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv, int H,
+           int KV, int causal, int window, int q_offset, float scale, cudaStream_t stream) {
     using Pr = Pair<HD, VD>;
     using Cf = typename Pr::QK;
     using Cv = typename Pr::V;
@@ -449,8 +458,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
     auto kernel = flash_wgmma_kernel<HD, VD>;
     if ((e = repro::allow_smem(kernel, Pr::SMEM)) != cudaSuccess) return e;
     dim3 grid((Sq + qrows - 1) / qrows, KV * (G / GP), B);
-    kernel<<<grid, THREADS, Pr::SMEM, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), Sq, Skv, H,
-                                                KV, GP, causal, window, q_offset, scale);
+    kernel<<<grid, THREADS, Pr::SMEM, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv,
+                                                H, KV, GP, causal, window, q_offset, scale);
     return cudaGetLastError();
 }
 
@@ -482,26 +491,29 @@ int with_head_dims(int hd, int vd, F f) {
 
 }  // namespace
 
-// (hd, vd) one of with_head_dims' pairs; window <= 0 means none
-REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                                      int H, int KV, int hd, int vd, int causal, int window, int q_offset,
-                                      float scale, void* stream) {
+// (hd, vd) one of with_head_dims' pairs; window <= 0 means none.  lse, where not null, receives each
+// row's fp32 log-sum-exp m + log(max(l, 1e-30)) in the reference's (B, KV, G, Sq) layout (h = kvh * G + g,
+// so row (b, h, qi) lands at (b * H + h) * Sq + qi); out's bits are the same with or without it.
+REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                                      int Sq, int Skv, int H, int KV, int hd, int vd, int causal, int window,
+                                      int q_offset, float scale, void* stream) {
     if (B <= 0 || Sq <= 0) return cudaSuccess;
     auto s = static_cast<cudaStream_t>(stream);
-    if (Skv <= 0)  // no key: every row is the zero of acc / max(l, 1e-30)
+    if (Skv <= 0) {  // no key: every row is the zero of acc / max(l, 1e-30)
+        if (lse != nullptr) return cudaErrorInvalidValue;  // the wrapper asks for no lse without keys
         return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * vd * sizeof(__nv_bfloat16), s);
+    }
     return with_head_dims(hd, vd, [&](auto HD, auto VD) {
-        return bf16_wgmma::launch<decltype(HD)::value, decltype(VD)::value>(q, k, v, out, B, Sq, Skv, H, KV, causal,
-                                                                            window, q_offset, scale, s);
+        return bf16_wgmma::launch<decltype(HD)::value, decltype(VD)::value>(
+            q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV, causal, window, q_offset, scale, s);
     });
 }
 
-REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                                     int H, int KV, int hd, int vd, int causal, int window, int q_offset,
-                                     float scale, void* stream) {
+REPRO_EXPORT int flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                                     int Sq, int Skv, int H, int KV, int hd, int vd, int causal, int window,
+                                     int q_offset, float scale, void* stream) {
     return with_head_dims(hd, vd, [&](auto HD, auto VD) {
-        return fp32_fma::launch<float, decltype(HD)::value, decltype(VD)::value>(q, k, v, out, B, Sq, Skv, H, KV,
-                                                                                 causal, window, q_offset, scale,
-                                                                                 stream);
+        return fp32_fma::launch<float, decltype(HD)::value, decltype(VD)::value>(
+            q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV, causal, window, q_offset, scale, stream);
     });
 }

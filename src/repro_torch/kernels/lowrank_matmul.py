@@ -267,12 +267,15 @@ def batched_plans(L: int, M: int, K: int, r: int, N: int, sms: int) -> Tuple[Gem
     return tile_plan(M, K, r, sms, L), tile_plan(M, r, N, sms, L)
 
 
-def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, prefill: bool = False) -> torch.Tensor:
+def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, prefill: bool = False,
+                   return_xa: bool = False):
     """x: (M, K); A: (K, r); B: (r, N) -> (M, N) in x's dtype.  ``prefill``:
-    x holds prompt rows, computed the same way at every M (no skinny kernel)."""
+    x holds prompt rows, computed the same way at every M (no skinny kernel).
+    ``return_xa`` (the training forward) also returns the rounded (M, r)
+    ``x @ A`` the kernel computed, which the backward reads."""
     devs = {x.device.type, A.device.type, B.device.type}
     if devs == {"cpu"}:
-        return ref.lowrank_matmul_ref(x, A, B)
+        return ref.lowrank_matmul_ref(x, A, B, return_xa=return_xa)
     if devs != {"cuda"} or not (x.device == A.device == B.device):
         raise ValueError(f"lowrank_matmul: operands on {x.device}, {A.device}, {B.device}")
     if x.dtype not in (torch.bfloat16, torch.float32) or not (x.dtype == A.dtype == B.dtype):
@@ -296,4 +299,4 @@ def lowrank_matmul(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, prefill
     KERNEL.launch(entry, x.device, x.data_ptr(), A.data_ptr(), B.data_ptr(), t.data_ptr(), y.data_ptr(),
                   M, K, r, N, row_stride(x, "lowrank_matmul x"), row_stride(A, "lowrank_matmul A"), t.stride(0),
                   row_stride(B, "lowrank_matmul B"), y.stride(0), *p1, *p2)
-    return y
+    return (y, t) if return_xa else y

@@ -55,15 +55,17 @@ def live_flag_bytes(L: int, M: int, K: int) -> int:
     return L * -(-M // GRANULE) * -(-K // LIVE_COLS)
 
 
-def lowrank_matmul_batched(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def lowrank_matmul_batched(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor, *, return_xa: bool = False):
     """x: (L, M, K); A: (L, K, r); B: (L, r, N) -> (L, M, N) in x's dtype.
 
     bf16 on the card: rows of x in a 64-row granule that is all zero come out
     as zero rows of y without being computed (exact for finite factors; see
-    the module docstring)."""
+    the module docstring).  ``return_xa`` (the training forward) also returns
+    the rounded (L, M, r) ``x[l] @ A[l]``; its scratch is zeroed first, so a
+    skipped granule's rows read as the zeros they are."""
     devs = {x.device.type, A.device.type, B.device.type}
     if devs == {"cpu"}:
-        return ref.lowrank_matmul_ref(x, A, B)
+        return ref.lowrank_matmul_ref(x, A, B, return_xa=return_xa)
     if devs != {"cuda"} or not (x.device == A.device == B.device):
         raise ValueError(f"lowrank_matmul_batched: operands on {x.device}, {A.device}, {B.device}")
     if x.dtype not in (torch.bfloat16, torch.float32) or not (x.dtype == A.dtype == B.dtype):
@@ -85,14 +87,16 @@ def lowrank_matmul_batched(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) ->
     lda, sa = stack_strides(A, "lowrank_matmul_batched A")
     ldb, sb = stack_strides(B, "lowrank_matmul_batched B")
     t = padded_stack(L, M, r, x.dtype, x.device)  # scratch for the rounded x[l] @ A[l]
+    if return_xa:
+        t.zero_()
     y = padded_stack(L, M, N, x.dtype, x.device)
     strides = (ldx, lda, t.stride(1), ldb, y.stride(1), sx, sa, t.stride(0), sb, y.stride(0))
     if not bf16:
         KERNEL.launch("lowrank_matmul_batched_f32", x.device, x.data_ptr(), A.data_ptr(), B.data_ptr(),
                       t.data_ptr(), y.data_ptr(), L, M, K, r, N, *strides)
-        return y
+        return (y, t) if return_xa else y
     p1, p2 = batched_plans(L, M, K, r, N, sm_count(x.device.index or 0))
     flags = torch.empty((max(1, live_flag_bytes(L, M, K)),), dtype=torch.uint8, device=x.device)
     KERNEL.launch("lowrank_matmul_batched_bf16", x.device, x.data_ptr(), A.data_ptr(), B.data_ptr(),
                   t.data_ptr(), y.data_ptr(), flags.data_ptr(), L, M, K, r, N, *strides, *p1, *p2)
-    return y
+    return (y, t) if return_xa else y

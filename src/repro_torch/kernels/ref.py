@@ -29,6 +29,10 @@ __all__ = [
     "paged_decode_attention_ref",
     "flash_attention_ref",
     "chunked_attention_ref",
+    "flash_fwd_ref",
+    "flash_bwd_ref",
+    "lowrank_matmul_bwd_ref",
+    "logits_bwd_ref",
     "ssd_xbar",
     "ssd_scan_ref",
     "ssd_chunk_len",
@@ -51,14 +55,16 @@ def sketch_matmul_ref(a, b, *, trans_a: bool = False, out_dtype: Optional[torch.
     return torch.matmul(a32, b.float()).to(out_dtype or a.dtype)
 
 
-def lowrank_matmul_ref(x, A, B):
+def lowrank_matmul_ref(x, A, B, *, return_xa: bool = False):
     """y = (x @ A) @ B — compressed-linear serving oracle.
 
     2-D factors, or stacked ones: x (L, M, K), A (L, K, r), B (L, r, N) give
     y[l] = (x[l] @ A[l]) @ B[l] (``torch.matmul`` batches over L), the plain
-    version of both the 2-D and the batched kernel."""
+    version of both the 2-D and the batched kernel.  ``return_xa``: also the
+    rounded ``x @ A``."""
     t = torch.matmul(x.float(), A.float()).to(x.dtype)
-    return torch.matmul(t.float(), B.float()).to(x.dtype)
+    y = torch.matmul(t.float(), B.float()).to(x.dtype)
+    return (y, t) if return_xa else y
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid):
@@ -143,7 +149,8 @@ def attention_mask(sq: int, skv: int, *, causal: bool, window: Optional[int], q_
 Q_BLOCK = 1024  # query rows a block of the plain prefill attention
 
 
-def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
+def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+                          return_lse: bool = False):
     """Prefill attention with the numerics of ``_flash_fwd_pass`` in one chunk.
 
     q: (B, Sq, H, hd); k: (B, Skv, KV, hd); v: (B, Skv, KV, vd), GQA by head
@@ -156,21 +163,33 @@ def chunked_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int]
     independent, and a key no row of the block sees adds an exact zero), so
     the fp32 scores of a 16384-token prompt take a block's memory, not the
     whole (Sq, Skv) square's.
+
+    ``return_lse``: also each row's fp32 log-sum-exp m + log(max(l, 1e-30)),
+    (B, KV, G, Sq) as ``_flash_fwd_pass`` returns it (a key a block leaves
+    out adds exp(-1e30 - m) = 0 to l, so the blocks' lse is the whole row's).
     """
     Sq, Skv = q.shape[1], k.shape[1]
     if Sq <= Q_BLOCK:
-        return _attention_block(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return _attention_block(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=return_lse)
     outs = []
     for s0 in range(0, Sq, Q_BLOCK):
         s1 = min(Sq, s0 + Q_BLOCK)
         lo = 0 if window is None else max(0, q_offset + s0 - window + 1)
         hi = min(Skv, q_offset + s1) if causal else Skv
         outs.append(_attention_block(q[:, s0:s1], k[:, lo:hi], v[:, lo:hi], causal=causal, window=window,
-                                     q_offset=q_offset + s0 - lo))
+                                     q_offset=q_offset + s0 - lo, return_lse=return_lse))
+    if return_lse:
+        return torch.cat([o for o, _ in outs], dim=1), torch.cat([lse for _, lse in outs], dim=-1)
     return torch.cat(outs, dim=1)
 
 
-def _attention_block(q, k, v, *, causal: bool, window: Optional[int], q_offset: int):
+def flash_fwd_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
+    """(out, lse): the plain forward of the flash kernel's training call, the
+    twin of ``repro/models/attention.py::_flash_fwd_pass``."""
+    return chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=True)
+
+
+def _attention_block(q, k, v, *, causal: bool, window: Optional[int], q_offset: int, return_lse: bool = False):
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -182,8 +201,119 @@ def _attention_block(q, k, v, *, causal: bool, window: Optional[int], q_offset: 
     p = torch.exp(s - m)
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgqc,bckv->bkgqv", p.to(v.dtype).float(), v.float())
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if return_lse:
+        return out, m[..., 0] + torch.log(l_safe)
+    return out
+
+
+def _pick_chunk(s: int, target: int) -> int:
+    """``repro/models/attention.py::_pick_chunk``: min(target, s), halved until it divides s."""
+    c = min(target, s)
+    while s % c:
+        c //= 2
+    return max(c, 1)
+
+
+def flash_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, q_chunk: int = 2048, kv_chunk: int = 1024):
+    """(dq, dk, dv) of the flash forward: the twin of ``repro/models/attention.py::_flash_bwd``.
+
+    The probabilities are RECOMPUTED per (q, kv) chunk pair from the saved
+    fp32 ``lse`` (B, KV, G, Sq), never stored as an (Sq, Skv) stack:
+    p = exp(s - lse) from the scores of q scaled in fp32 and rounded to q's
+    dtype; dv += round_v(p)^T dout; dp = dout v^T; ds = p (dp - delta) with
+    delta = rowsum(dout * out) in fp32; dq += round_q(ds) k and
+    dk += round_q(ds)^T q_scaled.  Products take their operands as fp32
+    copies (fp32 accumulation, as the reference's
+    ``preferred_element_type=f32``); dq, dk and dv accumulate in fp32 and
+    are rounded once, dq after its ``* scale``.  The chunks follow the
+    reference's rule (``_pick_chunk`` of ``q_chunk`` / ``kv_chunk``); a chunk
+    pair the causal or window mask empties is skipped (its p is an exact 0).
+    GQA: the G query heads of a KV head sum into its dk / dv.  vd may differ
+    from hd (MLA's 192 / 128); the scale is hd**-0.5."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    G = H // KV
+    scale = hd**-0.5
+    cq, ckv = _pick_chunk(Sq, q_chunk), _pick_chunk(Skv, kv_chunk)
+    qs = (q.float() * scale).to(q.dtype).float().reshape(B, Sq, KV, G, hd)
+    do = dout.float().reshape(B, Sq, KV, G, vd)
+    delta = (do * out.float().reshape(B, Sq, KV, G, vd)).sum(dim=-1).permute(0, 2, 3, 1)  # (B, KV, G, Sq)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skv, KV, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Skv, KV, vd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, cq):
+        qsl = slice(q0, q0 + cq)
+        q_lo, q_hi = q_offset + q0, q_offset + q0 + cq - 1  # the chunk's first and last query positions
+        lse_c, delta_c = lse[..., qsl], delta[..., qsl]
+        dq_acc = torch.zeros((B, cq, KV, G, hd), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Skv, ckv):
+            if (causal and q_hi < k0) or (window is not None and q_lo - (k0 + ckv - 1) >= window):
+                continue  # no (q, k) pair of the two chunks is live
+            ksl = slice(k0, k0 + ckv)
+            s = torch.einsum("bqkgh,bckh->bkgqc", qs[:, qsl], kf[:, ksl])
+            mask = attention_mask(cq, ckv, causal=causal, window=window, q_offset=q_offset + q0 - k0,
+                                  device=q.device)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lse_c[..., None])  # (B, KV, G, cq, ckv)
+            dv[:, ksl] += torch.einsum("bkgqc,bqkgv->bckv", p.to(v.dtype).float(), do[:, qsl])
+            dp = torch.einsum("bqkgv,bckv->bkgqc", do[:, qsl], vf[:, ksl])
+            ds = (p * (dp - delta_c[..., None])).to(q.dtype).float()
+            dq_acc += torch.einsum("bkgqc,bckh->bqkgh", ds, kf[:, ksl])
+            dk[:, ksl] += torch.einsum("bkgqc,bqkgh->bckh", ds, qs[:, qsl])
+        dq[:, qsl] = dq_acc * scale
+    return dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def lowrank_matmul_bwd_ref(x, A, B, xa, dy):
+    """(dx, dA, dB) of y = (x @ A) @ B, given the forward's rounded ``xa``:
+    d(xa) = dy B^T, dB = xa^T dy, dA = x^T d(xa), dx = d(xa) A^T, each
+    product on fp32 copies and rounded to its primal's dtype (d(xa) to x's,
+    then read back as fp32), where the reference's autodiff of
+    ``kernels/ref.py::lowrank_matmul_ref`` rounds.  Stacked operands
+    (L, ...) batch over L."""
+    g = dy.float()
+    dxa = torch.matmul(g, B.float().transpose(-1, -2)).to(xa.dtype)
+    dB = torch.matmul(xa.float().transpose(-1, -2), g).to(B.dtype)
+    g2 = dxa.float()
+    dx = torch.matmul(g2, A.float().transpose(-1, -2)).to(x.dtype)
+    dA = torch.matmul(x.float().transpose(-1, -2), g2).to(A.dtype)
+    return dx, dA, dB
+
+
+LOGITS_BWD_ROWS = 16384  # vocab rows of the head upcast at a time in the logits backward
+
+
+def logits_bwd_ref(x2, table, dlogits, *, tied: bool):
+    """(dx, dtable) of the fp32 logits ``x2 @ table.T`` (tied, table (V, d))
+    or ``x2 @ table`` (untied head (d, V)): dx = dlogits table (or head^T)
+    and dtable = dlogits^T x2 (dhead = x2^T dlogits), fp32 products rounded
+    to x's and the table's dtypes, as the reference's transpose of its
+    ``preferred_element_type=f32`` matmul rounds.
+
+    The fp32 cotangent meets the bf16 table one block of
+    :data:`LOGITS_BWD_ROWS` vocab rows at a time: only that block is upcast
+    (128 MB fp32 at d 2048), never the whole table (1 GB at llama3.2-1b's
+    128256 x 2048), and dx sums the blocks' fp32 products in vocab order."""
+    d = x2.shape[-1]
+    V = table.shape[0] if tied else table.shape[1]
+    x32 = x2.float()
+    dx = torch.zeros((x2.shape[0], d), dtype=torch.float32, device=x2.device)
+    dtable = torch.empty_like(table)
+    for v0 in range(0, V, LOGITS_BWD_ROWS):
+        vs = slice(v0, min(V, v0 + LOGITS_BWD_ROWS))
+        g = dlogits[:, vs]
+        if tied:
+            dx += torch.matmul(g, table[vs].float())
+            dtable[vs] = torch.matmul(g.T, x32).to(table.dtype)
+        else:
+            dx += torch.matmul(g, table[:, vs].float().T)
+            dtable[:, vs] = torch.matmul(x32.T, g).to(table.dtype)
+    return dx.to(x2.dtype), dtable
 
 
 # --------------------------------------------------------------------------- #

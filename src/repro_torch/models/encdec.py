@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
-from repro_torch.models.lm import _dtype, _layer, _stack, _stacked_zeros
+from repro_torch.models.lm import _dtype, _layer, _stack, _stacked_zeros, remat_groups
 from repro_torch.runtime import dispatch
 
 __all__ = [
@@ -105,12 +105,17 @@ def encdec_encode(p, frames: torch.Tensor, cfg) -> torch.Tensor:
     dtype = _dtype(cfg)
     T, d = frames.shape[1], frames.shape[2]
     x = frames.to(dtype) + nn.sinusoidal_positions(T, d, frames.device).to(dtype)
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(p["enc_layers"], i)
-        h = nn.layernorm(lp["attn_norm"], x, cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["attn"], h, cfg, causal=False, rope=False)
-        h = nn.layernorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + _ffn(lp["mlp"], h)
+
+    def run(layers, x):
+        for i in layers:
+            lp = _layer(p["enc_layers"], i)
+            h = nn.layernorm(lp["attn_norm"], x, cfg.norm_eps)
+            x = x + attn.gqa_forward(lp["attn"], h, cfg, causal=False, rope=False)
+            h = nn.layernorm(lp["mlp_norm"], x, cfg.norm_eps)
+            x = x + _ffn(lp["mlp"], h)
+        return x, 0.0
+
+    x, _ = remat_groups(run, list(range(cfg.n_encoder_layers)), x, cfg)
     return nn.layernorm(p["enc_norm"], x, cfg.norm_eps)
 
 
@@ -142,8 +147,13 @@ def encdec_forward_features(p, batch, cfg):
     tokens = batch["tokens"]
     enc = encdec_encode(p, _frames(batch, tokens.device), cfg)
     x = _embed_prompt(p, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x = _dec_layer(_layer(p["dec_layers"], i), x, enc, cfg)[0]
+
+    def run(layers, x):
+        for i in layers:
+            x = _dec_layer(_layer(p["dec_layers"], i), x, enc, cfg)[0]
+        return x, 0.0
+
+    x, _ = remat_groups(run, list(range(cfg.n_layers)), x, cfg)
     return nn.layernorm(p["dec_norm"], x, cfg.norm_eps), 0.0
 
 

@@ -67,6 +67,8 @@ from repro_torch.runtime import dispatch
 __all__ = [
     "lm_init",
     "lm_forward",
+    "lm_forward_features",
+    "lm_head_apply",
     "lm_init_cache",
     "lm_init_cache_paged",
     "lm_prefill",
@@ -317,28 +319,67 @@ def _mamba_block(lp, x, cfg, *, return_cache: bool = False):
     return x + o, c
 
 
-def lm_forward(p, batch, cfg):
-    """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss): the
-    sum of the moe layers' load-balance losses (0.0 for any other family).
-    A vlm batch also holds ``image_embed`` (B, n_image_tokens, d)."""
+def remat_groups(run, entries: list, x, cfg):
+    """``run(entries, x) -> (x, aux)`` over the trunk's blocks.  In a training
+    forward (grad mode on, ``cfg.remat == "block"``) each group of
+    ``cfg.remat_group`` consecutive blocks runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept for
+    the backward, which re-runs the group, the memory schedule of the
+    reference's custom-VJP scan (``repro/models/lm.py::_scan_blocks``) with
+    the same numerics; each group sums its aux from zero, as there."""
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return run(entries, x)
+    from torch.utils.checkpoint import checkpoint
+
+    g = max(1, cfg.remat_group)
+    aux = 0.0
+    run = dispatch.bound_to_dispatch(run)  # the recomputation in the backward takes the forward's paths
+    for j in range(0, len(entries), g):
+        x, a = checkpoint(run, entries[j:j + g], x, use_reentrant=False)
+        aux = aux + a
+    return x, aux
+
+
+def lm_forward_features(p, batch, cfg):
+    """The trunk: batch['tokens'] (B, S) -> (final-norm hidden states (B, S,
+    d), aux_loss): the sum of the moe layers' load-balance losses (0.0 for
+    any other family).  A vlm batch also holds ``image_embed`` (B,
+    n_image_tokens, d).  The training step applies the head per sequence
+    chunk (``train/train_step.py::chunked_softmax_xent``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = nn.embed_lookup(p["embed"], tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    aux = 0.0
     mamba = _layer_kind(cfg) == "mamba"
     img = _image(batch, x) if cfg.family == "vlm" else None
-    for kind, i in _schedule(cfg):
-        if kind == "cross":
-            lp = _block(p, kind, i)
-            x = _cross_block(lp, x, attn.cross_attn_kv(lp["cross"], img, cfg), cfg)
-        elif kind == "layer" and mamba:
-            x, _ = _mamba_block(_layer(p["layers"], i), x, cfg)
-        else:
-            x, _, a = _self_block(_block(p, kind, i), x, cfg, positions)
-            aux = aux + a
-    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+
+    def run(entries, x):
+        aux = 0.0
+        for kind, i in entries:
+            if kind == "cross":
+                lp = _block(p, kind, i)
+                x = _cross_block(lp, x, attn.cross_attn_kv(lp["cross"], img, cfg), cfg)
+            elif kind == "layer" and mamba:
+                x, _ = _mamba_block(_layer(p["layers"], i), x, cfg)
+            else:
+                x, _, a = _self_block(_block(p, kind, i), x, cfg, positions)
+                aux = aux + a
+        return x, aux
+
+    x, aux = remat_groups(run, _schedule(cfg), x, cfg)
+    return nn.rmsnorm(p["final_norm"], x, cfg.norm_eps), aux
+
+
+def lm_head_apply(p, x, cfg) -> torch.Tensor:
+    """fp32 logits of hidden states x (..., d)."""
+    return _logits(p, x, cfg)
+
+
+def lm_forward(p, batch, cfg):
+    """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss)
+    (:func:`lm_forward_features`, then the head)."""
+    x, aux = lm_forward_features(p, batch, cfg)
     return _logits(p, x, cfg), aux
 
 

@@ -33,6 +33,10 @@ class ModelApi:
     device: torch.device
     init: Callable[[torch.Generator], Any]  # (generator) -> params
     forward: Callable[[Any, dict], tuple]  # (params, batch) -> (logits, aux)
+    # (params, batch) -> (final-norm hidden states (B, S, d), aux), then
+    # (params, x) -> fp32 logits: the chunked-loss training path's halves
+    forward_features: Callable[[Any, dict], tuple]
+    head_apply: Callable[[Any, torch.Tensor], torch.Tensor]
     init_cache: Callable[[int, int], Any]  # (batch, max_len) -> cache
     # (params, batch, max_len, *, last_index=None) -> (last logits, cache)
     prefill: Callable[..., tuple]
@@ -60,6 +64,8 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
             device=dev,
             init=lambda generator: ed_mod.encdec_init(generator, cfg, dev),
             forward=lambda p, b: ed_mod.encdec_forward(p, b, cfg),
+            forward_features=lambda p, b: ed_mod.encdec_forward_features(p, b, cfg),
+            head_apply=lambda p, x: ed_mod.encdec_head_apply(p, x, cfg),
             init_cache=lambda bs, ml: ed_mod.encdec_init_cache(cfg, bs, ml, dev),
             prefill=lambda p, b, ml, **kw: ed_mod.encdec_prefill(p, b, cfg, ml, **kw),
             decode_step=lambda p, c, t, pos: ed_mod.encdec_decode_step(p, c, t, pos, cfg),
@@ -75,6 +81,8 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
         device=dev,
         init=lambda generator: lm_mod.lm_init(generator, cfg, dev),
         forward=lambda p, b: lm_mod.lm_forward(p, b, cfg),
+        forward_features=lambda p, b: lm_mod.lm_forward_features(p, b, cfg),
+        head_apply=lambda p, x: lm_mod.lm_head_apply(p, x, cfg),
         init_cache=lambda bs, ml: lm_mod.lm_init_cache(cfg, bs, ml, dev),
         prefill=lambda p, b, ml, **kw: lm_mod.lm_prefill(p, b, cfg, ml, **kw),
         decode_step=lambda p, c, t, pos: lm_mod.lm_decode_step(p, c, t, pos, cfg),

@@ -75,7 +75,11 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype, device) ->
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    """Rows of ``table`` (a gather).  Through ``F.embedding``, whose backward
+    on the card sums each row's gradient in a fixed order, where the
+    backward of ``table[ids]`` accumulates with atomics: a training step
+    gives the same bits run after run."""
+    return torch.nn.functional.embedding(ids, table)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

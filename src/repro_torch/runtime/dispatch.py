@@ -25,6 +25,19 @@ invariant plan, so a row's bits do not depend on which rows share its call
     with use_dispatch(backend="reference"):
         logits, cache = model.prefill(params, batch, max_len)
 
+Gradients.  Under grad mode, an op whose operand requires grad runs through
+its ``torch.autograd.Function`` (:class:`LowrankFn`, :class:`FlashFn`,
+:class:`LogitsFn`, :class:`SsdScanFn`): on a CUDA tensor its forward is the
+hand-written kernel, on a CPU tensor the plain version, and its backward is
+the same plain-PyTorch code on both (``kernels/ref.py``'s twins of the
+reference's XLA backward passes; the reference has no Pallas backward), so
+the CPU tests run the backward the card runs.  Backend ``reference`` takes
+no Function: autograd runs through the plain version itself.  The kernels
+with no backward (the two decode kernels, the sketch GEMM outside the
+logits, and the absorbed MLA products, all off the training path) raise
+under grad (:func:`check_no_backward`) rather than return a tensor cut off
+from the graph or fall back to the plain version.
+
 PyTorch runs eagerly, so the hit counters count CALLS per (op, path, shape)
 — the reference's count traced call sites.  A call made while a CUDA graph
 is being captured (inside :func:`recording_capture`) is recorded for that
@@ -62,6 +75,7 @@ __all__ = [
     "DispatchConfig",
     "active_dispatch",
     "use_dispatch",
+    "bound_to_dispatch",
     "prefill_rows",
     "choose_lowrank_path",
     "lowrank_apply",
@@ -82,6 +96,11 @@ __all__ = [
     "format_counters",
     "recording_capture",
     "add_replays",
+    "check_no_backward",
+    "LowrankFn",
+    "FlashFn",
+    "LogitsFn",
+    "SsdScanFn",
 ]
 
 BACKENDS = ("auto", "reference")
@@ -133,6 +152,21 @@ def use_dispatch(config: Optional[DispatchConfig] = None, **kw):
         yield config
     finally:
         _state.dispatch = prev
+
+
+def bound_to_dispatch(fn):
+    """``fn`` run under the DispatchConfig active now, whichever thread calls
+    it later.  Activation checkpointing re-runs a forward inside the
+    backward, which autograd runs on its own thread for CUDA tensors, where
+    this thread's config is not installed: the recomputation must take the
+    forward's paths (its saved tensors are checked against them)."""
+    config = active_dispatch()
+
+    def run(*args, **kw):
+        with use_dispatch(config):
+            return fn(*args, **kw)
+
+    return run
 
 
 @contextlib.contextmanager
@@ -219,6 +253,114 @@ def _use_kernel(device: torch.device, config: DispatchConfig) -> bool:
     return config.backend == "auto" and device.type == "cuda"
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _via_function(config: DispatchConfig, *ts) -> bool:
+    """Whether an op with a backward runs through its autograd Function: under
+    ``auto``, with grad mode on and an operand that requires grad."""
+    return config.backend == "auto" and _needs_grad(*ts)
+
+
+def check_no_backward(op: str, *ts, device_type: str, config: Optional[DispatchConfig] = None) -> None:
+    """Raise where ``op``, which has no backward, would run its kernel on
+    ``device_type`` (``cuda`` under ``auto``) while grad mode is on and an
+    operand requires grad: the kernel's output would carry no gradient."""
+    config = config or active_dispatch()
+    if config.backend == "auto" and device_type == "cuda" and _needs_grad(*ts):
+        raise RuntimeError(f"{op}: its kernel has no backward, and an operand requires grad; "
+                           "run it under torch.no_grad() (it is off the training path)")
+
+
+# --------------------------------------------------------------------------- #
+# autograd Functions: the kernel (CUDA) or plain (CPU) forward, a plain backward
+# --------------------------------------------------------------------------- #
+class LowrankFn(torch.autograd.Function):
+    """y = (x @ A) @ B, 2-D or stacked (L, ...).  Saves x, A, B and the
+    forward's rounded ``x @ A``; the backward is
+    ``ref.lowrank_matmul_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, A, B, stacked: bool, prefill: bool):
+        if stacked:
+            y, xa = _lowrank_batched_kernel(x, A, B, return_xa=True)
+        else:
+            y, xa = _lowrank_kernel(x, A, B, prefill=prefill, return_xa=True)
+        ctx.save_for_backward(x, A, B, xa)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, xa = ctx.saved_tensors
+        return (*_ref.lowrank_matmul_bwd_ref(x, A, B, xa, dy), None, None)
+
+
+class FlashFn(torch.autograd.Function):
+    """Prefill attention.  The forward also writes each row's fp32 lse, which
+    the backward (``ref.flash_bwd_ref``, the twin of ``_flash_bwd``) reads to
+    recompute the probabilities chunk by chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], q_offset: int):
+        out, lse = _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = _ref.flash_bwd_ref(*ctx.saved_tensors, dout, causal=causal, window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+class LogitsFn(torch.autograd.Function):
+    """fp32 logits of rows x2 (M, d) against the tied table (V, d) or an
+    untied head (d, V) (:func:`logits_apply`'s forward); the backward is
+    ``ref.logits_bwd_ref``, which upcasts the bf16 table a block of vocab
+    rows at a time."""
+
+    @staticmethod
+    def forward(ctx, x2, table, tied: bool, kernel: bool):
+        ctx.save_for_backward(x2, table)
+        ctx.tied = tied
+        return _logits_forward(x2, table, tied, kernel)
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        x2, table = ctx.saved_tensors
+        return (*_ref.logits_bwd_ref(x2, table, dlogits, tied=ctx.tied), None, None)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """Mamba2's SSD scan; returns (y, final state).  The backward re-runs the
+    plain ``ref.ssd_scan_plain`` on the saved inputs under grad and
+    backpropagates through it.  On the card the forward is the kernel, whose
+    own 64-step chunk differs from the plain version's chunk rule in
+    summation order only, so the gradient is that of the same function,
+    summed in the plain version's order."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B_in, C_in, A, chunk: int, round_xbar: bool):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, B_in, C_in, A)
+        ctx.scan = (chunk, round_xbar)
+        return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        chunk, round_xbar = ctx.scan
+        ins = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = _ref.ssd_scan_plain(*ins, chunk=chunk, round_xbar=round_xbar)
+        pairs = [(o, g) for o, g in ((y, dy), (state, dstate)) if g is not None]
+        wanted = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True)
+                     if pairs and wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in ins), None, None)
+
+
 def _lowrank_dims(x_shape, a_shape, b_shape):
     """(n_stack_dims, L, M, K, r, N) for a possibly-stacked factored apply
     (``repro/runtime/dispatch.py::_lowrank_dims``): A (L..., K, r),
@@ -292,16 +434,21 @@ def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Te
     nl, L, M, K, r, N = _lowrank_dims(x.shape, A.shape, B.shape)
     _record("lowrank_matmul", path, (L, M, K, r, N))
     out_shape = x.shape[:-1] + (N,)
+    prefill = getattr(_state, "prefill", False)
     if nl:
         xc, Ac, Bc = x.reshape(L, M, K), A.reshape(L, K, r), B.reshape(L, r, N)
-        if path == PATH_FUSED_BATCHED:
+        if _via_function(config, xc, Ac, Bc):
+            y = LowrankFn.apply(xc, Ac, Bc, True, prefill)
+        elif path == PATH_FUSED_BATCHED:
             y = _lowrank_batched_kernel(xc, Ac, Bc)
         else:
             y = _ref.lowrank_matmul_ref(xc, Ac, Bc)
         return y.reshape(out_shape)
     x2 = x.reshape(M, K)
-    if path == PATH_FUSED:
-        y = _lowrank_kernel(x2, A, B, prefill=getattr(_state, "prefill", False))
+    if _via_function(config, x2, A, B):
+        y = LowrankFn.apply(x2, A, B, False, prefill)
+    elif path == PATH_FUSED:
+        y = _lowrank_kernel(x2, A, B, prefill=prefill)
     else:
         y = _ref.lowrank_matmul_ref(x2, A, B)
     return y.reshape(out_shape)
@@ -309,8 +456,10 @@ def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Te
 
 def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """op(a) @ b with fp32 accumulation — RSI's sketch GEMMs."""
+    """op(a) @ b with fp32 accumulation — RSI's sketch GEMMs (no backward:
+    RSI runs without grad)."""
     config = active_dispatch()
+    check_no_backward("sketch_matmul", a, b, device_type=a.device.type, config=config)
     if _use_kernel(a.device, config):
         _record("sketch_matmul", PATH_KERNEL, (tuple(a.shape), tuple(b.shape), trans_a))
         return _sketch_kernel(a, b, trans_a=trans_a, out_dtype=out_dtype)
@@ -338,14 +487,21 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
     sig = (x2.shape[0], d, V)
     kernel = _use_kernel(x.device, config)
     _record("logits", PATH_KERNEL if kernel else PATH_REFERENCE, sig)
+    if _via_function(config, x2, table):
+        out = LogitsFn.apply(x2, table, tied, kernel)
+    else:
+        out = _logits_forward(x2, table, tied, kernel)
+    return out.reshape(x.shape[:-1] + (V,))
+
+
+def _logits_forward(x2: torch.Tensor, table: torch.Tensor, tied: bool, kernel: bool) -> torch.Tensor:
+    """(M, V) fp32 logits of the rows x2 (M, d): the sketch kernel or its plain version."""
     gemm = _sketch_kernel if kernel else _ref.sketch_matmul_ref
     if tied:
-        out = gemm(table, aligned_rows(x2.T) if kernel else x2.T, out_dtype=torch.float32).T
-    elif kernel:
-        out = gemm(table, aligned_rows(x2.T), trans_a=True, out_dtype=torch.float32).T
-    else:
-        out = gemm(x2, table, out_dtype=torch.float32)
-    return out.reshape(x.shape[:-1] + (V,))
+        return gemm(table, aligned_rows(x2.T) if kernel else x2.T, out_dtype=torch.float32).T
+    if kernel:
+        return gemm(table, aligned_rows(x2.T), trans_a=True, out_dtype=torch.float32).T
+    return gemm(x2, table, out_dtype=torch.float32)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
@@ -353,6 +509,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     (B,Sq,H,vd), GQA by grouping; the scale is hd**-0.5 (MLA: vd != hd)."""
     config = active_dispatch()
     sig = (tuple(q.shape), k.shape[2], causal, window) + ((v.shape[-1],) if v.shape[-1] != q.shape[-1] else ())
+    if _via_function(config, q, k, v):
+        _record("flash_attention", PATH_KERNEL if _use_kernel(q.device, config) else PATH_REFERENCE, sig)
+        return FlashFn.apply(q, k, v, causal, window, q_offset)
     if _use_kernel(q.device, config):
         _record("flash_attention", PATH_KERNEL, sig)
         return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -374,7 +533,10 @@ def mla_product(eq: str, a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.d
     On the card a product whose operands and result share a 16-bit dtype is
     one bf16 batched GEMM (fp32 accumulation, rounded once); any other runs
     on fp32 copies of the operands.  Counted as ``(MLA_OP, "torch", ...)``,
-    so the "no linear outside the kernels" gate names these products."""
+    so the "no linear outside the kernels" gate names these products.  The
+    absorbed path serves decode and chunks only: on the card it raises under
+    grad (:func:`check_no_backward`)."""
+    check_no_backward(MLA_OP, a, b, device_type=a.device.type)
     _record(MLA_OP, "torch", (eq, tuple(a.shape), tuple(b.shape)))
     if a.device.type == "cuda" and a.dtype == b.dtype == out_dtype:
         return torch.einsum(eq, a, b)
@@ -390,6 +552,7 @@ def mla_materialize(w) -> torch.Tensor:
 
     if not lowrank.is_lowrank(w):
         return w
+    check_no_backward(MLA_OP, w["a"], w["b"], device_type=w["a"].device.type)
     _record(MLA_OP, "torch", ("materialize", tuple(w["a"].shape), tuple(w["b"].shape)))
     return lowrank.materialize(w)
 
@@ -401,6 +564,7 @@ def decode_attention(q, k_cache, v_cache, valid):
     valid: (B, S) bool strict per-slot mask.  Fully-masked rows give zeros.
     """
     config = active_dispatch()
+    check_no_backward("decode_attention", q, k_cache, v_cache, device_type=q.device.type, config=config)
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     sig = (B, S, KV, H // KV, hd)
@@ -429,6 +593,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
     every slot; block_table: (B, n_tbl) int32 page ids; n_valid: (B,) int32
     valid logical positions.  Fully-masked rows give zeros on both paths.
     """
+    check_no_backward("paged_decode_attention", q, k_pool, v_pool, device_type=q.device.type)
     path = choose_paged_decode_path(device_type=q.device.type)
     B, _, H, hd = q.shape
     P, page, KV = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
@@ -455,6 +620,9 @@ def ssd_scan(x, dt, B_in, C_in, A, *, chunk: int, round_xbar: bool):
     config = active_dispatch()
     Bsz, L, nh, hd = x.shape
     sig = (Bsz, L, nh, hd, B_in.shape[-1])
+    if _via_function(config, x, dt, B_in, C_in, A):
+        _record("ssd_scan", PATH_KERNEL if _use_kernel(x.device, config) else PATH_REFERENCE, sig)
+        return SsdScanFn.apply(x, dt, B_in, C_in, A, chunk, round_xbar)
     if _use_kernel(x.device, config):
         _record("ssd_scan", PATH_KERNEL, sig)
         return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)

@@ -7,9 +7,9 @@ capped-exponential backoff and deterministic jitter), :class:`ReplicaKilled`,
 and :class:`FaultInjector` with its engine-level fault classes
 (``nan_logits``, ``deny_pages``, ``slow_steps``) and its replica-level ones
 (``kill_replica``, ``hang_replica``, ``slow_replica``), which the serving
-cluster (:mod:`repro_torch.serving.cluster`) applies.  The training
-runner and the elastic re-shard belong to the training and sharding layers,
-which the port does not have yet.
+cluster (:mod:`repro_torch.serving.cluster`) applies, and
+:class:`TrainLoopRunner`, the checkpoint-restart training loop.  The elastic
+re-shard belongs to the sharding layer, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["StepWatchdog", "RetryableStep", "FaultInjector", "ReplicaKilled", "backoff_s"]
+__all__ = ["StepWatchdog", "RetryableStep", "FaultInjector", "ReplicaKilled", "backoff_s", "TrainLoopRunner"]
 
 
 def backoff_s(attempt: int, *, base_s: float, cap_s: float, salt: int = 0) -> float:
@@ -220,3 +221,59 @@ class FaultInjector:
                 self._hit("nan_logits")
                 return s, rel
         return -1, -1
+
+
+def _wait_for(x) -> None:
+    """Block until a device value is computed (the reference's
+    ``jax.block_until_ready``): a CUDA tensor's stream is synchronized."""
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()
+
+
+@dataclasses.dataclass
+class TrainLoopRunner:
+    """Checkpoint-restart training loop (the ``launch/train.py`` core).
+
+    Failure contract: any exception from the step escapes (a
+    :class:`RetryableStep` wrapper absorbs the transient ones first); the
+    caller restores the latest checkpoint and re-enters with ``start_step``.
+    The data is a pure function of the step, so the retrained batches are
+    identical.  Each step's time, up to its loss being computed on the
+    device, feeds the watchdog.
+    """
+
+    step_fn: Callable  # (state, batch) -> (state, metrics)
+    data_at_step: Callable  # step -> host batch
+    checkpointer: object
+    save_every: int = 50
+    watchdog: StepWatchdog = dataclasses.field(default_factory=StepWatchdog)
+
+    def run(
+        self,
+        state,
+        n_steps: int,
+        *,
+        shard_fn: Callable = lambda b: b,
+        start_step: int = 0,
+        on_metrics: Optional[Callable] = None,
+        fail_at: Optional[Callable] = None,  # test hook: step -> bool
+    ):
+        step = start_step
+        metrics = None
+        while step < n_steps:
+            t0 = time.monotonic()
+            if fail_at is not None and fail_at(step):
+                raise RuntimeError(f"injected failure at step {step}")
+            batch = shard_fn(self.data_at_step(step))
+            state, metrics = self.step_fn(state, batch)
+            _wait_for(metrics["loss"])
+            self.watchdog.observe(step, time.monotonic() - t0)
+            step += 1
+            if on_metrics:
+                on_metrics(step, metrics)
+            if self.checkpointer is not None and step % self.save_every == 0:
+                self.checkpointer.save_async(state, step)
+        if self.checkpointer is not None:
+            self.checkpointer.save_async(state, step)
+            self.checkpointer.wait()
+        return state, metrics

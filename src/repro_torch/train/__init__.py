@@ -1,1 +1,6 @@
-"""Serving steps (training is not yet ported)."""
+"""Training and serving steps: the optimizers (``optimizer``), the train step
+with its chunked cross-entropy (``train_step``) and the greedy serving step
+(``serve_step``).  The checkpoint-restart loop is
+``runtime/fault_tolerance.py::TrainLoopRunner``, driven by
+``launch/train.py``; the reference's pipeline-parallel step waits for the
+multi-device layer."""

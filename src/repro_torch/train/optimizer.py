@@ -76,7 +76,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def apply_updates(params, updates):
-    return _map(lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
+    """New params ``(p + u)`` in p's dtype.  Each result keeps its leaf's
+    storage layout (``torch.empty_strided`` of p's strides): a factor leaf
+    stored with its rows padded to 8 elements (``core.lowrank.lowrank_params``)
+    stays so, and the kernels go on reading it in place, with no counted
+    copy (``kernels/_build.py::ALIGN_COPIES``) on the next forward."""
+
+    def upd(p, u):
+        out = torch.empty_strided(p.shape, p.stride(), dtype=p.dtype, device=p.device)
+        return out.copy_(p.float() + u.float())
+
+    return _map(upd, params, updates)
 
 
 # --------------------------------------------------------------------------- #

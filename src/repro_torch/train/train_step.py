@@ -1,0 +1,195 @@
+"""Train-step builders: loss, gradients, optimizer apply.
+
+The port's counterpart of ``repro/train/train_step.py``.  The returned step
+function has the signature ``train_step(state, batch) -> (state, metrics)``
+and leaves its input state untouched.  Features, as the reference's:
+
+  * cross-entropy over the PADDED vocab with the padding columns masked,
+    optional z-loss, the head applied per sequence chunk
+    (:func:`chunked_softmax_xent`) so that the full fp32 logits never exist;
+  * the MoE auxiliary load-balance loss folded in at ``aux_weight``;
+  * global-norm gradient clipping;
+  * gradient accumulation over ``accum_steps`` microbatches, summed in fp32
+    in microbatch order.
+
+Gradients come from torch autograd: every hand-written kernel a training
+forward reaches runs through its ``torch.autograd.Function``
+(``runtime/dispatch.py``), so the factor leaves of an RSI-compressed model
+and everything upstream of an attention call get their gradients on the
+card as on the CPU.  The forward and the optimizer run under the profiler
+ranges ``train_step.forward`` and ``train_step.optimizer`` (the backward
+shows as autograd's own ranges).  The reference's ``state_specs`` (the
+sharding of a TrainState) waits for the port's multi-device layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.runtime import dispatch
+from repro_torch.train import optimizer as opt_mod
+
+__all__ = ["TrainState", "make_train_step", "loss_and_grads", "softmax_xent", "chunked_softmax_xent",
+           "init_train_state", "tree_paths", "tree_from_paths"]
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class TrainState:
+    """params and opt_state are nested dicts of tensors; step is a 0-d int32
+    tensor kept on the host (the schedules read it without a device sync)."""
+
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+
+def _mask_padded(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:
+    Vp = logits.shape[-1]
+    if real_vocab >= Vp:
+        return logits
+    pad = torch.arange(Vp, device=logits.device) >= real_vocab
+    return torch.where(pad, torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device), logits)
+
+
+def _lse_gold(logits: torch.Tensor, targets: torch.Tensor, real_vocab: int):
+    logits = _mask_padded(logits, real_vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse, gold
+
+
+def softmax_xent(logits, targets, *, real_vocab: int, z_loss: float = 1e-4):
+    """logits fp32 (..., Vp); targets int (...).  Padded vocab masked."""
+    lse, gold = _lse_gold(logits, targets, real_vocab)
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+def chunked_softmax_xent(feats, targets, head_apply, *, real_vocab: int, z_loss: float = 1e-4,
+                         n_chunks: int = 16):
+    """The head and the cross-entropy fused over sequence chunks.
+
+    feats (B, S, d); ``head_apply(x) -> fp32 logits``.  ``n_chunks`` is halved
+    until it divides S (to 1: the plain :func:`softmax_xent`).  Each chunk's
+    head runs under ``torch.utils.checkpoint``, so only one chunk's (B, S/n,
+    Vp) fp32 logits are alive and the backward recomputes them: one extra
+    head product a chunk for ~n x less peak memory (the full logits of
+    llama3.2-1b at batch 8 x 256 are 1 GiB).  The sums over chunks run in
+    chunk order, as the reference's scan carry."""
+    B, S, d = feats.shape
+    while S % n_chunks:
+        n_chunks //= 2
+    if n_chunks <= 1:
+        return softmax_xent(head_apply(feats), targets, real_vocab=real_vocab, z_loss=z_loss)
+    xf = feats.reshape(B, n_chunks, S // n_chunks, d).transpose(0, 1)
+    tf = targets.reshape(B, n_chunks, S // n_chunks).transpose(0, 1)
+
+    def body(x_c, t_c):
+        lse, gold = _lse_gold(head_apply(x_c), t_c, real_vocab)
+        return torch.sum(lse - gold), torch.sum(torch.square(lse))
+
+    body = dispatch.bound_to_dispatch(body)  # the recomputation in the backward takes the forward's paths
+    sl = sz = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(n_chunks):
+        if torch.is_grad_enabled():
+            a, b = checkpoint(body, xf[i], tf[i], use_reentrant=False)
+        else:
+            a, b = body(xf[i], tf[i])
+        sl, sz = sl + a, sz + b
+    n_tok = B * S
+    loss = sl / n_tok
+    if z_loss:
+        loss = loss + z_loss * sz / n_tok
+    return loss
+
+
+def init_train_state(model, optimizer: opt_mod.Optimizer, generator: torch.Generator) -> TrainState:
+    params = model.init(generator)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=torch.zeros((), dtype=torch.int32))
+
+
+def tree_paths(tree, prefix=""):
+    """(path, leaf) of every leaf of a nested dict, paths "a/b/c"."""
+    if isinstance(tree, Mapping):
+        for k in tree:
+            yield from tree_paths(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def tree_from_paths(paths_values) -> dict:
+    """The nested dict of (path, leaf) pairs (:func:`tree_paths`' inverse)."""
+    tree: dict = {}
+    for path, v in paths_values:
+        node = tree
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return tree
+
+
+def loss_and_grads(model, params, batch, *, aux_weight: float = 0.01, z_loss: float = 1e-4):
+    """(grads, loss, aux) of one (micro)batch: the loss is the chunked
+    cross-entropy of ``model.forward_features`` under ``model.head_apply``
+    plus ``aux_weight`` x the aux loss, and every floating leaf of params
+    gets its gradient (zeros where the loss does not reach it), in the
+    leaf's dtype.  ``loss`` and ``aux`` come back as 0-d fp32 tensors."""
+    paths, leaves = zip(*tree_paths(params))
+    live = [t.detach().requires_grad_(t.is_floating_point()) for t in leaves]
+    tree = tree_from_paths(zip(paths, live))
+    with torch.enable_grad(), record_function("train_step.forward"):
+        feats, aux = model.forward_features(tree, batch)
+        loss = chunked_softmax_xent(feats, batch["targets"], lambda x: model.head_apply(tree, x),
+                                    real_vocab=model.cfg.vocab, z_loss=z_loss)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        total = loss + aux_weight * aux
+    wrt = [t for t in live if t.requires_grad]
+    got = iter(torch.autograd.grad(total, wrt, allow_unused=True))
+    grads = [(next(got) if t.requires_grad else None) for t in live]
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+    return tree_from_paths(zip(paths, grads)), loss.detach(), aux.detach()
+
+
+def make_train_step(model, optimizer: opt_mod.Optimizer, *, accum_steps: int = 1, max_grad_norm: float = 1.0,
+                    aux_weight: float = 0.01, z_loss: float = 1e-4):
+    """The step of ``model`` (a ``models.model.ModelApi``) under ``optimizer``.
+    Metrics: ``loss`` (the cross-entropy, z-loss included), ``aux_loss`` and
+    ``grad_norm`` (before clipping), as 0-d fp32 tensors."""
+
+    def grads_of(params, batch):
+        return loss_and_grads(model, params, batch, aux_weight=aux_weight, z_loss=z_loss)
+
+    def compute_grads(params, batch):
+        if accum_steps == 1:
+            return grads_of(params, batch)
+        # microbatches: the batch dim must divide accum_steps
+        micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        acc = opt_mod._map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        lsum = asum = 0.0
+        for i in range(accum_steps):
+            grads, loss, aux = grads_of(params, {k: v[i] for k, v in micro.items()})
+            acc = opt_mod._map(lambda a, g: a + g.float(), acc, grads)
+            lsum, asum = lsum + loss, asum + aux
+        return opt_mod._map(lambda a: a / accum_steps, acc), lsum / accum_steps, asum / accum_steps
+
+    def train_step(state: TrainState, batch):
+        grads, loss, aux = compute_grads(state.params, batch)
+        with torch.no_grad(), record_function("train_step.optimizer"):
+            grads, gnorm = opt_mod.clip_by_global_norm(grads, max_grad_norm)
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params, state.step)
+            params = opt_mod.apply_updates(state.params, updates)
+        new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
+        return new_state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm}
+
+    return train_step

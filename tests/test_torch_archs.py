@@ -34,6 +34,7 @@ from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core import lowrank  # noqa: E402
 from repro_torch.models.model import analytic_param_count, build_model  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 jcompress = importlib.import_module("repro.core.compress")
 compress = importlib.import_module("repro_torch.core.compress")
@@ -87,15 +88,30 @@ def _tol(dtype, want):
 
 def test_configs_are_the_reference_configs():
     """CONFIG and REDUCED field for field, over the fields the port's config
-    has (qwen2's optimizer and accum_steps are training knobs it lacks)."""
+    has (qwen2's optimizer and accum_steps among them)."""
     for arch in ARCHS:
         for reduced in (False, True):
             want = dataclasses.asdict(j_get_arch(arch, reduced=reduced))
             got = dataclasses.asdict(get_arch(arch, reduced=reduced))
             assert got == {k: want[k] for k in got}
     assert (j_get_arch("qwen2-72b").optimizer, j_get_arch("qwen2-72b").accum_steps) == ("adafactor", 4)
+    assert (get_arch("qwen2-72b").optimizer, get_arch("qwen2-72b").accum_steps) == ("adafactor", 4)
     assert get_arch("minitron-4b").n_heads // get_arch("minitron-4b").n_kv_heads == 3
     assert get_arch("qwen2-72b").qkv_bias and not get_arch("minitron-4b").qkv_bias
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+def test_every_arch_has_the_reference_training_fields(reduced):
+    """remat, remat_group, optimizer and accum_steps of all ten archs equal the
+    reference's (adafactor with 4 and 8 microbatches for qwen2-72b and
+    deepseek-v2-236b, the defaults elsewhere)."""
+    from repro_torch.configs.registry import ARCH_IDS
+
+    fields = ("remat", "remat_group", "optimizer", "accum_steps")
+    for arch in ARCH_IDS:
+        want, got = j_get_arch(arch, reduced=reduced), get_arch(arch, reduced=reduced)
+        assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields], arch
+    assert get_arch("deepseek-v2-236b").optimizer == "adafactor" and get_arch("deepseek-v2-236b").accum_steps == 8
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -54,6 +54,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import fault_tolerance as tft  # noqa: E402
 from repro_torch.serving import (Cluster, Engine, EventLog, FailoverBudget, FaultInjector, Request,  # noqa: E402
                                  RoutingPolicy, StepWatchdog)
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 MAX_LEN = 32
 ENG_KW = dict(n_slots=2, max_len=MAX_LEN, page_size=4, prefill_chunk=4, decode_block=2, share_prefix=True)

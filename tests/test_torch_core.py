@@ -26,6 +26,7 @@ import torch  # noqa: E402
 from repro.configs.llama3_2_1b import REDUCED as J_REDUCED  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 jcore = importlib.import_module("repro.core")
 jbounds, jcompress, jrsi, jspectral = (importlib.import_module(f"repro.core.{m}")

@@ -35,6 +35,7 @@ from repro_torch.serving import Engine, Request, SamplingParams  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
 from repro_torch.serving.sampling import sample_tokens, token_salts  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 MAX_LEN = 16
 STEPS = (5, 6)

@@ -1,4 +1,4 @@
-"""The port's ``kernels/ops.py`` and its twins of the two serving examples.
+"""The port's ``kernels/ops.py`` and its twins of the serving and training examples.
 
 ``repro_torch.kernels.ops``: each function against ``repro.kernels.ops`` on
 the same seeded numpy inputs.  The JAX side runs as its own tests run it on
@@ -15,7 +15,9 @@ The examples: ``experiments.compress_and_serve`` and
 ``experiments.continuous_serving`` through ``main([..., "--device", "cpu"])``
 at small sizes, their printed lines in the reference scripts' formats, and
 ``continuous_serving``'s own greedy-parity assertion, plain and with
-``--sessions``.
+``--sessions``.  The training examples, ``experiments.train_lowrank_lm`` and
+``experiments.rsi_plus_lora``, cut to a few steps, with their own
+assertions (the final loss under 7.0; the adapters learn).
 """
 
 import re
@@ -29,9 +31,10 @@ import torch  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.runtime.dispatch import use_dispatch as j_use_dispatch  # noqa: E402
-from repro_torch.experiments import compress_and_serve, continuous_serving  # noqa: E402
+from repro_torch.experiments import compress_and_serve, continuous_serving, rsi_plus_lora, train_lowrank_lm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.runtime import dispatch  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -176,3 +179,34 @@ def test_continuous_serving_twin(argv, capsys):
         assert all(t.prefill_skipped >= 16 for t in out["turns"][1:])
     else:
         assert "[paged]" not in text and out["turns"] == []
+
+
+# --------------------------------------------------------------------------- #
+# the training examples
+# --------------------------------------------------------------------------- #
+def test_train_lowrank_lm_twin(capsys):
+    """Reduced mamba2-130m compressed at alpha 0.5 and trained 10 steps through
+    the launcher; the example's own assertion (final loss under 7.0) runs
+    inside ``main``, and the factor leaves moved."""
+    state, metrics = train_lowrank_lm.main(["--steps", "10", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert re.search(r"^\[compress\] compressed \d+/\d+ tensors", text, re.M)
+    assert re.search(r"^step    10  loss [\d.]+  aux 0\.0000  gnorm [\d.]+", text, re.M)
+    assert "low-rank training OK" in text and float(metrics["loss"]) < 7.0 and int(state.step) == 10
+    factored = [v for v in state.params["layers"]["mamba"].values() if isinstance(v, dict) and "a" in v]
+    assert factored and all(torch.isfinite(f["a"]).all() for f in factored)
+
+
+def test_rsi_plus_lora_twin(capsys):
+    """Adapters on the frozen RSI factors of reduced llama3.2-1b: the example's
+    own assertion (the adapters learn) runs inside ``main``; only the
+    adapters moved, and lora_merge stacks the ranks."""
+    cfg_params, losses = rsi_plus_lora.main(["--steps", "20", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert re.search(r"^backbone: compressed \d+/\d+ tensors", text, re.M)
+    assert re.search(r"^trainable adapter params: [\d,]+ / [\d,]+ \([\d.]+%\)$", text, re.M)
+    assert "RSI + LoRA OK" in text and len(losses) == 20
+    wq = cfg_params["layers"]["attn"]["wq"]
+    assert float(wq["lora_b"].abs().max()) > 0  # zero at first: it learned
+    merged = rsi_plus_lora.lora_merge(cfg_params)["layers"]["attn"]["wq"]
+    assert set(merged) == {"a", "b"} and merged["a"].shape[-1] == wq["a"].shape[-1] + rsi_plus_lora.LORA_RANK

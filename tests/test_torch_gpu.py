@@ -1251,3 +1251,119 @@ def test_gpu_engine_shared_prefix_equals_unshared(cuda, graph):
             assert turn2.prefill_skipped > prompts[0].size
         assert eng.pages_in_use == 0
     assert out[True] == out[False]
+
+
+# --------------------------------------------------------------------------- #
+# training: the autograd Functions (kernel forward, plain backward) and the restart
+# --------------------------------------------------------------------------- #
+def _grad_pair(fn, inputs):
+    """(outputs, input grads) of ``fn`` through the Functions (backend auto) and
+    through the plain versions (backend reference), one shared cotangent."""
+    from repro_torch.runtime.dispatch import use_dispatch
+
+    res = []
+    cot = None
+    for backend in ("auto", "reference"):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        with use_dispatch(backend=backend):
+            out = fn(*leaves)
+        out = list(out) if isinstance(out, tuple) else [out]
+        cot = cot or [torch.randn(o.shape, device=o.device, generator=torch.Generator(device=o.device).manual_seed(7),
+                                  dtype=torch.float32).to(o.dtype) for o in out]
+        res.append((out, torch.autograd.grad(out, leaves, cot)))
+    return res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["lowrank", "lowrank_batched", "flash", "flash_window", "logits_tied", "ssd"])
+def test_gpu_train_function_grads_match_plain(cuda, op, dtype):
+    """Each training Function on the card against autograd through its plain
+    version: outputs and gradients within the attention tolerance (bf16: the
+    twins round d(xA) and ds to bf16 where plain autograd keeps fp32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.lowrank import lowrank_params
+    from repro_torch.runtime import dispatch
+
+    dt = DTYPES[dtype]
+    if op in ("lowrank", "lowrank_batched"):
+        lead = (4,) if op == "lowrank_batched" else ()
+        f = lowrank_params(_rand(lead + (256, 37), 1, dtype, cuda), _rand(lead + (37, 192), 2, dtype, cuda))
+        args, fn = (_rand(lead + (96, 256), 0, dtype, cuda), f["a"], f["b"]), dispatch.lowrank_apply
+    elif op.startswith("flash"):
+        window = 24 if op == "flash_window" else None
+        args = (_rand((2, 64, 8, 64), 3, dtype, cuda), _rand((2, 64, 2, 64), 4, dtype, cuda),
+                _rand((2, 64, 2, 64), 5, dtype, cuda))
+        fn = lambda q, k, v: dispatch.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+    elif op == "logits_tied":
+        args, fn = (_rand((32, 256), 6, dtype, cuda), _rand((1000, 256), 7, dtype, cuda)), dispatch.logits_apply
+    else:
+        args = (_rand((2, 40, 4, 32), 8, dtype, cuda), _rand((2, 40, 4), 9, "float32", cuda),
+                _rand((2, 40, 16), 10, dtype, cuda), _rand((2, 40, 16), 11, dtype, cuda),
+                torch.log(torch.linspace(1.0, 8.0, 4, device=cuda)))
+        fn = lambda x, d, b, c, a: dispatch.ssd_scan(x, F.softplus(d), b, c, -torch.exp(a), chunk=16,  # noqa: E731
+                                                     round_xbar=True)
+    (got, g_got), (want, g_want) = _grad_pair(fn, args)
+    for a, b in zip(got + list(g_got), want + list(g_want)):
+        _close(a, b, ATTN_TOL[dtype])
+        assert a.dtype == b.dtype and bool(torch.isfinite(a.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention_lse_leaves_out_unchanged(cuda, dtype):
+    """The lse output is the plain forward's, and requesting it leaves the
+    output's bits as they were."""
+    q, k, v = (_rand((2, 96, 8, 64), 12, dtype, cuda), _rand((2, 96, 2, 64), 13, dtype, cuda),
+               _rand((2, 96, 2, 64), 14, dtype, cuda))
+    out, lse = flash_attention(q, k, v, causal=True, window=40, return_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, causal=True, window=40))
+    _, want = ref.flash_fwd_ref(q, k, v, causal=True, window=40)
+    _close(lse, want, 1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_train_restart_is_bitwise(cuda, tmp_path):
+    """Reduced llama3.2-1b in bf16, compressed: a run failed at step 3 and
+    resumed from the step-2 checkpoint ends on the bits of an uninterrupted
+    four-step run (the embedding's backward sums in a fixed order)."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault_tolerance import TrainLoopRunner
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = get_arch("llama3.2-1b", reduced=True)
+    model = build_model(cfg, device=cuda)
+    g = lambda s: torch.Generator(device=cuda).manual_seed(s)  # noqa: E731
+    params, _ = compress_tree(model.init(g(0)), CompressionPolicy(alpha=0.5, q=2, min_dim=32), generator=g(1))
+    opt = opt_mod.adamw(opt_mod.constant_schedule(1e-4))
+    step = make_train_step(model, opt)
+    data = SyntheticLM(cfg, batch=4, seq=32, seed=0)
+    to_dev = lambda b: {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}  # noqa: E731
+
+    def fresh():
+        return TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32))
+
+    want, _ = TrainLoopRunner(step, data.at_step, None).run(fresh(), 4, shard_fn=to_dev)
+    c = ckpt.Checkpointer(str(tmp_path), codec="raw")
+    with pytest.raises(RuntimeError, match="injected"):
+        TrainLoopRunner(step, data.at_step, c, save_every=2).run(fresh(), 4, shard_fn=to_dev, fail_at=lambda s: s == 3)
+    c.wait()
+    restored, _ = ckpt.restore(fresh(), str(tmp_path))
+    got, _ = TrainLoopRunner(step, data.at_step, None).run(restored, 4, shard_fn=to_dev, start_step=2)
+    for (pa, a), (_, b) in zip(sorted(_flat(want.params)), sorted(_flat(got.params))):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b), pa
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree

@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.lowrank_matmul import lowrank_matmul  # noqa: E402
 from repro_torch.kernels.sketch_matmul import sketch_matmul  # noqa: E402
 from repro_torch.runtime import dispatch  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -138,6 +139,29 @@ def test_flash_attention_matches_reference_prefill(S, KV, G, window, q_offset, d
     got = flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset)
     want = chunked_attention(jq, jk, jv, causal=True, window=window, q_offset=q_offset)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,KV,G,window,q_offset", [(64, 2, 4, None, 0), (24, 2, 1, 8, 8)])
+def test_flash_attention_lse_matches_reference_forward(S, KV, G, window, q_offset, dtype):
+    """``return_lse``: the wrapper's row log-sum-exp (the training forward's,
+    which the backward reads) is the lse of the reference's
+    ``_flash_fwd_pass`` in its (B, KV, G, Sq) layout, and the output is the
+    same bits as without it.  lse is fp32 on both sides: rtol 1e-5 in fp32,
+    and in bf16 (whose scores come from bf16 q and k) 3e-2 of its scale."""
+    from repro.models.attention import _flash_fwd_pass
+
+    B, hd = 2, 16
+    jq, tq = _pair(_np((B, S, KV * G, hd), 33), dtype)
+    jk, tk = _pair(_np((B, S + q_offset, KV, hd), 34), dtype)
+    jv, tv = _pair(_np((B, S + q_offset, KV, hd), 35), dtype)
+    out, lse = flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset, return_lse=True)
+    assert torch.equal(out, flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset))
+    want_out, want_lse = _flash_fwd_pass(jq, jk, jv, True, window, 2048, 1024, q_offset)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, KV, G, S)
+    _close(out, want_out, dtype)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=0, atol=3e-2 * float(np.abs(want_lse).max()))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

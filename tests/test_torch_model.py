@@ -36,6 +36,7 @@ from repro_torch.core import lowrank  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.models.model import LMModule, analytic_param_count, build_model  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 B, S, GEN = 2, 12, 6
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")

@@ -48,6 +48,7 @@ from repro_torch.models.model import analytic_param_count, build_model  # noqa: 
 from repro_torch.runtime import dispatch  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 # both core packages re-export a function named `rsi`, which shadows the submodule
 jcompress, jrsi, jspectral = (importlib.import_module(f"repro.core.{m}") for m in ("compress", "rsi", "spectral"))

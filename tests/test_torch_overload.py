@@ -45,6 +45,7 @@ from repro_torch.runtime.fault_tolerance import FaultInjector, StepWatchdog  # n
 from repro_torch.serving import AdmissionPolicy, Engine, Request  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 DENSE_MOE = ("llama3.2-1b", "minitron-4b", "qwen2-72b", "phi3.5-moe-42b-a6.6b")
 RECURRENT = ("mamba2-130m", "zamba2-1.2b")

@@ -41,6 +41,7 @@ from repro_torch.kernels.paged_decode_attention import paged_decode_attention  #
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import dispatch  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 KERNEL_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}

@@ -32,6 +32,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.core import lowrank  # noqa: E402
 from repro_torch.experiments import fig4_1, fig4_2, quickstart, table4_1  # noqa: E402
 from repro_torch.launch import compress as tlaunch  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 BENCH = pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
 

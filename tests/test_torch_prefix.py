@@ -40,6 +40,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 PageAllocator, PrefixIndex = tsched.PageAllocator, tsched.PrefixIndex
 CHUNKABLE = ("llama3.2-1b", "minitron-4b", "qwen2-72b", "phi3.5-moe-42b-a6.6b")

@@ -21,6 +21,7 @@ import torch  # noqa: E402
 from repro.configs.llama3_2_1b import REDUCED as J_REDUCED  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 # both core packages re-export a function named `rsi`, which shadows the
 # submodule of that name as a package attribute: import the modules by name

@@ -50,6 +50,7 @@ from repro_torch.models.model import analytic_param_count, build_model  # noqa: 
 from repro_torch.runtime import dispatch  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 jcompress, jspectral = (importlib.import_module(f"repro.core.{m}") for m in ("compress", "spectral"))
 compress, lowrank = (importlib.import_module(f"repro_torch.core.{m}") for m in ("compress", "lowrank"))

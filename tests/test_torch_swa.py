@@ -52,6 +52,7 @@ from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models.model import analytic_param_count, build_model  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 ARCH = "h2o-danube-1.8b"
 TOL = dict(rtol=1e-5, atol=1e-5)  # one attention layer in fp32: only the summation order differs

@@ -43,6 +43,7 @@ from repro_torch.models.model import analytic_param_count, build_model  # noqa: 
 from repro_torch.runtime import dispatch  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 jcompress = importlib.import_module("repro.core.compress")
 compress = importlib.import_module("repro_torch.core.compress")
