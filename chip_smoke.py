@@ -34,6 +34,9 @@
     python3 chip_smoke.py --train-only
                              # phase 2's training cases and phase 28 (training) alone,
                              # on the q = 4 llama3.2-1b, then mamba2-130m
+    python3 chip_smoke.py --multi-only
+                             # phase 29 (the multi-device layer on eight ranks sharing
+                             # the card) alone, on the q = 4 llama3.2-1b
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -218,7 +221,8 @@ Phases, in order; any failure exits non-zero before the last line:
    layers ||A[:, r']|| ||B[r', :]||.  The compression CLI on full-width
    llama3.2-1b with ``--rank-rule alpha --errors`` and ``--rank-rule energy
    --errors``: every compressed rank under break-even, every error finite.
-19. minitron-4b at full width and depth (32 layers, d 3072, 24/8 heads:
+19. minitron-4b at full width with n_layers cut 32 -> 16 (the whole
+   script's time: its eager sharing runs scale with depth; d 3072, 24/8 heads:
    G = 3, head_dim 128, d_ff 9216, untied 256000-word head; bf16), random
    weights (seed 0), spectralized (seed 9), compressed at alpha 0.3, q = 4
    (RSI's sketch GEMMs launched during compression); gates: the reference's
@@ -227,7 +231,7 @@ Phases, in order; any failure exits non-zero before the last line:
    teacher-forced in bf16 within 5%, fp32 end to end within 1e-2, bf16 end
    to end within 1.2 x the reference's own bf16 error against its fp32 run
    fed the same token: through 32 layers of random spectralized weights
-   each bf16 run lies ~8% of max |logit| from the fp32 one, so phase 5's 5%
+   each bf16 run lay ~8% of max |logit| from the fp32 one, so phase 5's 5%
    between two bf16 runs is printed, not gated); phase 7's engine gates
    (graph == eager, paged on half the flat pool == flat, every kernel of
    the path launched) and its profiled (1, 256) prefill chunk.  Then the
@@ -427,6 +431,40 @@ Phases, in order; any failure exits non-zero before the last line:
    its own assertion (final loss < 7.0) gating (at full width the loss
    stays near ln(50280): see MAMBA_FULL_STEPS).  The phase's seconds are
    printed.
+29. The multi-device layer (``runtime/distributed.py`` and what runs over
+   it), right after phase 28 on its model: eight ranks spawned once on
+   cuda:0 under gloo (``distributed.spawn``; the kernels built before), the
+   card's compute mode printed and required ``Default``; every input made
+   once in this process and handed to the ranks as CUDA IPC handles.  (a)
+   distributed RSI on a (2, 4) ("data", "model") mesh of qwen2-72b's w_gate
+   (8192 x 29568, bf16, blocks 4096 x 7392, k 2458, q 4, fp32 products
+   through sketch_matmul): ||W - U S Vt||_F / ||W||_F within 1e-3
+   (relative) of the single-rank ``rsi``'s on the same W and Omega; a
+   decaying spectrum of the same width (``synth_spectrum_matrix``) whose
+   reconstruction lies within 1e-4 of the single rank's; U on ("data",
+   None) and Vt on (None, "model") (block shapes, bits equal across the
+   replicating axis); gloo's all-reduce of X (4096 x 2458 fp32 over
+   "model") and Y (7392 x 2458 over "data") timed; then once more at mesh
+   (1, 1), world 1, under nccl, to the same gate.  (b) expert-parallel MoE
+   on one phi3.5-moe layer at full width, compressed (alpha 0.3, q 4: rank
+   1229), tokens (8, 256) over "data", 4 experts a rank, capacity factor 8
+   (nothing drops): within 1e-4 of max |y| (fp32) and 5e-2 (bf16, phase
+   5's) of the single-rank moe_forward over the tokens both route alike,
+   at most two routed otherwise.  (c) GPipe over 4 "pod" stages of the q =
+   4 llama3.2-1b's 16 layers (its own block, the flash and low-rank
+   kernels), batch (8, 256) in 4 microbatches: bit for bit the sequential
+   forward over the same microbatches, and within 5e-2 of max |y| of the
+   whole batch's; its backward (autograd through the shifts and the psum)
+   gives each stage's slice within 5e-2 of max |g| of the single rank's
+   gradient of the same loss, leaf by leaf.  (d) PowerSGD over 8 data ranks (rank 8) on one llama
+   layer's seven matrices at full width, a shared rank-8 signal plus 0.05
+   noise a rank: correlation with the dense mean > 0.7 on each, its bytes
+   < dense / 3 (both printed, and both all-reduces timed).  (e) (a)'s
+   factors saved from (2, 4) (gathered to rank 0 through the host) and
+   restored onto (8, 1): bit for bit the saved blocks.  Each sub-phase's
+   seconds (rank 0, between barriers) and each kernel's launches on the
+   ranks (every one of the four > 0) are printed; the ranks time-share one
+   card, so no time here is a multi-card figure.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -523,9 +561,11 @@ MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 4
 SSM_ARCHS = ("zamba2-1.2b", "mamba2-130m")
 SSD_CHUNK = 64  # the ssd_scan kernel's own chunk (csrc/ssd_scan.cu)
 
-# the dense main paths (phases 19-20): minitron-4b whole; qwen2-72b at every published width,
+# the dense main paths (phases 19-20): minitron-4b at every published width, n_layers cut 32 -> 16
+# (to keep the whole script near its time target: its eager sharing runs scale with depth); qwen2-72b
+# at every published width,
 # n_layers cut 80 -> 8 (the dense 80 layers, ~145 GB in bf16, do not fit one card)
-DENSE_ARCHS = (("minitron-4b", None), ("qwen2-72b", 8))
+DENSE_ARCHS = (("minitron-4b", 16), ("qwen2-72b", 8))
 DENSE_HEADS = {"minitron-4b": (24, 8, 128), "qwen2-72b": (64, 8, 128)}  # H, KV, head_dim
 # each model's w_gate at alpha 0.3 (K, rank, N) and the M phase 2 runs it at
 DENSE_W_GATE = (("minitron-4b", (3072, 922, 9216), (4, 8, 64)), ("qwen2-72b", (8192, 2458, 29568), (4, 8)))
@@ -4264,7 +4304,7 @@ def phase_sharing(model, params, tag: str, runs=("a", "b", "c", "d", "a256"), re
 
 
 def phase_dense(runs: dict) -> dict:
-    """Phases 19 (minitron-4b whole, sharing runs (a)-(d) and (a) at chunk 256)
+    """Phases 19 (minitron-4b at 16 of 32 layers, sharing runs (a)-(d) and (a) at chunk 256)
     and 20 (qwen2-72b at 8 of 80 layers, run (a)): each model compressed,
     auto vs reference, the engine's gates, then its sharing runs."""
     import gc
@@ -5336,7 +5376,7 @@ def phase_chunk_only() -> int:
     say(f"[chunk-only] {card_line()}; package tree {SRC}")
     build_all()
     out = {}
-    for arch, n_layers in (("llama3.2-1b", None),) + DENSE_ARCHS:
+    for arch, n_layers in (("llama3.2-1b", None), ("minitron-4b", None), ("qwen2-72b", 8)):  # minitron whole
         cfg = get_arch(arch)
         if n_layers is not None:
             import dataclasses
@@ -5850,6 +5890,496 @@ def phase_train_only() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------- #
+# phase 29: the multi-device layer on ranks that share the card
+# --------------------------------------------------------------------------- #
+MULTI_WORLD, MULTI_MESH = 8, (2, 4)  # ("data", "model"): qwen2's w_gate in 4096 x 7392 blocks
+MULTI_RSI_K, MULTI_RSI_Q = 2458, 4  # alpha 0.3 of 8192
+MULTI_MOE_CF = 8.0  # capacity factor: every expert takes every assignment, so nothing drops
+MULTI_MOE_TOKENS = (8, 256)
+MULTI_PIPE_STAGES, MULTI_PIPE_MICROBATCHES, MULTI_PIPE_BATCH = 4, 4, (8, 256)
+MULTI_PSGD_RANK, MULTI_PSGD_NOISE = 8, 0.05
+MULTI_LAYER_MATRICES = {  # one llama3.2-1b layer's matrices (C, D) at full width
+    "wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512), "wo": (2048, 2048),
+    "w_gate": (2048, 8192), "w_up": (2048, 8192), "w_down": (8192, 2048)}
+MULTI_KERNELS = ("sketch_matmul", "lowrank_matmul_batched", "flash_attention", "lowrank_matmul")
+
+
+def _multi_kernels() -> dict:
+    from repro_torch.kernels import flash_attention, lowrank_matmul, lowrank_matmul_batched, sketch_matmul
+
+    return {"sketch_matmul": sketch_matmul.KERNEL, "lowrank_matmul_batched": lowrank_matmul_batched.KERNEL,
+            "flash_attention": flash_attention.KERNEL, "lowrank_matmul": lowrank_matmul.KERNEL}
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"").hexdigest()[:16]
+
+
+def pipe_block(lp, h, cfg):
+    """One llama block over a whole (b, S, d) sequence (the trunk's own)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[0], h.shape[1])
+    return lm._self_block(lp, h, cfg, positions)[0]
+
+
+def _rsi_errors(blk, res, mesh):
+    """(||W - U S Vt||_F / ||W||_F over the whole matrix, from this rank's blocks)."""
+    import torch
+
+    from repro_torch.runtime.distributed import psum
+
+    w = blk.float()
+    d2 = torch.sum(torch.square(w - (res.U.float() * res.S.float()[None]) @ res.Vt.float()))
+    n2 = torch.sum(torch.square(w))
+    both = psum(psum(torch.stack([d2, n2]).double(), "data", mesh), "model", mesh)
+    return float(torch.sqrt(both[0] / both[1]))
+
+
+def multi_ranks(mesh, inp: dict, ckpt_dir: str) -> dict:
+    """Phase 29's rank program: (a)-(e) on this rank, each sub-phase between
+    barriers, its seconds on rank 0's clock; launches per kernel per part."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.core import gradient_compression as gc
+    from repro_torch.core.distributed_rsi import distributed_rsi
+    from repro_torch.core.rsi import QR_FALLBACKS
+    from repro_torch.models import moe
+    from repro_torch.runtime import distributed
+    from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+    from repro_torch.runtime.distributed import MeshSpec, NamedSharding, local_block, psum
+    from repro_torch.sharding.rules import MeshRules, use_rules
+    from repro_torch.train.pipeline_parallel import gpipe_apply
+    from repro_torch.tree import tree_map, tree_paths
+
+    rank, dev = mesh.rank, mesh.device
+    kernels = _multi_kernels()
+    out = {"rank": rank, "launches": {}, "seconds": {}}
+
+    def fence():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    def part(name, fn):
+        for k in kernels.values():
+            k.reset()
+        fence()
+        t = time.perf_counter()
+        r = fn()
+        fence()
+        out["seconds"][name] = time.perf_counter() - t
+        out["launches"][name] = {n: k.launches for n, k in kernels.items()}
+        return r
+
+    # (a) distributed RSI on qwen2-72b's w_gate and on a decaying spectrum of its width
+    factors = {}
+    for key in ("qwen", "spectral"):
+        blk = local_block(inp[f"W_{key}"], ("data", "model"), mesh, rank)
+        QR_FALLBACKS.reset()
+        res = part(f"a_{key}", lambda: distributed_rsi(blk, MULTI_RSI_K, MULTI_RSI_Q, omega=inp["omega"]))
+        rec = {"err": _rsi_errors(blk, res, mesh), "fallbacks": QR_FALLBACKS.count,
+               "U_shape": tuple(res.U.shape), "Vt_shape": tuple(res.Vt.shape),
+               "U_sha": _sha(res.U), "Vt_sha": _sha(res.Vt), "S_sha": _sha(res.S)}
+        if key == "spectral":  # each rank's share of ||A_dist - A_single||_F against ||A_single||_F
+            U1, S1, Vt1 = inp["single_U"], inp["single_S"], inp["single_Vt"]
+            a1 = (local_block(U1, ("data", None), mesh, rank) * S1[None]) @ local_block(Vt1, (None, "model"), mesh,
+                                                                                    rank)
+            ad = (res.U.float() * res.S.float()[None]) @ res.Vt.float()
+            both = torch.stack([torch.sum(torch.square(ad - a1)), torch.sum(torch.square(a1))]).double()
+            both = psum(psum(both, "data", mesh), "model", mesh)
+            rec["recon_rel"] = float(torch.sqrt(both[0] / both[1]))
+            del a1, ad
+        else:
+            factors = {"U": res.U, "S": res.S, "Vt": res.Vt}
+        out[f"a_{key}"] = rec
+    # gloo's all-reduce of a CUDA tensor (through the host) at RSI's sizes: X over "model", Y over "data"
+    ar = {}
+    for name, shape, axis in (("X", (4096, MULTI_RSI_K), "model"), ("Y", (7392, MULTI_RSI_K), "data")):
+        t = torch.randn(shape, device=dev)
+        times = []
+        for _ in range(3):
+            fence()
+            t0 = time.perf_counter()
+            psum(t, axis, mesh)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        ar[name] = {"shape": list(shape), "axis": axis, "ranks": mesh.shape[axis], "MB": t.numel() * 4 / 1e6,
+                    "ms": sorted(times)[1] * 1e3}
+        del t
+    out["allreduce"] = ar
+
+    # (b) expert-parallel MoE: one phi3.5-moe layer, compressed, 4 experts a rank, tokens over "data"
+    cfg = inp["moe_cfg"]
+    rules = MeshRules(mesh)
+    x = inp["moe_x"]
+    x_loc = local_block(x, rules.spec(("batch", None, None), tuple(x.shape)), mesh, rank)
+    for tag, p, xx in (("fp32", inp["moe_p32"], x_loc.float()), ("bf16", inp["moe_p"], x_loc)):
+        with use_rules(rules):
+            y, aux = part(f"b_{tag}", lambda: moe.moe_forward(p, xx, cfg))
+        ids = moe._route(xx.reshape(-1, xx.shape[-1]), p["router"]["gate_w"], cfg)[0]
+        out[f"b_{tag}"] = {"aux": float(aux), "y_sha": _sha(y), "ids": ids.cpu(),
+                           "y": y.cpu() if mesh.coords["model"] == 0 else None}
+
+    # (c) GPipe: llama3.2-1b's 16 layers in 4 stages over "pod"; the two "data" rows run the same pipeline
+    pipe = distributed.make_mesh((2, MULTI_PIPE_STAGES), ("data", "pod"))
+    lcfg = inp["llama_cfg"]
+    stage = _tree_blocks(inp["llama_layers"], pipe, rank)
+    with distributed.use_mesh(pipe), use_dispatch(DispatchConfig.from_arch(lcfg)), torch.no_grad():
+        fn = gpipe_apply(lambda lp, h: pipe_block(lp, h, lcfg), n_microbatches=MULTI_PIPE_MICROBATCHES)
+        y = part("c", lambda: fn(stage, inp["llama_x0"]))
+    out["c"] = {"y_sha": _sha(y), "y": y.cpu() if rank == 0 else None}
+    # (c)'s backward: every stage's loss <y, wo>; the psum over the 4 stages makes a slice's
+    # gradient 4 x dL/dslice, held here to this stage's slice of the single rank's gradient
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), stage)
+
+    def backward():
+        with distributed.use_mesh(pipe), use_dispatch(DispatchConfig.from_arch(lcfg)):
+            yg = fn(live, inp["llama_x0"])
+            torch.sum(yg.float() * inp["pipe_wo"]).backward()
+
+    part("c_backward", backward)
+    ref_g = _tree_blocks(inp["pipe_grads"], pipe, rank)
+    errs = {}
+    for (path, g), (_, r) in zip(tree_paths(live), tree_paths(ref_g)):
+        g = g.grad if g.grad is not None else torch.zeros_like(g)
+        errs[path] = (float((g.float() / MULTI_PIPE_STAGES - r.float()).abs().max()), float(r.float().abs().max()))
+    out["c_backward"] = {"worst": max(errs.items(), key=lambda kv: kv[1][0] / max(kv[1][1], 1e-30)),
+                         "leaves": len(errs)}
+    del live, ref_g
+
+    # (d) PowerSGD over 8 data ranks: a shared rank-8 signal plus this rank's noise
+    dp = distributed.make_mesh((MULTI_WORLD,), ("data",))
+    shared, own = torch.Generator(device=dev).manual_seed(11), torch.Generator(device=dev).manual_seed(100 + rank)
+    grads = {}
+    for name, (c, d) in MULTI_LAYER_MATRICES.items():
+        u = torch.randn((c, MULTI_PSGD_RANK), generator=shared, device=dev)
+        v = torch.randn((MULTI_PSGD_RANK, d), generator=shared, device=dev)
+        grads[name] = u @ v + MULTI_PSGD_NOISE * torch.randn((c, d), generator=own, device=dev)
+    pcfg = gc.PowerSGDConfig(rank=MULTI_PSGD_RANK, min_size=1024)
+    state = gc.init_powersgd(grads, pcfg, generator=torch.Generator(device=dev).manual_seed(1))
+    with distributed.use_mesh(dp):
+        mean, _ = part("d_compressed", lambda: gc.compress_allreduce(grads, state, "data", pcfg))
+        dense = part("d_dense", lambda: {k: distributed.pmean(g, "data") for k, g in grads.items()})
+    corr = {k: float(torch.sum(mean[k] * dense[k]) / (torch.linalg.norm(mean[k]) * torch.linalg.norm(dense[k])))
+            for k in grads}
+    out["d"] = {"corr": corr, "bytes": gc.comm_bytes(grads, pcfg)}
+    del grads, dense, mean
+
+    # (e) the elastic reshard: (a)'s factors saved from (2, 4), restored onto (8, 1)
+    specs = {"U": ("data", None), "S": (), "Vt": (None, "model")}
+    live = {k: NamedSharding(mesh, s) for k, s in specs.items()}
+    target = MeshSpec((MULTI_WORLD, 1), ("data", "model"))
+    t8 = {k: NamedSharding(target, s) for k, s in specs.items()}
+
+    def reshard():
+        ckpt.save(factors, ckpt_dir, 1, codec="raw", shardings=live)
+        return ckpt.restore(factors, ckpt_dir, shardings=t8)[0]
+
+    restored = part("e", reshard)
+    i = mesh.coords["model"]
+    rows, cols = restored["U"].shape[0], factors["Vt"].shape[1]
+    out["e"] = {"U": torch.equal(restored["U"], factors["U"][i * rows:(i + 1) * rows]),
+                "S": torch.equal(restored["S"], factors["S"]),
+                "Vt": torch.equal(restored["Vt"][:, i * cols:(i + 1) * cols], factors["Vt"]),
+                "U_shape": tuple(restored["U"].shape), "Vt_shape": tuple(restored["Vt"].shape)}
+    return out
+
+
+def _tree_blocks(tree, mesh, rank, prefix=""):
+    """A stacked (L, ...) subtree's leaves cut to this rank's stage on ("pod",) (views)."""
+    from repro_torch.runtime.distributed import local_block
+
+    if isinstance(tree, dict):
+        return {k: _tree_blocks(v, mesh, rank) for k, v in tree.items()}
+    return local_block(tree, ("pod",), mesh, rank)
+
+
+def multi_nccl(mesh, W, omega) -> dict:
+    """(a) once more at mesh (1, 1), world 1, under nccl: the NCCL path
+    initializes and computes (every psum is over an axis of one rank)."""
+    from repro_torch.core.distributed_rsi import distributed_rsi
+
+    t = time.perf_counter()
+    res = distributed_rsi(W, MULTI_RSI_K, MULTI_RSI_Q, omega=omega)
+    return {"err": _rsi_errors(W, res, mesh), "backend": mesh.backend, "seconds": time.perf_counter() - t}
+
+
+def compute_mode() -> str:
+    """The card's compute mode as nvidia-smi prints it, or what went wrong."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if res.returncode == 0 and res.stdout.strip():
+        return res.stdout.strip().splitlines()[0]
+    return f"nvidia-smi exited {res.returncode}: stdout {res.stdout.strip()!r}, stderr {res.stderr.strip()[-300:]!r}"
+
+
+def phase_multi(model, params, runs: dict) -> dict:
+    """Phase 29: the multi-device layer on eight gloo ranks sharing the card.
+
+    The inputs are built here, once, and reach the ranks as CUDA IPC handles
+    (no copies); the single-rank references run here too.  Gates: (a)
+    ||W - U S Vt||_F of the distributed RSI within 1e-3 (relative) of the
+    single-rank ``rsi``'s on the same W and Omega (fp32 products on both),
+    the decaying spectrum's reconstruction within 1e-4 of the single rank's,
+    U on ("data", None) and Vt on (None, "model") (block shapes, and bits
+    equal across the replicating axis), and the same at (1, 1) under nccl;
+    (b) the EP layer within 1e-4 of max |y| (fp32) and 5e-2 (bf16, phase
+    5's) of the single-rank moe_forward, over tokens routed alike; (c) the
+    pipeline bit for bit the sequential forward over the same
+    microbatches, and within 5e-2 of max |y| of the whole-batch forward,
+    and its backward (autograd through the shifts and the psum) giving
+    each stage's slice within 5e-2 of max |g| of the single rank's
+    gradient over the same microbatches, leaf by leaf;
+    (d) PowerSGD's mean correlated > 0.7 with the dense mean on every
+    matrix, its bytes < dense / 3; (e) the reshard bit for bit; and each
+    kernel of the path launched on the ranks."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import CompressionPolicy, compress_tree, rsi, synth_spectrum_matrix, vgg_like_spectrum
+    from repro_torch.core.rsi import QR_FALLBACKS
+    from repro_torch.models import moe
+    from repro_torch.models import modules as nn
+    from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+    from repro_torch.runtime.distributed import spawn
+    from repro_torch.tree import tree_map
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks allocate on the same card: return this process's cached blocks
+    t_phase = time.perf_counter()
+    card = card_line()
+    mode = compute_mode()
+    say(f"[multi] {card}; compute mode {mode}; {MULTI_WORLD} gloo ranks on cuda:0, mesh {MULTI_MESH}")
+    if mode != "Default":
+        fail(f"phase 29: compute mode {mode!r}: several processes share the card only in Default mode")
+    dev = torch.device("cuda")
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+    secs = {}
+
+    def sync_time(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t
+        return r
+
+    # (a)'s inputs and single-rank references
+    qcfg = get_arch("qwen2-72b")
+    C, D = qcfg.d_model, qcfg.d_ff
+    W_qwen = sync_time("a_build", lambda: nn.dense_init(gen(0), C, D, torch.bfloat16, dev))
+    W_spec = sync_time("a_build_spectral", lambda: synth_spectrum_matrix(
+        C, D, vgg_like_spectrum(C, device=dev), generator=gen(3), device=dev))
+    omega = torch.randn((D, MULTI_RSI_K), generator=gen(1), dtype=torch.float32, device=dev)
+    single = {}
+    for key, W in (("qwen", W_qwen), ("spectral", W_spec)):
+        QR_FALLBACKS.reset()
+        res = sync_time(f"a_single_{key}", lambda: rsi(W.float(), MULTI_RSI_K, MULTI_RSI_Q, omega=omega))
+        w = W.float()
+        err = float(torch.linalg.norm(w - (res.U * res.S[None]) @ res.Vt) / torch.linalg.norm(w))
+        single[key] = {"res": res, "err": err, "fallbacks": QR_FALLBACKS.count}
+        del w
+    # (b)'s layer: one phi3.5-moe MoE block at full width, compressed at alpha 0.3, q 4
+    mcfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"), capacity_factor=MULTI_MOE_CF)
+    moe_p = moe.moe_init(gen(4), mcfg, torch.bfloat16, dev)
+    moe_p = sync_time("b_compress", lambda: compress_tree({"moe": moe_p}, CompressionPolicy(alpha=ALPHA, q=4,
+                                                                                              min_dim=32),
+                                                          generator=gen(5))[0]["moe"])
+    f32 = lambda t: {k: f32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()  # noqa: E731
+    moe_p32 = f32(moe_p)
+    x_moe = torch.randn(MULTI_MOE_TOKENS + (mcfg.d_model,), generator=gen(6), device=dev).to(torch.bfloat16)
+    moe_ref = {}
+    for tag, p, xx in (("fp32", moe_p32, x_moe.float()), ("bf16", moe_p, x_moe)):
+        y, _ = sync_time(f"b_single_{tag}", lambda: moe.moe_forward(p, xx, mcfg))
+        ids = moe._route(xx.reshape(-1, xx.shape[-1]), p["router"]["gate_w"], mcfg)[0]
+        moe_ref[tag] = (y, ids)
+    rank_ = moe_p["experts"]["w_gate"]["a"].shape[-1]
+    # (c)'s inputs: the q = 4 llama3.2-1b's layers and the embedded batch; the references
+    lcfg = model.cfg
+    toks = torch.randint(0, lcfg.vocab, MULTI_PIPE_BATCH, generator=gen(7), device=dev)
+    x0 = nn.embed_lookup(params["embed"], toks)
+    layers = params["layers"]
+    L = layers["attn_norm"]["scale"].shape[0]
+    from repro_torch.models import lm
+
+    def sequential(x):
+        with torch.no_grad(), use_dispatch(DispatchConfig.from_arch(lcfg)):
+            for i in range(L):
+                x = pipe_block(lm._layer(layers, i), x, lcfg)
+        return x
+
+    b = MULTI_PIPE_BATCH[0] // MULTI_PIPE_MICROBATCHES
+    seq = sync_time("c_sequential", lambda: torch.cat([sequential(x0[j * b:(j + 1) * b])
+                                                       for j in range(MULTI_PIPE_MICROBATCHES)]))
+    whole = sync_time("c_whole", lambda: sequential(x0))
+    # (c)'s backward reference: the gradient of <y, wo> over the same microbatches, one rank
+    wo = torch.randn(tuple(x0.shape), generator=gen(8), device=dev)
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), layers)
+
+    def seq_backward():
+        with use_dispatch(DispatchConfig.from_arch(lcfg)):
+            for j in range(MULTI_PIPE_MICROBATCHES):
+                x = x0[j * b:(j + 1) * b]
+                for i in range(L):
+                    x = pipe_block(lm._layer(live, i), x, lcfg)
+                torch.sum(x.float() * wo[j * b:(j + 1) * b]).backward()
+        return tree_map(lambda t: t.grad if t.grad is not None else torch.zeros_like(t), live)
+
+    pipe_grads = sync_time("c_backward_sequential", seq_backward)
+    del live
+
+    inp = {"W_qwen": W_qwen, "W_spectral": W_spec, "omega": omega, "single_U": single["spectral"]["res"].U,
+           "single_S": single["spectral"]["res"].S, "single_Vt": single["spectral"]["res"].Vt,
+           "moe_cfg": mcfg, "moe_p": moe_p, "moe_p32": moe_p32, "moe_x": x_moe,
+           "llama_cfg": lcfg, "llama_layers": layers, "llama_x0": x0, "pipe_wo": wo, "pipe_grads": pipe_grads}
+    say(f"[multi] inputs and single-rank references in {time.perf_counter() - t_phase:.1f}s: "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    ckpt_dir = tempfile.mkdtemp(prefix="phase29_ckpt_")
+    try:
+        t = time.perf_counter()
+        outs = spawn(multi_ranks, MULTI_WORLD, MULTI_MESH, ("data", "model"), "cuda", inp, ckpt_dir,
+                     backend="gloo", timeout_s=300)
+        spawn_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    r0 = outs[0]
+    summary = {"card": card, "compute_mode": mode, "spawn_s": spawn_s, "rank0_s": r0["seconds"],
+               "allreduce": r0["allreduce"]}
+
+    # (a) gates
+    for key in ("qwen", "spectral"):
+        errs = [o[f"a_{key}"]["err"] for o in outs]
+        e1 = single[key]["err"]
+        rel = abs(errs[0] - e1) / e1
+        summary[f"a_{key}"] = {"err": errs[0], "single_err": e1, "rel": rel,
+                               "fallbacks": [o[f"a_{key}"]["fallbacks"] for o in outs],
+                               "single_fallbacks": single[key]["fallbacks"]}
+        if rel > 1e-3 or not all(e == errs[0] for e in errs):
+            fail(f"phase 29 (a) {key}: ||W - USVt|| / ||W|| {errs} against the single rank's {e1} (rel {rel:.2e})")
+        for o in outs:
+            c = {"data": o["rank"] // MULTI_MESH[1], "model": o["rank"] % MULTI_MESH[1]}
+            a = o[f"a_{key}"]
+            if a["U_shape"] != (C // MULTI_MESH[0], MULTI_RSI_K) or a["Vt_shape"] != (MULTI_RSI_K, D // MULTI_MESH[1]):
+                fail(f"phase 29 (a) {key}: rank {o['rank']} holds U {a['U_shape']}, Vt {a['Vt_shape']}")
+            if a["U_sha"] != outs[c["data"] * MULTI_MESH[1]][f"a_{key}"]["U_sha"] or \
+                    a["Vt_sha"] != outs[c["model"]][f"a_{key}"]["Vt_sha"] or a["S_sha"] != r0[f"a_{key}"]["S_sha"]:
+                fail(f"phase 29 (a) {key}: rank {o['rank']}'s blocks differ from their replicas'")
+    summary["a_spectral"]["recon_rel"] = r0["a_spectral"]["recon_rel"]
+    if not r0["a_spectral"]["recon_rel"] < 1e-4:
+        fail(f"phase 29 (a): the decaying spectrum's reconstruction {r0['a_spectral']['recon_rel']:.2e} from the "
+             "single rank's (limit 1e-4)")
+    t = time.perf_counter()
+    nccl = spawn(multi_nccl, 1, (1, 1), ("data", "model"), "cuda", W_qwen, omega, backend="nccl", timeout_s=300)[0]
+    nccl["spawn_s"] = time.perf_counter() - t
+    nccl["rel"] = abs(nccl["err"] - single["qwen"]["err"]) / single["qwen"]["err"]
+    summary["a_nccl_world1"] = nccl
+    if nccl["backend"] != "nccl" or nccl["rel"] > 1e-3:
+        fail(f"phase 29 (a) under nccl at (1, 1): {nccl}")
+
+    # (b) gates, over the tokens every run routes alike
+    for tag, tol in (("fp32", 1e-4), ("bf16", 5e-2)):
+        want, want_ids = moe_ref[tag]
+        got = torch.cat([outs[i * MULTI_MESH[1]][f"b_{tag}"]["y"] for i in range(MULTI_MESH[0])]).to(dev)
+        ids = torch.cat([outs[i * MULTI_MESH[1]][f"b_{tag}"]["ids"] for i in range(MULTI_MESH[0])]).to(dev)
+        same = (ids.sort(-1).values == want_ids.sort(-1).values).all(-1).reshape(MULTI_MOE_TOKENS)
+        err = float((got.float() - want.float()).abs()[same].max())
+        scale = float(want.float().abs().max())
+        flips = int((~same).sum())
+        summary[f"b_{tag}"] = {"max_abs_err": err, "max_abs_y": scale, "rel": err / scale, "routing_flips": flips,
+                               "aux": [o[f"b_{tag}"]["aux"] for o in outs][:: MULTI_MESH[1]],
+                               "batched_launches_per_rank": [o["launches"][f"b_{tag}"]["lowrank_matmul_batched"]
+                                                             for o in outs]}
+        if err > tol * scale or flips > 2:
+            fail(f"phase 29 (b) {tag}: EP against the single rank {err:.3e} (limit {tol} x {scale:.3e}), "
+                 f"{flips} tokens routed otherwise")
+        for o in outs:
+            if o[f"b_{tag}"]["y_sha"] != outs[o["rank"] // MULTI_MESH[1] * MULTI_MESH[1]][f"b_{tag}"]["y_sha"]:
+                fail(f"phase 29 (b) {tag}: rank {o['rank']}'s output differs from its data row's")
+    summary["b_rank"] = rank_
+
+    # (c) gates
+    got = r0["c"]["y"].to(dev)
+    if not all(o["c"]["y_sha"] == r0["c"]["y_sha"] for o in outs):
+        fail("phase 29 (c): the stages' outputs differ")
+    if not torch.equal(got, seq):
+        fail(f"phase 29 (c): the pipeline is not the sequential forward bit for bit "
+             f"(max abs {float((got.float() - seq.float()).abs().max()):.3e})")
+    err = float((got.float() - whole.float()).abs().max())
+    scale = float(whole.float().abs().max())
+    summary["c"] = {"bitwise_sequential": True, "whole_batch_max_abs_err": err, "max_abs_y": scale,
+                    "whole_batch_bitwise": bool(torch.equal(got, whole))}
+    if err > 5e-2 * scale:
+        fail(f"phase 29 (c): the pipeline {err:.3e} from the whole-batch forward (limit 5e-2 x {scale:.3e})")
+    worst = [o["c_backward"]["worst"] for o in outs]
+    summary["c_backward"] = {"worst_leaf_per_rank": worst, "leaves": r0["c_backward"]["leaves"]}
+    for path, (e, sc) in worst:
+        if not e <= 5e-2 * sc:
+            fail(f"phase 29 (c) backward: {path}'s gradient {e:.3e} from the single rank's (limit 5e-2 x {sc:.3e})")
+
+    # (d) gates
+    corr = r0["d"]["corr"]
+    dense_b, comp_b = r0["d"]["bytes"]
+    summary["d"] = {"corr_min": min(corr.values()), "corr": corr, "dense_bytes": dense_b, "compressed_bytes": comp_b}
+    if min(min(o["d"]["corr"].values()) for o in outs) <= 0.7 or not comp_b < dense_b / 3:
+        fail(f"phase 29 (d): PowerSGD correlation {corr}, bytes {comp_b} of {dense_b}")
+
+    # (e) gates
+    summary["e"] = {"U_shape": r0["e"]["U_shape"], "Vt_shape": r0["e"]["Vt_shape"]}
+    if not all(o["e"]["U"] and o["e"]["S"] and o["e"]["Vt"] for o in outs):
+        fail("phase 29 (e): the blocks restored onto (8, 1) differ from the saved ones")
+
+    launches = {n: sum(o["launches"][p][n] for o in outs for p in o["launches"]) for n in MULTI_KERNELS}
+    runs["multi-device ranks"] = launches
+    summary["launches"] = launches
+    summary["launches_rank0"] = r0["launches"]
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        fail(f"phase 29: kernels never launched on the ranks: {missing}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    say("[multi] " + json.dumps(summary))
+    say(f"[multi] phase 29 in {summary['phase_s']:.1f}s (spawn of {MULTI_WORLD} ranks and (a)-(e) {spawn_s:.1f}s, "
+        f"nccl world 1 {nccl['spawn_s']:.1f}s); {card}; the ranks time-share one card: no multi-card figure")
+    return summary
+
+
+def phase_multi_only() -> int:
+    """``--multi-only``: phase 29 alone (on the q = 4 llama3.2-1b of phase 3)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[multi-only] {card_line()}; package tree {SRC}")
+    t = time.perf_counter()
+    build_all()
+    model, params = stage4_model()
+    say(f"[multi-only] build and the q = 4 llama3.2-1b in {time.perf_counter() - t:.1f}s")
+    phase_multi(model, params, {})
+    say(f"[multi-only] in {time.perf_counter() - t:.1f}s")
+    say(card_line())
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5882,6 +6412,8 @@ def main() -> int:
         return phase_modal_only(WHISPER_ARCH)
     if "--train-only" in sys.argv:
         return phase_train_only()
+    if "--multi-only" in sys.argv:
+        return phase_multi_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -5936,6 +6468,8 @@ def main() -> int:
         f"{cluster['phase_s'] + examples['phase_s']:.1f}s: " + json.dumps({"26": cluster, "27": examples}))
     # phase 28 (training) on the same q = 4 model, then mamba2-130m through the launcher
     phase_train(model, params_q4, runs)
+    # phase 29 (the multi-device layer on eight ranks sharing the card), its pipeline on the same model
+    phase_multi(model, params_q4, runs)
     gc.collect()
     torch.cuda.empty_cache()
     del model, params_q4, batch  # the llama phases' model, before the MoE phases
@@ -5985,7 +6519,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"[paper] phase 18 in {time.perf_counter() - t:.1f}s")
 
-    # phases 19-20: minitron-4b whole and qwen2-72b at 8 of 80 layers, then prefix sharing
+    # phases 19-20: minitron-4b at 16 of 32 layers and qwen2-72b at 8 of 80, then prefix sharing
     t = time.perf_counter()
     phase_dense(runs)
     say(f"[dense] phases 19-20 in {time.perf_counter() - t:.1f}s")

@@ -34,6 +34,14 @@ by their path, ``"params/layers/attn/wq/a"``.  ``restore`` rebuilds the
 template's structure; a tensor leaf of the template comes back on the
 template's device with the template's strides, so a factor leaf stored with
 padded rows keeps them.
+
+A sharded state (each rank holding its blocks, ``runtime/distributed.py``)
+saves with ``shardings=``: every rank calls :func:`save`, the blocks go to
+rank 0 through the host, and rank 0 writes the whole leaves in the same
+format.  ``restore(..., shardings=)`` is the elastic path: each rank reads
+the whole leaves on the host and keeps its block under the shardings
+given, on a mesh that may differ from the one that saved
+(``fault_tolerance.ElasticReshard``).
 """
 
 from __future__ import annotations
@@ -49,6 +57,9 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.distributed import NamedSharding, assemble, gather_to_first
+from repro_torch.runtime.fault_tolerance import ElasticReshard
 
 try:  # optional dependency: zlib where zstandard is absent
     import zstandard
@@ -106,8 +117,8 @@ def _children(node) -> Optional[dict]:
 
 
 def _flatten(tree, prefix: str = ""):
-    """(path, leaf) pairs in sorted key order."""
-    kids = _children(tree)
+    """(path, leaf) pairs in sorted key order (a NamedSharding is a leaf)."""
+    kids = None if isinstance(tree, NamedSharding) else _children(tree)
     if kids is None:
         yield prefix, tree
         return
@@ -159,10 +170,28 @@ def _snapshot(state) -> tuple:
     return [a for a, _ in host], [d for _, d in host], [p for p, _ in flat]
 
 
-def save(state: Any, directory: str, step: int, *, extra: Optional[dict] = None, codec: Optional[str] = None):
+def save(state: Any, directory: str, step: int, *, extra: Optional[dict] = None, codec: Optional[str] = None,
+         shardings: Any = None):
     """Blocking atomic save of a nested state (``codec``: one of
-    :data:`CODECS`, default zstd where it imports, else zlib)."""
-    _write(*_snapshot(state), directory, step, extra or {}, codec or _Codec.default())
+    :data:`CODECS`, default zstd where it imports, else zlib).
+
+    ``shardings``: a tree parallel to ``state`` of each leaf's
+    ``NamedSharding`` on the live mesh the ranks hold their blocks on; every
+    rank calls this, rank 0 gathers the blocks (through the host) and
+    writes the whole leaves, and all return once the checkpoint is in place."""
+    if shardings is None:
+        _write(*_snapshot(state), directory, step, extra or {}, codec or _Codec.default())
+        return
+    whole = {}
+    sh_of = dict(_flatten(shardings))
+    for path, leaf in _flatten(state):
+        sh = sh_of[path]
+        blocks = gather_to_first(leaf, sh.mesh)
+        if blocks is not None:
+            whole[path] = assemble(blocks, sh.spec, sh.mesh)
+    if whole:
+        _write(*_snapshot(_rebuild(state, whole)), directory, step, extra or {}, codec or _Codec.default())
+    torch.distributed.barrier()
 
 
 def _write_leaf(tmp: str, fname: str, arr: np.ndarray, codec: str) -> str:
@@ -221,9 +250,13 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(template: Any, directory: str, *, step: Optional[int] = None, validate: bool = True):
+def restore(template: Any, directory: str, *, step: Optional[int] = None, validate: bool = True,
+            shardings: Any = None):
     """Restore into the structure of ``template``; returns (state, manifest).
-    ``step`` defaults to the latest.  Raises IOError on a checksum mismatch."""
+    ``step`` defaults to the latest.  Raises IOError on a checksum mismatch.
+    ``shardings``: a tree of ``NamedSharding`` parallel to ``template``, on
+    any mesh; each leaf then comes back as this rank's block of it, on the
+    template leaf's device."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint found in {directory}")
@@ -248,7 +281,12 @@ def restore(template: Any, directory: str, *, step: Optional[int] = None, valida
     metas = [by_path[path] for path, _ in flat]
     with ThreadPoolExecutor(_WORKERS) as pool:
         raws = list(pool.map(read, metas))
-    leaves = {path: _from_raw(raw, meta, leaf) for (path, leaf), raw, meta in zip(flat, raws, metas)}
+    if shardings is not None:
+        sh = dict(_flatten(shardings))
+        leaves = {path: ElasticReshard(getattr(leaf, "device", None)).apply(_from_raw(raw, meta, None), sh[path])
+                  for (path, leaf), raw, meta in zip(flat, raws, metas)}
+    else:
+        leaves = {path: _from_raw(raw, meta, leaf) for (path, leaf), raw, meta in zip(flat, raws, metas)}
     return _rebuild(template, leaves), manifest
 
 

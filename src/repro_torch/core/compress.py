@@ -10,8 +10,10 @@ Stacked ``(L, d_in, d_out)`` leaves get one independent sketch per layer;
 the reference's ``vmap`` over layers is a loop here.  The rank rule is the
 paper's ``k = ceil(alpha * min(C, D))`` (``rank_rule="alpha"``) or the
 reference's adaptive ``energy`` rule: the smallest k whose singular values
-hold ``energy`` of the squared mass of one probe sketch.  Sharding specs are
-not ported (the port has no mesh yet).
+hold ``energy`` of the squared mass of one probe sketch.  Given a spec tree
+(``specs=``, tuples as ``sharding/rules.py::param_specs`` makes them), the
+specs are transformed in lock step, as the reference's: a compressed
+leaf's spec becomes ``{"a": spec_a, "b": spec_b}``.
 
 Randomness: Omega for every (leaf, layer) is drawn from ``generator`` in
 sorted-key leaf order, or supplied by ``omega_fn(path, layer, shape)`` —
@@ -149,13 +151,23 @@ def compress_tree(
     *,
     generator: Optional[torch.Generator] = None,
     omega_fn: Optional[Callable[[str, Optional[int], tuple], torch.Tensor]] = None,
-) -> tuple[Any, CompressionReport]:
+    specs: Any = None,
+    spec_transform: Optional[Callable[[Any], tuple]] = None,
+):
     """Compress every policy-selected kernel in ``params``.
 
     ``omega_fn(path, layer, (D, ell))`` returns Omega for one matrix
     (``layer`` is None for a 2-D leaf); otherwise Omega is drawn from
     ``generator``.  Returns ``(new_params, report)``; leaves not compressed
     are shared with ``params``.
+
+    ``specs``: an optional spec tree parallel to ``params``; then the
+    return is ``(new_params, new_specs, report)``, each compressed leaf's
+    spec replaced by ``{"a": spec_a, "b": spec_b}`` from
+    ``spec_transform(spec) -> (spec_a, spec_b)``, by default the input-dim
+    entry on A, the output-dim entry on B and the k axis unsharded (the
+    reference's rule; a spec tree that is not parallel at a path is left
+    as it is there).
     """
     if policy.rank_rule not in ("alpha", "energy"):
         raise ValueError(f"rank_rule {policy.rank_rule!r}: 'alpha' or 'energy'")
@@ -164,6 +176,7 @@ def compress_tree(
     inc, exc = re.compile(policy.include), re.compile(policy.exclude)
     report = CompressionReport(policy=policy, layers=[])
     new_params = _copy_tree(params)
+    new_specs = _copy_tree(specs) if specs is not None else None
 
     for name, leaf in list(_leaves(params)):
         report.params_before += leaf.numel()
@@ -216,5 +229,35 @@ def compress_tree(
         entry.params_after = A.numel() + B.numel()
         entry.compressed = True
         report.params_after += entry.params_after - entry.params_before
+        if new_specs is not None:
+            _transform_spec(new_specs, name, leaf.dim(), spec_transform)
 
+    if specs is not None:
+        return new_params, new_specs, report
     return new_params, report
+
+
+def _default_spec_transform(spec, ndim: int) -> tuple:
+    """(spec_a, spec_b) of a dense leaf's spec: the leading (layer) entries
+    on both, the input-dim entry on A, the output-dim entry on B, k unsharded."""
+    parts = tuple(spec) if spec is not None else ()
+    n_lead = ndim - 2
+    lead = parts[:n_lead] if len(parts) >= n_lead else (None,) * n_lead
+    in_sp = parts[n_lead] if len(parts) > n_lead else None
+    out_sp = parts[n_lead + 1] if len(parts) > n_lead + 1 else None
+    return lead + (in_sp, None), lead + (None, out_sp)
+
+
+def _transform_spec(specs: Any, path: str, ndim: int, spec_transform) -> None:
+    node = specs
+    keys = path.split("/")
+    try:
+        for k in keys[:-1]:
+            node = node[k]
+        spec = node[keys[-1]]
+    except (KeyError, TypeError):
+        return  # the spec tree is not parallel at this path: left as it is
+    if isinstance(spec, Mapping):
+        return
+    sp_a, sp_b = spec_transform(spec) if spec_transform is not None else _default_spec_transform(spec, ndim)
+    node[keys[-1]] = {"a": tuple(sp_a), "b": tuple(sp_b)}

@@ -4,7 +4,9 @@
         --steps 200 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt [--device cuda|cpu]
 
 The port's counterpart of ``repro/launch/train.py``, with its flags but
-``--fake-devices`` (the multi-device layer is not ported).  Runs on the card
+``--fake-devices``, which comes with the dry-run's fake world (the next
+slice of the multi-device layer: the reference's launcher builds no mesh
+with it either).  Runs on the card
 unless ``--device cpu`` is given.  The optimizer is the arch's
 ``cfg.optimizer`` (AdamW at weight decay 0.01, Adafactor or SGD-momentum)
 under a cosine schedule with ``steps // 20`` warmup steps.

@@ -63,6 +63,7 @@ from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.runtime import dispatch
+from repro_torch.sharding.rules import bound_to_rules
 
 __all__ = [
     "lm_init",
@@ -333,7 +334,8 @@ def remat_groups(run, entries: list, x, cfg):
 
     g = max(1, cfg.remat_group)
     aux = 0.0
-    run = dispatch.bound_to_dispatch(run)  # the recomputation in the backward takes the forward's paths
+    # the recomputation in the backward takes the forward's paths and sharding rules
+    run = bound_to_rules(dispatch.bound_to_dispatch(run))
     for j in range(0, len(entries), g):
         x, a = checkpoint(run, entries[j:j + g], x, use_reentrant=False)
         aux = aux + a

@@ -15,8 +15,11 @@ ONE call of the batched low-rank kernel; dense experts are a batched
 ``torch.matmul`` with fp32 accumulation (the reference leaves that product
 to XLA as well).
 
-The reference's expert-parallel ``shard_map`` path (``_moe_expert_parallel``)
-is not ported: the port has no mesh yet.
+Under active sharding rules on a live mesh with a ``"model"`` axis that
+divides ``n_experts``, the layer runs expert-parallel
+(:func:`_moe_expert_parallel`, the reference's ``shard_map`` path written
+as per-rank code): each rank holds its block of the batch and its
+``n_experts / model`` experts, and one psum over ``"model"`` combines them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import modules as nn
+from repro_torch.runtime import distributed
+from repro_torch.sharding.rules import active_rules
+from repro_torch.tree import tree_map
 
 __all__ = ["moe_init", "moe_forward", "moe_apply", "ffn_init", "ffn_forward", "moe_capacity"]
 
@@ -169,13 +175,81 @@ def _moe_local(p, x: torch.Tensor, cfg):
     return out, ids, probs
 
 
+def _local_experts(experts, E: int, E_loc: int, j: int):
+    """Rank j's E_loc experts, sliced (views) from the whole (E, ...) stacks."""
+    def one(w):
+        if w.shape[0] != E:
+            raise ValueError(f"expert stack of {w.shape[0]}: the expert-parallel layer takes all {E}")
+        return w[j * E_loc:(j + 1) * E_loc]
+    return tree_map(one, experts)
+
+
+def _moe_expert_parallel(p, x: torch.Tensor, cfg, rules, *, with_aux: bool = True):
+    """Expert-parallel MoE on this rank (the reference's production path).
+
+    x is this rank's block of the batch (the batch over ("pod", "data") where
+    it divides, else the whole batch), replicated over "model"; the experts
+    lie over "model", E / m a rank (sliced here from the whole stacks in
+    ``p["experts"]``, each expert with its full inner dims: FSDP-sharded
+    expert blocks are not gathered).  Each rank routes its tokens (redundantly
+    over "model": a d x E product), keeps the assignments to its own experts
+    (the rest take the drop sentinel E_loc), runs its expert stack through
+    the batched path (one call of the batched low-rank kernel when
+    compressed), and one psum over "model" sums each token's top-k outputs:
+    one fp32 (T_loc, d) all-reduce a layer, whatever E.  The aux loss is
+    this shard's, pmean'd over the batch axes (a per-shard estimator, close
+    to the single-device loss, not equal; None without ``with_aux``).
+    Returns (out, aux)."""
+    mesh = rules.mesh
+    m_size = mesh.shape["model"]
+    E_loc = cfg.n_experts // m_size
+    B, S, d = x.shape
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    # the local capacity: tokens of ONE batch shard to ONE expert, with more
+    # slack than the global rule (x 1.6) because local loads vary more
+    T = B * S
+    C = int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor * 1.6)
+    C = max(((C + 127) // 128) * 128, 128)
+    xf = x.reshape(T, d)
+    ids, gates, probs = _route(xf, p["router"]["gate_w"], cfg)
+    aux = _aux_loss(probs, ids, cfg) if with_aux else None
+    for a in batch_axes if with_aux else ():
+        aux = distributed.pmean(aux, a, mesh)
+    j = distributed.axis_index("model", mesh)
+    lo = j * E_loc
+    local = torch.where((ids >= lo) & (ids < lo + E_loc), ids - lo, torch.full_like(ids, E_loc))
+    experts = _local_experts(p["experts"], cfg.n_experts, E_loc, j)
+    out = _dispatch_compute_combine(xf, local, gates, experts, C, E_loc, x.dtype)
+    out = distributed.psum(out, "model", mesh)
+    return out.to(x.dtype).reshape(B, S, d), aux
+
+
+def _expert_parallel(cfg):
+    """The active rules where the layer runs expert-parallel, else None."""
+    rules = active_rules()
+    if (rules is not None and "model" in rules.mesh.shape
+            and cfg.n_experts % rules.mesh.shape["model"] == 0):
+        return rules
+    return None
+
+
+def _moe(p, x: torch.Tensor, cfg, *, with_aux: bool):
+    rules = _expert_parallel(cfg)
+    if rules is None:
+        out, ids, probs = _moe_local(p, x, cfg)
+        return out, (_aux_loss(probs, ids, cfg) if with_aux else None)
+    out, aux = _moe_expert_parallel(p, x, cfg, rules, with_aux=with_aux)
+    if "shared" in p:
+        out = out + ffn_forward(p["shared"], x)
+    return out, aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (B, S, d) -> out, without the load-balance loss: the serving
     paths discard it, so they do not launch its kernels."""
-    return _moe_local(p, x, cfg)[0]
+    return _moe(p, x, cfg, with_aux=False)[0]
 
 
 def moe_forward(p, x: torch.Tensor, cfg):
     """x: (B, S, d).  Returns (out, aux_loss)."""
-    out, ids, probs = _moe_local(p, x, cfg)
-    return out, _aux_loss(probs, ids, cfg)
+    return _moe(p, x, cfg, with_aux=True)

@@ -1,1 +1,2 @@
-"""Execution runtime: device resolution and kernel dispatch."""
+"""Execution runtime: device resolution, kernel dispatch, fault tolerance and
+the multi-device layer (``distributed``: meshes, collectives, the rank launcher)."""

@@ -8,8 +8,9 @@ and :class:`FaultInjector` with its engine-level fault classes
 (``nan_logits``, ``deny_pages``, ``slow_steps``) and its replica-level ones
 (``kill_replica``, ``hang_replica``, ``slow_replica``), which the serving
 cluster (:mod:`repro_torch.serving.cluster`) applies, and
-:class:`TrainLoopRunner`, the checkpoint-restart training loop.  The elastic
-re-shard belongs to the sharding layer, which the port does not have yet.
+:class:`TrainLoopRunner`, the checkpoint-restart training loop, and
+:class:`ElasticReshard`, which lays a state restored on the host onto a mesh
+that may differ from the one that saved it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StepWatchdog", "RetryableStep", "FaultInjector", "ReplicaKilled", "backoff_s", "TrainLoopRunner"]
+from repro_torch.tree import tree_map
+
+__all__ = ["StepWatchdog", "RetryableStep", "FaultInjector", "ReplicaKilled", "backoff_s", "TrainLoopRunner",
+           "ElasticReshard"]
 
 
 def backoff_s(attempt: int, *, base_s: float, cap_s: float, salt: int = 0) -> float:
@@ -228,6 +232,22 @@ def _wait_for(x) -> None:
     ``jax.block_until_ready``): a CUDA tensor's stream is synchronized."""
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.current_stream(x.device).synchronize()
+
+
+@dataclasses.dataclass
+class ElasticReshard:
+    """Re-lay a host-restored state onto a (possibly different) mesh: each
+    leaf becomes the block this rank holds under its sharding
+    (``runtime.distributed.NamedSharding``), copied onto ``device``."""
+
+    device: Optional[torch.device] = None
+
+    def apply(self, state_host, shardings):
+        def one(leaf, sh):
+            block = sh.local(torch.as_tensor(leaf))
+            return block.to(self.device if self.device is not None else block.device, copy=True).contiguous()
+
+        return tree_map(one, state_host, shardings)
 
 
 @dataclasses.dataclass

@@ -2,5 +2,5 @@
 with its chunked cross-entropy (``train_step``) and the greedy serving step
 (``serve_step``).  The checkpoint-restart loop is
 ``runtime/fault_tolerance.py::TrainLoopRunner``, driven by
-``launch/train.py``; the reference's pipeline-parallel step waits for the
-multi-device layer."""
+``launch/train.py``; the GPipe pipeline over the ``pod`` axis is
+``pipeline_parallel``."""

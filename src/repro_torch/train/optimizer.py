@@ -14,9 +14,13 @@ schedules return 0-d fp32 tensors, as the reference computes them.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Mapping, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_map as _map
+from repro_torch.tree import tree_part as _part
+from repro_torch.tree import tree_paths
 
 __all__ = [
     "Optimizer",
@@ -37,35 +41,12 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Any, Any, Any], tuple]  # (grads, state, params, step)
 
 
-def _map(fn, tree, *rest):
-    """fn over the leaves of ``tree`` (nested dicts), each with the subtrees
-    of ``rest`` at the same path (a leaf's optimizer state may be a dict)."""
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
-
-
-def _part(tree, i: int):
-    """Element ``i`` of every tuple leaf of ``tree``."""
-    if isinstance(tree, Mapping):
-        return {k: _part(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _tensor_leaves(tree):
-    if isinstance(tree, Mapping):
-        for k in tree:
-            yield from _tensor_leaves(tree[k])
-    else:
-        yield tree
-
-
 def _f32(step) -> torch.Tensor:
     return torch.as_tensor(step).to(torch.float32)
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in _tensor_leaves(tree)]
+    leaves = [torch.sum(torch.square(x.float())) for _, x in tree_paths(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 

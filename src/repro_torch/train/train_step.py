@@ -18,24 +18,34 @@ forward reaches runs through its ``torch.autograd.Function``
 and everything upstream of an attention call get their gradients on the
 card as on the CPU.  The forward and the optimizer run under the profiler
 ranges ``train_step.forward`` and ``train_step.optimizer`` (the backward
-shows as autograd's own ranges).  The reference's ``state_specs`` (the
-sharding of a TrainState) waits for the port's multi-device layer.
+shows as autograd's own ranges).  Under ``rules=`` the step runs inside
+``use_rules``, and :func:`state_specs` gives a TrainState's spec tree.
+Where ``rules.mesh`` is a live mesh (``runtime/distributed.py``), the step
+is one rank's: every rank holds the whole params and its block of the
+batch (split over the batch axes, the same block along "model"), the MoE
+layers run expert-parallel, and the gradients, the loss and the aux loss
+are averaged over the world before clipping.  With the psums' backward
+that is the gradient of the whole batch's loss (the reference's step under
+its rules).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Optional
 
 import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.runtime import dispatch
+from repro_torch.runtime.distributed import Mesh, pmean
+from repro_torch.sharding.rules import MeshRules, param_specs, use_rules
 from repro_torch.train import optimizer as opt_mod
+from repro_torch.tree import tree_from_paths, tree_map, tree_paths
 
 __all__ = ["TrainState", "make_train_step", "loss_and_grads", "softmax_xent", "chunked_softmax_xent",
-           "init_train_state", "tree_paths", "tree_from_paths"]
+           "init_train_state", "state_specs", "tree_paths", "tree_from_paths"]
 
 NEG_INF = -1e30
 
@@ -117,25 +127,30 @@ def init_train_state(model, optimizer: opt_mod.Optimizer, generator: torch.Gener
     return TrainState(params=params, opt_state=optimizer.init(params), step=torch.zeros((), dtype=torch.int32))
 
 
-def tree_paths(tree, prefix=""):
-    """(path, leaf) of every leaf of a nested dict, paths "a/b/c"."""
-    if isinstance(tree, Mapping):
-        for k in tree:
-            yield from tree_paths(tree[k], f"{prefix}/{k}" if prefix else str(k))
-    else:
-        yield prefix, tree
+def state_specs(state: TrainState, rules: MeshRules) -> TrainState:
+    """The spec tree of a TrainState: each optimizer moment takes its
+    param's spec (AdamW's m / v and SGD-momentum's mirror the params);
+    Adafactor's factored statistics take the param's spec without the
+    reduced axis (``vr`` drops the last entry, ``vc`` the one before it);
+    the step is replicated."""
+    p_specs = param_specs(state.params, rules)
 
+    def walk(o, s):
+        if isinstance(o, dict) and set(o) == {"vr", "vc"} and not isinstance(s, dict):
+            parts = tuple(s) if s is not None else ()
+            vr = parts[:-1] if parts else ()
+            vc = parts[:-2] + parts[-1:] if len(parts) >= 2 else ()
+            return {"vr": vr, "vc": vc}
+        if isinstance(o, dict) and set(o) == {"v"} and not isinstance(s, dict):
+            return {"v": s if s is not None else ()}
+        if isinstance(o, dict):
+            if isinstance(s, dict) and set(o) <= set(s):
+                return {k: walk(v, s[k]) for k, v in o.items()}
+            # AdamW's top level {"m": <params tree>, "v": <params tree>}
+            return {k: walk(v, s) for k, v in o.items()}
+        return s if s is not None else ()
 
-def tree_from_paths(paths_values) -> dict:
-    """The nested dict of (path, leaf) pairs (:func:`tree_paths`' inverse)."""
-    tree: dict = {}
-    for path, v in paths_values:
-        node = tree
-        keys = path.split("/")
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = v
-    return tree
+    return TrainState(params=p_specs, opt_state=walk(state.opt_state, p_specs), step=())
 
 
 def loss_and_grads(model, params, batch, *, aux_weight: float = 0.01, z_loss: float = 1e-4):
@@ -160,11 +175,12 @@ def loss_and_grads(model, params, batch, *, aux_weight: float = 0.01, z_loss: fl
     return tree_from_paths(zip(paths, grads)), loss.detach(), aux.detach()
 
 
-def make_train_step(model, optimizer: opt_mod.Optimizer, *, accum_steps: int = 1, max_grad_norm: float = 1.0,
-                    aux_weight: float = 0.01, z_loss: float = 1e-4):
-    """The step of ``model`` (a ``models.model.ModelApi``) under ``optimizer``.
-    Metrics: ``loss`` (the cross-entropy, z-loss included), ``aux_loss`` and
-    ``grad_norm`` (before clipping), as 0-d fp32 tensors."""
+def make_train_step(model, optimizer: opt_mod.Optimizer, *, rules: Optional[MeshRules] = None, accum_steps: int = 1,
+                    max_grad_norm: float = 1.0, aux_weight: float = 0.01, z_loss: float = 1e-4):
+    """The step of ``model`` (a ``models.model.ModelApi``) under ``optimizer``
+    (and ``rules``, active through the step).  Metrics: ``loss`` (the
+    cross-entropy, z-loss included), ``aux_loss`` and ``grad_norm`` (before
+    clipping), as 0-d fp32 tensors."""
 
     def grads_of(params, batch):
         return loss_and_grads(model, params, batch, aux_weight=aux_weight, z_loss=z_loss)
@@ -175,20 +191,29 @@ def make_train_step(model, optimizer: opt_mod.Optimizer, *, accum_steps: int = 1
         # microbatches: the batch dim must divide accum_steps
         micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
-        acc = opt_mod._map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
         lsum = asum = 0.0
         for i in range(accum_steps):
             grads, loss, aux = grads_of(params, {k: v[i] for k, v in micro.items()})
-            acc = opt_mod._map(lambda a, g: a + g.float(), acc, grads)
+            acc = tree_map(lambda a, g: a + g.float(), acc, grads)
             lsum, asum = lsum + loss, asum + aux
-        return opt_mod._map(lambda a: a / accum_steps, acc), lsum / accum_steps, asum / accum_steps
+        return tree_map(lambda a: a / accum_steps, acc), lsum / accum_steps, asum / accum_steps
+
+    world = rules.mesh.axes if rules is not None and isinstance(rules.mesh, Mesh) else None
+
+    def world_mean(t):
+        return pmean(t.float(), world, rules.mesh).to(t.dtype)
 
     def train_step(state: TrainState, batch):
-        grads, loss, aux = compute_grads(state.params, batch)
-        with torch.no_grad(), record_function("train_step.optimizer"):
-            grads, gnorm = opt_mod.clip_by_global_norm(grads, max_grad_norm)
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params, state.step)
-            params = opt_mod.apply_updates(state.params, updates)
+        with use_rules(rules):
+            grads, loss, aux = compute_grads(state.params, batch)
+            if world is not None:  # the mean over the ranks' losses: see the module docstring
+                with torch.no_grad():
+                    grads, loss, aux = tree_map(world_mean, grads), world_mean(loss), world_mean(aux)
+            with torch.no_grad(), record_function("train_step.optimizer"):
+                grads, gnorm = opt_mod.clip_by_global_norm(grads, max_grad_norm)
+                updates, opt_state = optimizer.update(grads, state.opt_state, state.params, state.step)
+                params = opt_mod.apply_updates(state.params, updates)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
         return new_state, {"loss": loss, "aux_loss": aux, "grad_norm": gnorm}
 

@@ -1367,3 +1367,18 @@ def _flat(tree, prefix=""):
             yield from _flat(v, f"{prefix}/{k}" if prefix else k)
     else:
         yield prefix, tree
+
+
+@pytest.mark.gpu
+def test_gpu_nccl_refuses_two_ranks_on_one_card(cuda):
+    """NCCL takes one rank a card: two ranks on one device raise before any
+    process starts (no quiet switch to gloo); one rank runs."""
+    import torch_ranks
+    from repro_torch.runtime import distributed
+
+    with pytest.raises(RuntimeError, match="one rank per card"):
+        distributed.spawn(torch_ranks.rank_of, 2, (2,), ("data",), "cuda:0", backend="nccl")
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(RuntimeError, match="one rank per card"):
+            distributed.spawn(torch_ranks.rank_of, 2, (2,), ("data",), "cuda", backend="nccl")
+    assert distributed.spawn(torch_ranks.rank_of, 1, (1,), ("data",), "cuda", backend="nccl") == [0]

@@ -1,0 +1,153 @@
+"""The rank program of ``tests/test_torch_distributed.py``.
+
+``runtime.distributed.spawn`` pickles the function it runs by reference,
+so it lives in a module of its own that imports neither jax nor the
+reference: each of the eight CPU ranks imports only torch and the port.
+Every part runs at the reference's test sizes (``tests/test_distributed.py``)
+on the inputs the reference drew, handed over as CPU tensors.
+"""
+
+import dataclasses
+import os
+
+import torch
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import gradient_compression as gc
+from repro_torch.core.distributed_rsi import distributed_rsi
+from repro_torch.core.rsi import QR_FALLBACKS
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.models import moe
+from repro_torch.models.model import build_model
+from repro_torch.runtime import distributed
+from repro_torch.runtime.distributed import MeshSpec, NamedSharding, local_block
+from repro_torch.sharding.rules import MeshRules, use_rules
+from repro_torch.train import optimizer as t_opt
+from repro_torch.train import train_step as t_ts
+from repro_torch.train.pipeline_parallel import gpipe_apply
+
+RSI_K, RSI_Q = 32, 3
+TSQR_K, TSQR_Q = 170, 3  # the energy rule's probe rank and q on the sharp spectrum
+PIPE_MICROBATCHES = 4
+POWERSGD = gc.PowerSGDConfig(rank=8, min_size=1024)
+TRAIN_LR = 1e-2  # SGD with momentum: the step's update is linear in the gradient
+
+
+def _t(a: torch.Tensor) -> torch.Tensor:
+    return a.clone()
+
+
+def _unflatten(flat: dict, prefix: str) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        if key.startswith(prefix):
+            node = tree
+            parts = key[len(prefix):].split("/")
+            for k in parts[:-1]:
+                node = node.setdefault(k, {})
+            node[parts[-1]] = v
+    return tree
+
+
+def _tanh_block(w, h):
+    return torch.tanh(h @ w)
+
+
+def _grads(tree: dict, prefix: str = "") -> dict:
+    """path -> gradient (numpy) of every leaf of a tree of tensors."""
+    out = {}
+    for path, t in t_ts.tree_paths(tree, prefix):
+        out[path] = t.grad.numpy()
+    return out
+
+
+def ranks(mesh, ref: dict, ckpt_dir: str) -> dict:
+    """Every part on this rank; returns numpy arrays and counts."""
+    rank = mesh.rank
+    out = {}
+
+    # distributed RSI on (2, 4) ("data", "model")
+    W = _t(ref["rsi_W"])
+    blk = local_block(W, ("data", "model"), mesh, rank)
+    res = distributed_rsi(blk, RSI_K, RSI_Q, omega=_t(ref["rsi_omega"]))
+    out["rsi"] = {"U": res.U.numpy(), "S": res.S.numpy(), "Vt": res.Vt.numpy()}
+
+    # the TSQR redo: the sharp spectrum whose fp32 Gram breaks down
+    QR_FALLBACKS.reset()
+    Wsharp = _t(ref["tsqr_W"])
+    res = distributed_rsi(local_block(Wsharp, ("data", "model"), mesh, rank), TSQR_K, TSQR_Q,
+                          omega=_t(ref["tsqr_omega"]))
+    out["tsqr"] = {"U": res.U.numpy(), "S": res.S.numpy(), "Vt": res.Vt.numpy(), "fallbacks": QR_FALLBACKS.count}
+
+    # expert-parallel MoE on the same mesh: tokens over "data", experts over "model"
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b", reduced=True), n_experts=8, capacity_factor=8.0)
+    p = params_from_numpy(_unflatten({k: v.numpy() for k, v in ref.items()}, "moe_p/"), "cpu")
+    rules = MeshRules(mesh)
+    x = _t(ref["moe_x"])
+    x_loc = local_block(x, rules.spec(("batch", None, None), tuple(x.shape)), mesh, rank)
+    with use_rules(rules), torch.no_grad():
+        y, aux = moe.moe_forward(p, x_loc, cfg)
+    out["moe"] = {"y": y.numpy(), "aux": float(aux)}
+    # its backward: this rank's loss, the mean over its tokens of <y, w> plus the aux loss
+    for t in (v for _, v in t_ts.tree_paths(p)):
+        t.requires_grad_()
+    xg = x_loc.clone().requires_grad_()
+    w_loc = local_block(_t(ref["moe_w"]), rules.spec(("batch", None, None), tuple(x.shape)), mesh, rank)
+    with use_rules(rules):
+        yg, auxg = moe.moe_forward(p, xg, cfg)
+    (torch.mean(torch.sum(yg * w_loc, -1)) + auxg).backward()
+    out["moe"].update(grads=_grads(p), gx=xg.grad.numpy())
+
+    # GPipe over "pod": 4 stages; the two "data" rows run the same pipeline
+    pipe = distributed.make_mesh((2, 4), ("data", "pod"))
+    ws, xp = _t(ref["pipe_ws"]), _t(ref["pipe_x"])
+    with distributed.use_mesh(pipe):
+        got = gpipe_apply(_tanh_block, n_microbatches=PIPE_MICROBATCHES)(local_block(ws, ("pod",), pipe, rank), xp)
+    seq = []
+    for mb in xp.reshape(PIPE_MICROBATCHES, -1, xp.shape[-1]):
+        for w in ws:
+            mb = _tanh_block(w, mb)
+        seq.append(mb)
+    out["pipe"] = {"y": got.numpy(), "seq": torch.cat(seq).numpy()}
+    # its backward: every stage's loss <y, wo>
+    wl = local_block(ws, ("pod",), pipe, rank).clone().requires_grad_()
+    xg = xp.clone().requires_grad_()
+    with distributed.use_mesh(pipe):
+        yg = gpipe_apply(_tanh_block, n_microbatches=PIPE_MICROBATCHES)(wl, xg)
+    torch.sum(yg * _t(ref["pipe_wo"])).backward()
+    # only the first stage reads x
+    out["pipe"].update(gws=wl.grad.numpy(), gx=(xg.grad if xg.grad is not None else torch.zeros_like(xg)).numpy())
+
+    # one step of make_train_step(rules=) on a reduced phi3.5-moe: EP layers, the batch over "data"
+    tcfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b", reduced=True), dtype="float32", capacity_factor=8.0)
+    model, opt = build_model(tcfg, device="cpu"), t_opt.sgdm(t_opt.constant_schedule(TRAIN_LR))
+    params = params_from_numpy(_unflatten({k: v.numpy() for k, v in ref.items()}, "ts_p/"), "cpu")
+    state = t_ts.TrainState(params=params, opt_state=opt.init(params), step=torch.zeros((), dtype=torch.int32))
+    batch = shard_batch({"tokens": ref["ts_tokens"], "targets": ref["ts_targets"]}, rules)
+    state, m = t_ts.make_train_step(model, opt, rules=rules)(state, batch)
+    out["train"] = {"metrics": {k: float(v) for k, v in m.items()},
+                    "params": {k: v.numpy() for k, v in t_ts.tree_paths(state.params)}}
+
+    # PowerSGD over 8 data ranks, from the reference's initial Q
+    dp = distributed.make_mesh((8,), ("data",))
+    g = {"w": _t(ref["psgd_grads"][rank])}
+    with distributed.use_mesh(dp):
+        state = gc.init_powersgd(g, POWERSGD, qs={"w": _t(ref["psgd_q"])})
+        mean, _ = gc.compress_allreduce(g, state, "data", POWERSGD)
+    out["psgd"] = {"y": mean["w"].numpy(), "bytes": gc.comm_bytes(g, POWERSGD)}
+
+    # the elastic reshard: saved from (2, 4), restored onto (8, 1)
+    W2 = torch.arange(64 * 32, dtype=torch.float32).reshape(64, 32)
+    saved = {"w": local_block(W2, ("data", "model"), mesh, rank).clone()}
+    ckpt.save(saved, ckpt_dir, 3, codec="raw", shardings={"w": NamedSharding(mesh, ("data", "model"))})
+    target = MeshSpec((8, 1), ("data", "model"))
+    restored, _ = ckpt.restore(saved, ckpt_dir, shardings={"w": NamedSharding(target, ("data", "model"))})
+    out["reshard"] = {"w": restored["w"].numpy(), "files": sorted(os.listdir(ckpt_dir))}
+    return out
+
+
+def rank_of(mesh) -> int:
+    """The smallest rank program: this rank's index."""
+    return mesh.rank
