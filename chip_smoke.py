@@ -37,6 +37,8 @@
     python3 chip_smoke.py --multi-only
                              # phase 29 (the multi-device layer on eight ranks sharing
                              # the card) alone, on the q = 4 llama3.2-1b
+    python3 chip_smoke.py --dryrun-only
+                             # phase 30 (the dry-run's counts against the card) alone
 
 Needs one CUDA card (an H100 for the numbers to mean anything) and ``nvcc``.
 Imports nothing of JAX and nothing of the reference package ``repro``.
@@ -465,6 +467,22 @@ Phases, in order; any failure exits non-zero before the last line:
    seconds (rank 0, between barriers) and each kernel's launches on the
    ranks (every one of the four > 0) are printed; the ranks time-share one
    card, so no time here is a multi-card figure.
+30. The dry-run against the card (``launch/dryrun.py``, ``roofline/``):
+   uncompressed llama3.2-1b at full width in bf16, one card (world 1),
+   through one AdamW train step at phase 28's batch (8 x 256), one prefill
+   at phase 3's static shape (4 x 256, max_len 288) and one decode step at
+   batch 4 over a 288-position cache, each counted on fakes in the dry world
+   first and then run on the card: the bytes allocated before the step
+   within 1% of the dry-run's ``argument_bytes``, the step's peak
+   (``max_memory_allocated``) within 10% of its ``peak_bytes`` (both
+   counted from what was allocated before the step was built, cuBLAS's
+   workspaces released), the
+   dispatch's kernel calls equal to its ``kernels`` op by op, and the step's
+   matmul FLOPs (``FlopCounterMode``) within 1% of its matmul FLOPs; device
+   busy ms (one profiled call) printed beside max(t_compute, t_memory) at
+   the H100's data-sheet rates, not gated.  Then (b) one production cell,
+   llama3.2-1b train_4k on the dry 16 x 16 mesh, runs to its end and prints
+   its record and its gradient all-reduce's bytes by mesh axis.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -511,6 +529,27 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # --lowrank-only and --ssd-only can time another checkout's kernels in the same call
 SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1]) if "--src" in sys.argv else os.path.join(HERE, "src")
 sys.path.insert(0, SRC)
+
+
+
+class _KernelCost:
+    """This checkout's ``src/repro_torch/roofline/kernel_cost.py``, loaded by
+    path on first use: the kernels' (ops, bytes) formulas that every bound
+    below divides, whichever tree ``--src`` names (an older tree may have
+    no such module)."""
+
+    def __getattr__(self, name):
+        import importlib.util
+
+        path = os.path.join(HERE, "src", "repro_torch", "roofline", "kernel_cost.py")
+        spec = importlib.util.spec_from_file_location("chip_smoke_kernel_cost", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        self.__dict__.update(vars(mod))
+        return getattr(mod, name)
+
+
+kernel_cost = _KernelCost()
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; fp32 outside them
@@ -746,7 +785,9 @@ def launch_floor() -> dict:
     return floor
 
 
-def bound(bytes_moved: float, ops: float, dtype_name: str):
+def bound(cost: tuple, dtype_name: str):
+    """(ms, what binds) of a kernel's ``(ops, bytes)`` cost (``roofline/kernel_cost.py``)."""
+    ops, bytes_moved = cost
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -759,12 +800,13 @@ def nbytes(*ts) -> int:
 # --------------------------------------------------------------------------- #
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------------- #
-def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn, library_fn, bytes_moved, ops,
+def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn, library_fn, cost,
           records, key=None, extra=None):
     """Compare, time, and print one JSON line; keep the first bf16 case of
     each kernel (its main-path representative) for the summary, under
-    ``key`` (default the kernel's name).  ``extra``: more fields of the
-    record (another bound, the occupancy)."""
+    ``key`` (default the kernel's name).  ``cost``: the kernel's (ops,
+    bytes) from ``roofline/kernel_cost.py``, its bound's inputs.  ``extra``:
+    more fields of the record (another bound, the occupancy)."""
     import torch
 
     torch.cuda.synchronize()
@@ -772,7 +814,7 @@ def check(name, shape, dtype, got, want, rel_tol, reason, *, kernel_fn, plain_fn
     scale = float(want.float().abs().max())
     ok = err <= rel_tol * scale and bool(torch.isfinite(got.float()).all())
     dname = str(dtype).replace("torch.", "")
-    b_ms, b_by = bound(bytes_moved, ops, dname)
+    b_ms, b_by = bound(cost, dname)
     rec = {
         "name": name, "shape": shape, "dtype": dname, "max_abs_err": err, "tol": rel_tol * scale,
         "tol_reason": reason, "ok": ok,
@@ -861,8 +903,7 @@ def phase_lowrank_kernels(rnd, gemm_tol, records):
               kernel_fn=lambda: lowrank_matmul(x, A, B),
               plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
               library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-              bytes_moved=nbytes(x, A, B) + M * N * x.element_size(),
-              ops=2 * M * K * r + 2 * M * r * N, records=records if key else {}, key=key)
+              cost=kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()), records=records if key else {}, key=key)
         if key and label:
             plan_ms[f"{label} M {M}"] = {f: records[key][f] for f in ("ms", "library_ms", "bound_ms")}
         del x, A, B, got
@@ -907,15 +948,13 @@ def phase_batched_kernels(rnd, gemm_tol, records):
         if counts is not None and not bool((got[~live] == 0).all()):
             fail(f"lowrank_matmul_batched {label} at the {occ} occupancy: a row past its expert's count is not zero")
         esz = x.element_size()
-        factor = (K * r + r * N) * esz  # one expert's factors
-        xy = nbytes(x) + E * C * N * esz
-        all_ms, all_by = bound(E * factor + xy, 2 * E * C * (K * r + r * N), str(dtype).replace("torch.", ""))
+        all_ms, all_by = bound(kernel_cost.lowrank_matmul_batched(E, C, K, r, N, esz), str(dtype).replace("torch.", ""))
         key = f"lowrank_matmul_batched {occ}" if occ != "full" and label == "decode w_gate" else None
         check("lowrank_matmul_batched", [E, C, K, r, N, label, f"{occ} occupancy"], dtype, got, want, rel, why,
               kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
               plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
               library_fn=lambda: torch.bmm(torch.bmm(x, A), B),  # bmm rounds t to x's dtype, as the kernel
-              bytes_moved=n_live * factor + xy, ops=2 * rows * (K * r + r * N),
+              cost=kernel_cost.lowrank_matmul_batched(E, C, K, r, N, esz, live_experts=n_live, live_rows=rows),
               records=records if occ == "full" or key else {}, key=key,
               extra={"live_experts": n_live, "live_rows": rows, "bound_all_ms": all_ms, "bound_all_by": all_by})
         del x, A, B, got, want
@@ -1132,8 +1171,8 @@ def phase_kernels() -> dict:
                   kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
                   plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
                   library_fn=lambda: torch.matmul(W.T if trans else W, Y),
-                  bytes_moved=nbytes(W, Y) + M_out * ell * W.element_size(),
-                  ops=2 * C * D * ell, records=records if storage == "aligned_rows" else {},
+                  cost=kernel_cost.sketch_matmul(C, D, ell, W.element_size(), trans_a=trans),
+                  records=records if storage == "aligned_rows" else {},
                   key="sketch_matmul trans_a" if trans else "sketch_matmul")
             del Y, got
         del W
@@ -1159,16 +1198,14 @@ def phase_kernels() -> dict:
                   kernel_fn=lambda: decode_attention(q, k, v, valid),
                   plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
                   library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-                  bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size()
-                  + Bq * H * hd * q.element_size(),
-                  ops=4 * H * hd * n_rows, records=records)
+                  cost=kernel_cost.decode_attention(Bq, S, H, KV, hd, q.element_size(), n_rows=n_rows),
+                  records=records)
 
         # prefill attention: S 256 (the main path), S 200 (a ragged tile), S 200 with a window
         for S, window in ((PROMPT, None), (200, None), (200, 64)):
             q, k, v = rnd((Bq, S, H, hd), dtype), rnd((Bq, S, KV, hd), dtype), rnd((Bq, S, KV, hd), dtype)
             got = flash_attention(q, k, v, causal=True, window=window)
             qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            pairs = sum(min(i + 1, window or i + 1) for i in range(S))
             # the library call: causal SDPA, or SDPA under the same causal-window mask
             win_mask = ref.attention_mask(S, S, causal=True, window=window, q_offset=0, device=dev)
             check("flash_attention", [Bq, S, H, KV, hd, window], dtype, got,
@@ -1178,8 +1215,8 @@ def phase_kernels() -> dict:
                   library_fn=(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True))
                   if window is None else
                   (lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=win_mask, enable_gqa=True)),
-                  bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
-                  ops=4 * Bq * H * pairs * hd, records=records)
+                  cost=kernel_cost.flash_attention(Bq, S, S, H, KV, hd, q.element_size(), window=window),
+                  records=records)
 
     phase_paged_kernel(rnd, gen, attn_tol, records)
     phi = phase_moe_kernels(rnd, gen, gemm_tol, attn_tol, records)
@@ -1199,7 +1236,7 @@ def phase_kernels() -> dict:
           kernel_fn=lambda: sketch_matmul(E, xT, out_dtype=torch.float32),
           plain_fn=lambda: ref.sketch_matmul_ref(E, xT, out_dtype=torch.float32),
           library_fn=lambda: torch.matmul(xT.T, E.T),
-          bytes_moved=nbytes(E, xT) + 128256 * BATCH * 4, ops=2 * 128256 * 2048 * BATCH, records=records,
+          cost=kernel_cost.sketch_matmul(128256, 2048, BATCH, E.element_size(), out_itemsize=4), records=records,
           key="sketch_matmul logits")
     del E, xT
 
@@ -1218,7 +1255,7 @@ def phase_kernels() -> dict:
               ref.sketch_matmul_ref(x, head, out_dtype=torch.float32), rel, why,
               kernel_fn=fn, plain_fn=lambda: ref.sketch_matmul_ref(x, head, out_dtype=torch.float32),
               library_fn=lambda: torch.matmul(x, head),
-              bytes_moved=nbytes(head, x) + n * V * 4, ops=2 * n * d * V,
+              cost=kernel_cost.sketch_matmul(d, V, n, head.element_size(), trans_a=True, out_itemsize=4),
               records=records if main_form else {}, key="sketch_matmul untied head")
     del head, x, xT
     torch.cuda.empty_cache()
@@ -1262,14 +1299,12 @@ def phase_attention_kernels(rnd, gen, attn_tol, H, KV, hd, out, tag):
         q, k, v = rnd((BATCH, PROMPT, H, hd), dtype), rnd((BATCH, PROMPT, KV, hd), dtype), rnd((BATCH, PROMPT, KV, hd), dtype)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         got = flash_attention(q, k, v, causal=True)
-        pairs = PROMPT * (PROMPT + 1) // 2
         check("flash_attention", [BATCH, PROMPT, H, KV, hd, None], dtype, got,
               ref.chunked_attention_ref(q, k, v, causal=True), rel, why,
               kernel_fn=lambda: flash_attention(q, k, v, causal=True),
               plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True),
-              bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(), ops=4 * BATCH * H * pairs * hd,
-              records=out)
+              cost=kernel_cost.flash_attention(BATCH, PROMPT, PROMPT, H, KV, hd, q.element_size()), records=out)
         S = ENGINE["max_len"]
         q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((Bq, S, KV, hd), dtype), rnd((Bq, S, KV, hd), dtype)
         n_valid = torch.tensor([S, 1, 0, 65, 191, 100, S // 2, 7], device=dev)
@@ -1283,8 +1318,7 @@ def phase_attention_kernels(rnd, gen, attn_tol, H, KV, hd, out, tag):
               kernel_fn=lambda: decode_attention(q, k, v, valid),
               plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
-              ops=4 * H * hd * n_rows, records=out)
+              cost=kernel_cost.decode_attention(Bq, S, H, KV, hd, q.element_size(), n_rows=n_rows), records=out)
         page, n_tbl = ENGINE["page_size"], -(-ENGINE["max_len"] // ENGINE["page_size"])
         P = Bq * n_tbl + 1
         kp, vp = rnd((P, page, KV, hd), dtype), rnd((P, page, KV, hd), dtype)
@@ -1302,8 +1336,8 @@ def phase_attention_kernels(rnd, gen, attn_tol, H, KV, hd, out, tag):
               kernel_fn=lambda: paged_decode_attention(q, kp, vp, bt, nv),
               plain_fn=lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, nv),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-              bytes_moved=nbytes(q, bt, nv) + n_rows * KV * 2 * hd * kp.element_size() + Bq * H * hd * q.element_size(),
-              ops=4 * H * hd * n_rows, records=out)
+              cost=kernel_cost.paged_decode_attention(Bq, n_tbl, H, KV, hd, q.element_size(), n_rows=n_rows),
+              records=out)
         say(f"[{tag} kernels] paged == flat kernel bit for bit at page 64, {H}/{KV} heads, head_dim {hd}, "
             f"{dtype}: True")
         del q, k, v, kp, vp, qs, ks, vs, got, flat
@@ -1340,7 +1374,7 @@ def phase_dense_kernels(rnd, gen, gemm_tol, attn_tol, records) -> dict:
                   ref.lowrank_matmul_ref(x, A, B), rel, why,
                   kernel_fn=lambda: lowrank_matmul(x, A, B), plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
                   library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-                  bytes_moved=nbytes(x, A, B) + M * N * x.element_size(), ops=2 * M * K * r + 2 * M * r * N,
+                  cost=kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()),
                   records=records, key=f"lowrank_matmul {short} M {M}")
             del x
         del A, B
@@ -1355,7 +1389,7 @@ def phase_dense_kernels(rnd, gen, gemm_tol, attn_tol, records) -> dict:
               why, kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
               plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
               library_fn=lambda: torch.matmul(W.T if trans else W, Y),
-              bytes_moved=nbytes(W, Y) + M_out * r * W.element_size(), ops=2 * K * N * r, records=records,
+              cost=kernel_cost.sketch_matmul(K, N, r, W.element_size(), trans_a=trans), records=records,
               key="sketch_matmul qwen2 trans_a" if trans else "sketch_matmul qwen2")
         del Y
     del W
@@ -1408,9 +1442,8 @@ def phase_paged_kernel(rnd, gen, attn_tol, records):
                   plain_fn=lambda: ref.paged_decode_attention_ref(q, k, v, bt, n_valid),
                   # SDPA on the pre-gathered cache: the gather is not timed
                   library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
-                  bytes_moved=nbytes(q, bt, n_valid) + n_rows * KV * 2 * hd * k.element_size()
-                  + Bq * H * hd * q.element_size(),
-                  ops=4 * H * hd * n_rows, records=records)
+                  cost=kernel_cost.paged_decode_attention(Bq, n_tbl, H, KV, hd, q.element_size(), n_rows=n_rows),
+                  records=records)
             del q, k, v, flat_k, flat_v, qs, ks, vs
 
 
@@ -3428,16 +3461,6 @@ def phase_moe_main():
 # --------------------------------------------------------------------------- #
 # phase 2 (SSM): the SSD scan kernel, and attention at G = 1
 # --------------------------------------------------------------------------- #
-def ssd_ops(B: int, L: int, nh: int, hd: int, s: int, Q: int = SSD_CHUNK) -> int:
-    """Operations of the chunked SSD at chunk Q on these shapes, counting each
-    product once: C B^T once per (sequence, chunk), shared by the heads; the
-    masked intra-chunk product over its t >= u half; the carried state's
-    contribution to y; the state update."""
-    n_chunks = -(-L // Q)
-    per_chunk = 2 * Q * Q * s + nh * (Q * (Q + 1) * hd + 2 * Q * s * hd + 2 * Q * s * hd)
-    return B * n_chunks * per_chunk
-
-
 def phase_ssd_kernels(rnd, gen, records) -> None:
     """``ssd_scan`` against its plain version (the reference's chunk rule) at
     zamba2-1.2b's shapes (nh 64, hd 64, s 64) at (B, L) = (1, 512) and
@@ -3486,7 +3509,7 @@ def phase_ssd_kernels(rnd, gen, records) -> None:
                   kernel_fn=lambda: ssd_scan(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
                   plain_fn=lambda: ref.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=256, round_xbar=rnd_x),
                   library_fn=None,  # no single PyTorch call computes the SSD scan
-                  bytes_moved=nbytes(x, dt, Bm, Cm, A, y, st), ops=ssd_ops(Bq, L, nh, hd, s),
+                  cost=kernel_cost.ssd_scan(Bq, L, nh, hd, s, x.element_size()),
                   records=records if dtype == torch.bfloat16 else {}, key=key)
             if dtype == torch.bfloat16 and "ssd_scan" not in records:
                 records["ssd_scan"] = records[key]
@@ -3529,8 +3552,7 @@ def phase_ssm_kernels(rnd, gen, records) -> dict:
               kernel_fn=lambda: flash_attention(q, k, v, causal=True),
               plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
-              bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
-              ops=4 * BATCH * H * (PROMPT * (PROMPT + 1) // 2) * hd, records=g1)
+              cost=kernel_cost.flash_attention(BATCH, PROMPT, PROMPT, H, KV, hd, q.element_size()), records=g1)
         q, k, v = rnd((Bq, 1, H, hd), dtype), rnd((Bq, S, KV, hd), dtype), rnd((Bq, S, KV, hd), dtype)
         n_valid = torch.tensor([S, 1, 0, 65, 191, 100, S // 2, 7], device=dev)
         valid = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
@@ -3541,8 +3563,7 @@ def phase_ssm_kernels(rnd, gen, records) -> dict:
               kernel_fn=lambda: decode_attention(q, k, v, valid),
               plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
-              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
-              ops=4 * H * hd * n_rows, records=g1)
+              cost=kernel_cost.decode_attention(Bq, S, H, KV, hd, q.element_size(), n_rows=n_rows), records=g1)
         P = Bq * n_tbl + 1
         kp, vp = rnd((P, page, KV, hd), dtype), rnd((P, page, KV, hd), dtype)
         kp[-1], vp[-1] = 1e4, -1e4
@@ -3558,8 +3579,8 @@ def phase_ssm_kernels(rnd, gen, records) -> dict:
               kernel_fn=lambda: paged_decode_attention(q, kp, vp, bt, nv),
               plain_fn=lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, nv),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
-              bytes_moved=nbytes(q, bt, nv) + n_rows * KV * 2 * hd * kp.element_size() + Bq * H * hd * q.element_size(),
-              ops=4 * H * hd * n_rows, records=g1)
+              cost=kernel_cost.paged_decode_attention(Bq, n_tbl, H, KV, hd, q.element_size(), n_rows=n_rows),
+              records=g1)
         del q, k, v, kp, vp, got
     torch.cuda.empty_cache()
     return g1
@@ -3690,8 +3711,7 @@ def phase_prefill_profile(model, params, L: int = 512, calls: int = 3, tag: str 
     # one scan call's bound at this shape: x, dt, B, C, A read once, y and the fp32 state written once
     cfg = model.cfg
     nh, hd, s = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    ssd_bytes = 2 * L * nh * hd * 2 + L * nh * 4 + 2 * L * s * 2 + nh * 4 + nh * hd * s * 4
-    ssd_bound, ssd_by = bound(ssd_bytes, ssd_ops(1, L, nh, hd, s), "bfloat16")
+    ssd_bound, ssd_by = bound(kernel_cost.ssd_scan(1, L, nh, hd, s, 2), "bfloat16")
     say(f"[{tag}] one monolithic (1, {L}) prefill: host {wall * 1e3:.3f} ms (profiler off, mean of {calls}); "
         f"device busy {device_ms:.3f} ms (profiler): ssd_scan {ssd_ms:.3f} ms ({ssd_ms / device_ms:.3f}, "
         f"{cfg.n_layers} launches, {ssd_ms / cfg.n_layers:.4f} ms a launch against a bound of {ssd_bound:.4f} ms "
@@ -3814,7 +3834,7 @@ def paper_kernel_checks(W, records: dict) -> None:
                   kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
                   plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
                   library_fn=lambda: torch.matmul(W.T if trans else W, Y),
-                  bytes_moved=nbytes(W, Y) + M_out * k * 4, ops=2 * C * D * k, records=records,
+                  cost=kernel_cost.sketch_matmul(C, D, k, W.element_size(), trans_a=trans), records=records,
                   key=f"sketch_matmul fig4_1 k {k}" + (" trans_a" if trans else ""))
             del Y
     M, K, r, N = 2048, 512, 103, 512
@@ -3824,7 +3844,7 @@ def paper_kernel_checks(W, records: dict) -> None:
     check("lowrank_matmul", [M, K, r, N, "table4_1 fc1 alpha 0.2"], torch.float32, lowrank_matmul(x, A, B),
           ref.lowrank_matmul_ref(x, A, B), rel, why, kernel_fn=lambda: lowrank_matmul(x, A, B),
           plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B), library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-          bytes_moved=nbytes(x, A, B) + M * N * 4, ops=2 * M * K * r + 2 * M * r * N, records=records,
+          cost=kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()), records=records,
           key="lowrank_matmul table4_1")
 
 
@@ -4373,7 +4393,6 @@ def phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
                             ((1, H2O_LONG_PROMPT), "flash_attention h2o window 16k")):
             q, k, v = rnd((B, S, H, hd), dtype), rnd((B, S, KV, hd), dtype), rnd((B, S, KV, hd), dtype)
             got = flash_attention(q, k, v, causal=True, window=W)
-            pairs = sum(min(i + 1, W) for i in range(S))  # the (query, key) pairs in the causal window
             qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             if S <= W:
                 library = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)  # noqa: E731
@@ -4387,8 +4406,8 @@ def phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
                   ref.chunked_attention_ref(q, k, v, causal=True, window=W), rel, why,
                   kernel_fn=lambda: flash_attention(q, k, v, causal=True, window=W),
                   plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True, window=W),
-                  library_fn=library, bytes_moved=nbytes(q, k, v) + q.numel() * q.element_size(),
-                  ops=4 * B * H * pairs * hd, records=records, key=key)
+                  library_fn=library, cost=kernel_cost.flash_attention(B, S, S, H, KV, hd, q.element_size(), window=W),
+                  records=records, key=key)
             del q, k, v, qs, ks, vs, got, library
             torch.cuda.empty_cache()
         # the decode over a ring that has wrapped: every one of its W slots valid
@@ -4402,8 +4421,8 @@ def phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
               kernel_fn=lambda: decode_attention(q, k, v, valid),
               plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid),
               library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True),
-              bytes_moved=nbytes(q, valid) + n_rows * KV * 2 * hd * k.element_size() + Bq * H * hd * q.element_size(),
-              ops=4 * H * hd * n_rows, records=records, key="decode_attention h2o ring")
+              cost=kernel_cost.decode_attention(Bq, W, H, KV, hd, q.element_size(), n_rows=n_rows),
+              records=records, key="decode_attention h2o ring")
         del q, k, v, qs, ks, vs, valid
     rel, why = gemm_tol[torch.bfloat16]
     K, r, N = H2O_W_GATE
@@ -4414,7 +4433,7 @@ def phase_h2o_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
               ref.lowrank_matmul_ref(x, A, B), rel, why,
               kernel_fn=lambda: lowrank_matmul(x, A, B), plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
               library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-              bytes_moved=nbytes(x, A, B) + M * N * x.element_size(), ops=2 * M * K * r + 2 * M * r * N,
+              cost=kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()),
               records=records, key=f"lowrank_matmul h2o M {M}")
         del x
     del A, B
@@ -4620,7 +4639,6 @@ def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
             off = Skv - Sq
             q, k, v = rnd((B, Sq, H, hd), dtype), rnd((B, Skv, H, hd), dtype), rnd((B, Skv, H, vd), dtype)
             got = flash_attention(q, k, v, causal=True, q_offset=off)
-            pairs = sum(min(off + i + 1, Skv) for i in range(Sq))  # the causal (query, key) pairs
             qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             mask = ref.attention_mask(Sq, Skv, causal=True, window=None, q_offset=off, device=dev)
             library = (lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)) if off == 0 else \
@@ -4634,8 +4652,9 @@ def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
                   ref.chunked_attention_ref(q, k, v, causal=True, q_offset=off), rel, why,
                   kernel_fn=lambda: flash_attention(q, k, v, causal=True, q_offset=off),
                   plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=True, q_offset=off),
-                  library_fn=library, bytes_moved=nbytes(q, k, v) + B * Sq * H * vd * q.element_size(),
-                  ops=2 * B * H * pairs * (hd + vd), records=records if off == 0 else {},
+                  library_fn=library,
+                  cost=kernel_cost.flash_attention(B, Sq, Skv, H, H, hd, q.element_size(), q_offset=off, vd=vd),
+                  records=records if off == 0 else {},
                   key="flash_attention deepseek mla" if off == 0 else None, extra={"library_call": call})
             del q, k, v, qs, ks, vs, got, mask, library
             torch.cuda.empty_cache()
@@ -4660,15 +4679,13 @@ def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
         if counts is not None and not bool((got[~live] == 0).all()):
             fail(f"lowrank_matmul_batched deepseek {label} at the decode occupancy: a row past its count is not zero")
         esz = x.element_size()
-        factor = (K * r + r * N) * esz
-        xy = nbytes(x) + E * C * N * esz
-        all_ms, all_by = bound(E * factor + xy, 2 * E * C * (K * r + r * N), str(dtype).replace("torch.", ""))
+        all_ms, all_by = bound(kernel_cost.lowrank_matmul_batched(E, C, K, r, N, esz), str(dtype).replace("torch.", ""))
         check("lowrank_matmul_batched", [E, C, K, r, N, f"{DEEPSEEK_ARCH} {label}", f"{occ} occupancy"], dtype, got,
               want, rel, why,
               kernel_fn=lambda: lowrank_matmul_batched(x, A, B),
               plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
               library_fn=lambda: torch.bmm(torch.bmm(x, A), B),
-              bytes_moved=n_live * factor + xy, ops=2 * rows * (K * r + r * N),
+              cost=kernel_cost.lowrank_matmul_batched(E, C, K, r, N, esz, live_experts=n_live, live_rows=rows),
               records=records, key=f"lowrank_matmul_batched deepseek {label} {occ}",
               extra={"live_experts": n_live, "live_rows": rows, "bound_all_ms": all_ms, "bound_all_by": all_by})
         del x, A, B, got, want
@@ -4684,7 +4701,7 @@ def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
                       ref.lowrank_matmul_ref(x, A, B), rel, why,
                       kernel_fn=lambda: lowrank_matmul(x, A, B), plain_fn=lambda: ref.lowrank_matmul_ref(x, A, B),
                       library_fn=lambda: torch.matmul(torch.matmul(x, A), B),
-                      bytes_moved=nbytes(x, A, B) + M * N * x.element_size(), ops=2 * M * K * r + 2 * M * r * N,
+                      cost=kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()),
                       records=records, key=f"lowrank_matmul deepseek {label} M {M}")
                 del x
             del A, B
@@ -4701,7 +4718,7 @@ def phase_deepseek_kernels(rnd, gen, gemm_tol, attn_tol, records) -> None:
                   kernel_fn=lambda: sketch_matmul(W, Y, trans_a=trans),
                   plain_fn=lambda: ref.sketch_matmul_ref(W, Y, trans_a=trans),
                   library_fn=lambda: torch.matmul(W.T if trans else W, Y),
-                  bytes_moved=nbytes(W, Y) + M_out * ell * W.element_size(), ops=2 * C * D * ell,
+                  cost=kernel_cost.sketch_matmul(C, D, ell, W.element_size(), trans_a=trans),
                   records=records, key="sketch_matmul deepseek" + (" trans_a" if trans else ""))
             del Y
         del W
@@ -4985,7 +5002,7 @@ def phase_noncausal_kernels(rnd, gen, attn_tol, records) -> None:
                   kernel_fn=lambda: flash_attention(q, k, v, causal=False),
                   plain_fn=lambda: ref.chunked_attention_ref(q, k, v, causal=False),
                   library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs),
-                  bytes_moved=2 * nbytes(q) + nbytes(k, v), ops=4 * B * H * Sq * Skv * hd,
+                  cost=kernel_cost.flash_attention(B, Sq, Skv, H, H, hd, q.element_size(), causal=False),
                   records=records, key=f"flash_attention {label}", extra=extra)
             del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
@@ -6357,6 +6374,161 @@ def phase_multi(model, params, runs: dict) -> dict:
     return summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 30: the dry-run's counts against the card
+# --------------------------------------------------------------------------- #
+# the peak's tolerance: the dry world counts each live storage's bytes; the card's allocator rounds each
+# block up to 512 B, keeps cuBLAS's workspaces in its count, and the kernels allocate their own outputs
+# and scratch where the dry world runs their plain versions uncounted (PERF.md, section 6)
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_ARG_REL = 0.01  # the arguments: the same tensors on both sides, plus cuBLAS's workspaces
+DRYRUN_FLOP_REL = 0.01  # the matmul FLOPs: the same torch ops on both sides
+
+
+# (a)'s steps: (name, tokens a row, rows, kind, a prefill's max_len)
+DRYRUN_STEPS = (("phase 28 train", PROMPT, 8, "train", None), ("phase 3 prefill", PROMPT, BATCH, "prefill", PROMPT + GEN),
+                ("decode", PROMPT + GEN, BATCH, "decode", None))
+
+
+def dryrun_count(i: int) -> tuple:
+    """(OpStats, seconds) of (a)'s step ``i`` counted on fakes in the dry
+    world (run in a worker process: it needs no card)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+
+    name, seq, rows, kind, max_len = DRYRUN_STEPS[i]
+    st, _, _, t_build, t_run = dryrun.count_cell("llama3.2-1b", ShapeCell(name, seq, rows, kind), None,
+                                                 max_len=max_len)
+    return st, t_build + t_run
+
+
+def dryrun_cell() -> tuple:
+    """(record, seconds) of (b): llama3.2-1b train_4k on the dry 16 x 16 mesh."""
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    r = dryrun.run_cell("llama3.2-1b", "train_4k", multi_pod=False, save=False)
+    return r, time.perf_counter() - t
+
+
+def phase_dryrun() -> dict:
+    """Phase 30: the dry-run's per-step counts against the same steps run on
+    the card, then one production cell on the dry 16 x 16 mesh.  The dry
+    counts need no card: they run in worker processes while the card runs
+    the steps."""
+    import gc
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.runtime import dispatch
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    tag = f"[dryrun {card}]"
+    cfg = get_arch("llama3.2-1b")
+    out = {}
+    with ProcessPoolExecutor(max_workers=len(DRYRUN_STEPS) + 1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cell_job = pool.submit(dryrun_cell)
+        step_jobs = [pool.submit(dryrun_count, i) for i in range(len(DRYRUN_STEPS))]
+        card_runs = []
+        for name, seq, rows, kind, max_len in DRYRUN_STEPS:
+            # what earlier phases left allocated is no part of the step: its bytes are counted from here
+            gc.collect()
+            torch._C._cuda_clearCublasWorkspaces()  # nor are cuBLAS's workspaces (32 MiB a handle)
+            base = torch.cuda.memory_allocated()
+            step, args, _, _ = dryrun.build_step(cfg, ShapeCell(name, seq, rows, kind), None, device="cuda",
+                                                 max_len=max_len)
+            step()  # warm: the kernels' first launches
+            torch.cuda.synchronize()
+            gc.collect()
+            torch._C._cuda_clearCublasWorkspaces()
+            alloc = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            dispatch.reset_counters()
+            with FlopCounterMode(display=False) as fc:
+                res = step()
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            calls = dispatch.kernel_calls()
+            del res
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            card_runs.append((alloc, peak, calls, float(fc.get_total_flops()), device_busy_ms(prof), base))
+            del step, args, prof
+            gc.collect()
+            torch.cuda.empty_cache()
+        for (name, *_), (alloc, peak, calls, matmul, busy, base), job in zip(DRYRUN_STEPS, card_runs, step_jobs):
+            st, dry_s = job.result()
+            rf = roofline_terms(flops=st.flops, hbm_bytes=st.hbm_bytes, coll_bytes=0.0, chips=1,
+                                model_flops_global=0.0)
+            roof_ms = max(rf.t_compute, rf.t_memory) * 1e3
+            dry_calls = {k: v["calls"] for k, v in st.kernels.items()}
+            rec = {"step": name, "allocated_before_build": base,
+                   "argument_bytes": {"dry": st.argument_bytes, "card": alloc},
+                   "peak_bytes": {"dry": st.peak_bytes, "card": peak},
+                   "kernel_calls": {"dry": dry_calls, "card": calls},
+                   "matmul_flops": {"dry": st.matmul_flops, "card": matmul},
+                   "flops": st.flops, "hbm_bytes": st.hbm_bytes,
+                   "t_compute_ms": rf.t_compute * 1e3, "t_memory_ms": rf.t_memory * 1e3,
+                   "device_busy_ms": busy, "roofline_over_measured": roof_ms / busy if busy else None,
+                   "dry_s": dry_s}
+            say(f"{tag} " + json.dumps(rec))
+            if abs(alloc - st.argument_bytes) > DRYRUN_ARG_REL * st.argument_bytes:
+                fail(f"{tag} {name}: {alloc} bytes allocated before the step, the dry-run's arguments "
+                     f"{st.argument_bytes} (tolerance {DRYRUN_ARG_REL})")
+            if abs(peak - st.peak_bytes) > DRYRUN_PEAK_REL * st.peak_bytes:
+                fail(f"{tag} {name}: peak {peak} bytes on the card, {st.peak_bytes} in the dry-run "
+                     f"(tolerance {DRYRUN_PEAK_REL})")
+            if calls != dry_calls:
+                fail(f"{tag} {name}: kernel calls on the card {calls}, in the dry-run {dry_calls}")
+            if abs(matmul - st.matmul_flops) > DRYRUN_FLOP_REL * st.matmul_flops:
+                fail(f"{tag} {name}: matmul FLOPs {matmul:.6e} on the card, {st.matmul_flops:.6e} in the dry-run")
+            out[name] = rec
+        r, cell_s = cell_job.result()
+    brief = {k: r[k] for k in ("arch", "shape", "mesh", "rows_per_rank", "flops_per_chip", "hbm_bytes_per_chip",
+                               "collectives_by_axis", "collective_rate_by_axis", "t_compute", "t_memory",
+                               "t_collective", "bottleneck", "peak_bytes", "fits", "sharded_by_reference_bytes",
+                               "kernels", "card")}
+    say(f"{tag} (b) llama3.2-1b train_4k on the dry 16 x 16 mesh in {cell_s:.1f}s: " + json.dumps(brief))
+    say(f"{tag} (b) the gradient all-reduce a rank, bytes by axis: " + json.dumps(r["collectives_by_axis"])
+        + f"; priced at {HW.NAME}'s data-sheet rates")
+    out["b"] = brief
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase 30 in {out['phase_s']:.1f}s")
+    return out
+
+
+def phase_dryrun_only() -> int:
+    """``--dryrun-only``: phase 30 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from repro_torch.kernels._build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[dryrun-only] {card_line()}; torch {torch.__version__} cuda {torch.version.cuda}; package tree {SRC}")
+    t = time.perf_counter()
+    build_all()
+    say(f"[dryrun-only] build in {time.perf_counter() - t:.1f}s")
+    phase_dryrun()
+    say(card_line())
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def phase_multi_only() -> int:
     """``--multi-only``: phase 29 alone (on the q = 4 llama3.2-1b of phase 3)."""
     import torch
@@ -6414,6 +6586,8 @@ def main() -> int:
         return phase_train_only()
     if "--multi-only" in sys.argv:
         return phase_multi_only()
+    if "--dryrun-only" in sys.argv:
+        return phase_dryrun_only()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import gc
@@ -6539,6 +6713,11 @@ def main() -> int:
         t = time.perf_counter()
         phase_modal(arch, runs)
         say(f"[{MODAL_TAGS[arch]}] phase {MODAL_PHASES[arch]} in {time.perf_counter() - t:.1f}s")
+
+    # phase 30: the dry-run's counts against the card, then one production cell on the dry mesh
+    phase_dryrun()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # `launches`: the kernel's count on the main run of the newest engine path that runs it (the
     # shape and dtype of its `ms`); phase 18's fp32 paper runs stand only in `launches_by_run`, and

@@ -1,7 +1,8 @@
 """Architecture configuration (a copy of ``repro/configs/base.py``).
 
-Every architecture is an :class:`ArchConfig`: a plain frozen dataclass, so
-configs are hashable and trivially serializable.  The port keeps its own
+Every architecture is an :class:`ArchConfig` and every input shape of the
+dry-run a :class:`ShapeCell`: plain frozen dataclasses, so configs are
+hashable and trivially serializable.  The port keeps its own
 copy rather than importing the reference's, so it never imports ``repro``.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ArchConfig", "pad_to_multiple"]
+__all__ = ["ArchConfig", "ShapeCell", "SHAPE_CELLS", "pad_to_multiple"]
 
 
 def pad_to_multiple(x: int, m: int) -> int:
@@ -107,7 +108,37 @@ class ArchConfig:
         return (self.qk_nope_dim + self.qk_rope_dim) if self.kv_lora_rank else self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count N."""
+        """Analytic parameter count N (for MODEL_FLOPS = 6 N D)."""
         from repro_torch.models.model import analytic_param_count
 
         return analytic_param_count(self)
+
+    def active_param_count(self) -> int:
+        """N with only the top-k routed experts of each MoE layer counted."""
+        from repro_torch.models.model import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One input-shape cell of the dry-run (``repro/configs/base.py::ShapeCell``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        # decode cells process ONE new token per sequence; train/prefill the
+        # full sequence.
+        return self.global_batch * (1 if self.kind == "decode" else self.seq_len)
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

@@ -1,13 +1,14 @@
-"""Architecture registry: ``--arch <id>`` resolution.
+"""Architecture registry: ``--arch <id>`` resolution and the dry-run's cells.
 
-The port resolves every architecture the reference registry knows.
+The port resolves every architecture the reference registry knows, and
+walks the (arch x shape) cells in the reference's order.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPE_CELLS, ArchConfig, ShapeCell
 
 _ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
@@ -44,3 +45,29 @@ def get_arch(arch_id: str, *, reduced: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REFERENCE_ARCH_IDS)}")
     mod = importlib.import_module(_ARCH_MODULES[arch_id])
     return mod.REDUCED if reduced else mod.CONFIG
+
+# Cells that require sub-quadratic / bounded-window decode memory.  Pure
+# full-attention archs skip long_500k (the reference's skip table).
+LONG_CONTEXT_ARCHS = {"mamba2-130m", "zamba2-1.2b", "h2o-danube-1.8b"}
+
+
+def get_shape(name: str) -> ShapeCell:
+    return SHAPE_CELLS[name]
+
+
+def cell_is_runnable(arch_id: str, shape_name: str) -> tuple[bool, str]:
+    """(runnable, reason-if-skipped) for one (arch x shape) cell."""
+    if shape_name == "long_500k" and arch_id not in LONG_CONTEXT_ARCHS:
+        return False, "full-attention arch: 500k-token KV decode is out of regime (DESIGN.md §6)"
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every runnable (arch, shape) cell, in the reference registry's order."""
+    out = []
+    for a in REFERENCE_ARCH_IDS:
+        for s in SHAPE_CELLS:
+            ok, _ = cell_is_runnable(a, s)
+            if ok:
+                out.append((a, s))
+    return out

@@ -42,3 +42,7 @@ class HW:
     # NVLink 4: 18 links of 25 GB/s each way, 450 GB/s each way in all
     NVLINK_LINK_BW = 25e9  # B/s per link and direction
     NVLINK_LINKS = 18
+    # a DGX H100 node: 8 cards joined by NVLink through NVSwitch (NVIDIA's DGX H100 data sheet)
+    CARDS_PER_NODE = 8
+    # between nodes each card has its own ConnectX-7 port at 400 Gb/s (the same data sheet)
+    NETWORK_BW_PER_CARD = 50e9  # B/s per card and direction

@@ -3,10 +3,11 @@
     python -m repro_torch.launch.train --arch llama3.2-1b --reduced \\
         --steps 200 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt [--device cuda|cpu]
 
-The port's counterpart of ``repro/launch/train.py``, with its flags but
-``--fake-devices``, which comes with the dry-run's fake world (the next
-slice of the multi-device layer: the reference's launcher builds no mesh
-with it either).  Runs on the card
+The port's counterpart of ``repro/launch/train.py``, with its flags.
+``--fake-devices N`` is accepted as the reference's is: the reference sets
+its host's device count with it and builds no mesh, so its loop runs on
+one device; so does this one, and it says so.  The fake world of many
+ranks is the dry-run's (``launch/dryrun.py``).  Runs on the card
 unless ``--device cpu`` is given.  The optimizer is the arch's
 ``cfg.optimizer`` (AdamW at weight decay 0.01, Adafactor or SGD-momentum)
 under a cosine schedule with ``steps // 20`` warmup steps.
@@ -37,11 +38,17 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--fake-devices", type=int, default=0)
     ap.add_argument("--compress-alpha", type=float, default=0.0,
                     help="if >0: RSI-compress params before training (low-rank fine-tune)")
     ap.add_argument("--compress-q", type=int, default=4)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.fake_devices < 0:
+        ap.error(f"--fake-devices takes a positive count of devices, not {args.fake_devices}")
+    if args.fake_devices:
+        print(f"[fake-devices] {args.fake_devices} devices requested: no mesh is built from them, the training "
+              "loop runs on one device (the dry-run, launch/dryrun.py, steps one rank of a fake world)")
 
     import torch
 

@@ -24,7 +24,7 @@ from repro_torch.models import encdec as ed_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.runtime.device import resolve_device
 
-__all__ = ["ModelApi", "LMModule", "build_model", "analytic_param_count"]
+__all__ = ["ModelApi", "LMModule", "build_model", "batch_spec_template", "analytic_param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +138,30 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, v
 
 
-def analytic_param_count(cfg: ArchConfig) -> int:
+def batch_spec_template(cfg: ArchConfig, batch: int, seq: int, *, kind: str) -> dict:
+    """Shapes and dtypes of one batch, as (shape, dtype) tuples: the
+    reference's template (``repro/models/model.py::batch_spec_template``)
+    with torch dtypes.  ``kind``: train | prefill | decode."""
+    d = {}
+    if cfg.family == "audio":
+        d["frames"] = ((batch, cfg.n_audio_frames, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        d["image_embed"] = ((batch, cfg.n_image_tokens, cfg.d_model), torch.bfloat16)
+    if kind == "decode":
+        d["tokens"] = ((batch, 1), torch.int32)
+    else:
+        d["tokens"] = ((batch, seq), torch.int32)
+        if kind == "train":
+            d["targets"] = ((batch, seq), torch.int32)
+    return d
+
+
+def analytic_param_count(cfg: ArchConfig, *, active_only: bool = False) -> int:
     """Analytic parameter count N of any family: the reference's formula
     (``repro/models/model.py::analytic_param_count``), the linears and the
-    embeddings (norm scales and biases not counted)."""
+    embeddings (norm scales and biases not counted).  ``active_only``: an
+    MoE layer counts its top-k routed experts, not all of them (the N of
+    MODEL_FLOPS = 6 N D)."""
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {cfg.family!r}")
     d, V = cfg.d_model, cfg.vocab_padded
@@ -171,4 +191,5 @@ def analytic_param_count(cfg: ArchConfig) -> int:
         return n + cfg.n_layers * 3 * d * cfg.d_ff
     n += cfg.first_dense_layers * 3 * d * (cfg.dense_d_ff or cfg.d_ff)
     n_moe = cfg.n_layers - cfg.first_dense_layers
-    return n + n_moe * ((cfg.n_experts + cfg.n_shared_experts) * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)
+    experts = cfg.top_k if active_only else cfg.n_experts
+    return n + n_moe * ((experts + cfg.n_shared_experts) * 3 * d * cfg.moe_d_ff + d * cfg.n_experts)

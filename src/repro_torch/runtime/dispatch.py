@@ -43,13 +43,21 @@ PyTorch runs eagerly, so the hit counters count CALLS per (op, path, shape)
 is being captured (inside :func:`recording_capture`) is recorded for that
 graph instead, and whoever replays the graph adds its calls once per replay
 (:func:`add_replays`), so the counts stay calls that ran.
-``format_counters`` prints them the way the JAX launcher does.
+``format_counters`` prints them the way the JAX launcher does, and
+:func:`kernel_calls` sums the kernels' calls by op.
+
+The dry world (``roofline/dry.py::dry_world``: every tensor a fake) is the
+card to this module: every tensor there takes the card's branch, and each
+kernel call is recorded with its cost (``roofline/kernel_cost.py``) and
+computed by the kernel's plain version, which the op counter does not
+count; no kernel library is built or loaded there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from collections import Counter
@@ -66,6 +74,7 @@ from repro_torch.kernels.lowrank_matmul_batched import lowrank_matmul_batched as
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention as _paged_decode_kernel
 from repro_torch.kernels.sketch_matmul import sketch_matmul as _sketch_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.roofline import dry, kernel_cost
 
 __all__ = [
     "BACKENDS",
@@ -92,6 +101,7 @@ __all__ = [
     "mla_materialize",
     "counters",
     "counters_by_path",
+    "kernel_calls",
     "reset_counters",
     "format_counters",
     "recording_capture",
@@ -234,6 +244,21 @@ def counters_by_path() -> dict:
     return dict(agg)
 
 
+# the paths on which an op launches a hand-written kernel
+_KERNEL_PATHS = (PATH_FUSED, PATH_FUSED_BATCHED, PATH_KERNEL)
+
+
+def kernel_calls() -> dict:
+    """{op: kernel calls} of the hit counters, by the dispatch's op names,
+    the stacked low-rank apply as ``lowrank_matmul_batched`` (its own
+    kernel)."""
+    agg: Counter = Counter()
+    for (op, path, _sig), n in counters().items():
+        if path in _KERNEL_PATHS:
+            agg["lowrank_matmul_batched" if path == PATH_FUSED_BATCHED else op] += n
+    return dict(sorted(agg.items()))
+
+
 def reset_counters():
     with _COUNTS_LOCK:
         _COUNTS.clear()
@@ -249,8 +274,14 @@ def format_counters() -> str:
 # --------------------------------------------------------------------------- #
 # selection
 # --------------------------------------------------------------------------- #
+def _on_card(device_type: str) -> bool:
+    """Whether a tensor on ``device_type`` takes the card's branch: it lies
+    on the card, or in the dry world."""
+    return device_type == "cuda" or dry.active()
+
+
 def _use_kernel(device: torch.device, config: DispatchConfig) -> bool:
-    return config.backend == "auto" and device.type == "cuda"
+    return config.backend == "auto" and _on_card(device.type)
 
 
 def _needs_grad(*ts) -> bool:
@@ -268,9 +299,60 @@ def check_no_backward(op: str, *ts, device_type: str, config: Optional[DispatchC
     ``device_type`` (``cuda`` under ``auto``) while grad mode is on and an
     operand requires grad: the kernel's output would carry no gradient."""
     config = config or active_dispatch()
-    if config.backend == "auto" and device_type == "cuda" and _needs_grad(*ts):
+    if config.backend == "auto" and _on_card(device_type) and _needs_grad(*ts):
         raise RuntimeError(f"{op}: its kernel has no backward, and an operand requires grad; "
                            "run it under torch.no_grad() (it is off the training path)")
+
+
+# --------------------------------------------------------------------------- #
+# the kernels' calls: the wrapper, or in the dry world the recorded cost and the plain version
+# --------------------------------------------------------------------------- #
+def _lowrank_launch(x, A, B, *, prefill: bool, return_xa: bool = False):
+    if dry.active():
+        (M, K), (r, N) = x.shape, B.shape
+        return dry.kernel("lowrank_matmul", kernel_cost.lowrank_matmul(M, K, r, N, x.element_size()),
+                          lambda: _ref.lowrank_matmul_ref(x, A, B, return_xa=return_xa))
+    return _lowrank_kernel(x, A, B, prefill=prefill, return_xa=return_xa)
+
+
+def _batched_launch(x, A, B, *, return_xa: bool = False):
+    """The dry world counts every row of every expert live: the routing is data."""
+    if dry.active():
+        (L, M, K), (r, N) = x.shape, B.shape[-2:]
+        return dry.kernel("lowrank_matmul_batched",
+                          kernel_cost.lowrank_matmul_batched(L, M, K, r, N, x.element_size()),
+                          lambda: _ref.lowrank_matmul_ref(x, A, B, return_xa=return_xa))
+    return _lowrank_batched_kernel(x, A, B, return_xa=return_xa)
+
+
+def _sketch_launch(a, b, *, trans_a: bool = False, out_dtype: Optional[torch.dtype] = None,
+                   op: str = "sketch_matmul"):
+    if dry.active():
+        (C, D), ell = a.shape, b.shape[1]
+        out_size = (out_dtype or a.dtype).itemsize
+        return dry.kernel(op, kernel_cost.sketch_matmul(C, D, ell, a.element_size(), trans_a=trans_a,
+                                                                out_itemsize=out_size),
+                          lambda: _ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=out_dtype))
+    return _sketch_kernel(a, b, trans_a=trans_a, out_dtype=out_dtype)
+
+
+def _flash_launch(q, k, v, *, causal: bool, window: Optional[int], q_offset: int, return_lse: bool = False):
+    if dry.active():
+        (B, Sq, H, hd), (Skv, KV), vd = q.shape, k.shape[1:3], v.shape[-1]
+        return dry.kernel("flash_attention",
+                          kernel_cost.flash_attention(B, Sq, Skv, H, KV, hd, q.element_size(), causal=causal,
+                                                              window=window, q_offset=q_offset, vd=vd),
+                          lambda: _ref.chunked_attention_ref(q, k, v, causal=causal, window=window,
+                                                             q_offset=q_offset, return_lse=return_lse))
+    return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=return_lse)
+
+
+def _ssd_launch(x, dt, B_in, C_in, A, *, chunk: int, round_xbar: bool):
+    if dry.active():
+        (Bsz, L, nh, hd), s = x.shape, B_in.shape[-1]
+        return dry.kernel("ssd_scan", kernel_cost.ssd_scan(Bsz, L, nh, hd, s, x.element_size()),
+                          lambda: _ref.ssd_scan_plain(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar))
+    return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
 
 
 # --------------------------------------------------------------------------- #
@@ -284,9 +366,9 @@ class LowrankFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, A, B, stacked: bool, prefill: bool):
         if stacked:
-            y, xa = _lowrank_batched_kernel(x, A, B, return_xa=True)
+            y, xa = _batched_launch(x, A, B, return_xa=True)
         else:
-            y, xa = _lowrank_kernel(x, A, B, prefill=prefill, return_xa=True)
+            y, xa = _lowrank_launch(x, A, B, prefill=prefill, return_xa=True)
         ctx.save_for_backward(x, A, B, xa)
         return y
 
@@ -303,7 +385,7 @@ class FlashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int], q_offset: int):
-        out, lse = _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=True)
+        out, lse = _flash_launch(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
@@ -346,7 +428,7 @@ class SsdScanFn(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, B_in, C_in, A)
         ctx.scan = (chunk, round_xbar)
-        return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
+        return _ssd_launch(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -399,7 +481,7 @@ def choose_lowrank_path(
     its kernel."""
     config = config or active_dispatch()
     nl = _lowrank_dims(x_shape, a_shape, b_shape)[0]
-    if config.backend == "auto" and device_type == "cuda":
+    if config.backend == "auto" and _on_card(device_type):
         return PATH_FUSED_BATCHED if nl else PATH_FUSED
     return PATH_TWO_GEMM
 
@@ -415,7 +497,7 @@ def dense_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     CPU the operands are upcast first so that holds there too.
     """
     _record("dense", "torch", (x.shape[-1], w.shape[-1]))
-    if x.device.type == "cuda":
+    if _on_card(x.device.type):
         return torch.matmul(x, w)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
@@ -440,7 +522,7 @@ def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Te
         if _via_function(config, xc, Ac, Bc):
             y = LowrankFn.apply(xc, Ac, Bc, True, prefill)
         elif path == PATH_FUSED_BATCHED:
-            y = _lowrank_batched_kernel(xc, Ac, Bc)
+            y = _batched_launch(xc, Ac, Bc)
         else:
             y = _ref.lowrank_matmul_ref(xc, Ac, Bc)
         return y.reshape(out_shape)
@@ -448,7 +530,7 @@ def lowrank_apply(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Te
     if _via_function(config, x2, A, B):
         y = LowrankFn.apply(x2, A, B, False, prefill)
     elif path == PATH_FUSED:
-        y = _lowrank_kernel(x2, A, B, prefill=prefill)
+        y = _lowrank_launch(x2, A, B, prefill=prefill)
     else:
         y = _ref.lowrank_matmul_ref(x2, A, B)
     return y.reshape(out_shape)
@@ -462,7 +544,7 @@ def sketch_matmul(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     check_no_backward("sketch_matmul", a, b, device_type=a.device.type, config=config)
     if _use_kernel(a.device, config):
         _record("sketch_matmul", PATH_KERNEL, (tuple(a.shape), tuple(b.shape), trans_a))
-        return _sketch_kernel(a, b, trans_a=trans_a, out_dtype=out_dtype)
+        return _sketch_launch(a, b, trans_a=trans_a, out_dtype=out_dtype)
     _record("sketch_matmul", PATH_REFERENCE, (tuple(a.shape), tuple(b.shape), trans_a))
     return _ref.sketch_matmul_ref(a, b, trans_a=trans_a, out_dtype=out_dtype)
 
@@ -496,7 +578,7 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
 
 def _logits_forward(x2: torch.Tensor, table: torch.Tensor, tied: bool, kernel: bool) -> torch.Tensor:
     """(M, V) fp32 logits of the rows x2 (M, d): the sketch kernel or its plain version."""
-    gemm = _sketch_kernel if kernel else _ref.sketch_matmul_ref
+    gemm = functools.partial(_sketch_launch, op="logits") if kernel else _ref.sketch_matmul_ref
     if tied:
         return gemm(table, aligned_rows(x2.T) if kernel else x2.T, out_dtype=torch.float32).T
     if kernel:
@@ -514,7 +596,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
         return FlashFn.apply(q, k, v, causal, window, q_offset)
     if _use_kernel(q.device, config):
         _record("flash_attention", PATH_KERNEL, sig)
-        return _flash_kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return _flash_launch(q, k, v, causal=causal, window=window, q_offset=q_offset)
     _record("flash_attention", PATH_REFERENCE, sig)
     return _ref.chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
@@ -538,7 +620,7 @@ def mla_product(eq: str, a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.d
     grad (:func:`check_no_backward`)."""
     check_no_backward(MLA_OP, a, b, device_type=a.device.type)
     _record(MLA_OP, "torch", (eq, tuple(a.shape), tuple(b.shape)))
-    if a.device.type == "cuda" and a.dtype == b.dtype == out_dtype:
+    if _on_card(a.device.type) and a.dtype == b.dtype == out_dtype:
         return torch.einsum(eq, a, b)
     return torch.einsum(eq, a.float(), b.float()).to(out_dtype)
 
@@ -570,6 +652,12 @@ def decode_attention(q, k_cache, v_cache, valid):
     sig = (B, S, KV, H // KV, hd)
     if _use_kernel(q.device, config):
         _record("decode_attention", PATH_KERNEL, sig)
+        if dry.active():  # a dry decode sits at its cache's last position: every row valid
+            vd = v_cache.shape[-1]
+            return dry.kernel("decode_attention",
+                              kernel_cost.decode_attention(B, S, H, KV, hd, q.element_size(), n_rows=B * S,
+                                                                   vd=vd),
+                              lambda: _ref.decode_attention_ref(q, k_cache, v_cache, valid))
         return _decode_kernel(q, k_cache, v_cache, valid)
     _record("decode_attention", PATH_REFERENCE, sig)
     return _ref.decode_attention_ref(q, k_cache, v_cache, valid)
@@ -581,7 +669,7 @@ def choose_paged_decode_path(*, device_type: str, config: Optional[DispatchConfi
     ``DECODE_MIN_SEQ`` threshold is not carried over); otherwise the plain
     gather-then-attend version."""
     config = config or active_dispatch()
-    if config.backend == "auto" and device_type == "cuda":
+    if config.backend == "auto" and _on_card(device_type):
         return PATH_KERNEL
     return PATH_REFERENCE
 
@@ -599,6 +687,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, n_valid):
     P, page, KV = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     n_tbl = block_table.shape[1]
     _record("paged_decode_attention", path, (B, P, page, n_tbl, KV, H // KV, hd))
+    if path == PATH_KERNEL and dry.active():  # every page of the table counted valid: the lengths are data
+        return dry.kernel("paged_decode_attention",
+                          kernel_cost.paged_decode_attention(B, n_tbl, H, KV, hd, q.element_size(),
+                                                                     n_rows=B * n_tbl * page),
+                          lambda: _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_table, n_valid))
     if path == PATH_KERNEL:
         return _paged_decode_kernel(q, k_pool, v_pool, block_table, n_valid)
     return _ref.paged_decode_attention_ref(q, k_pool, v_pool, block_table, n_valid)
@@ -625,6 +718,6 @@ def ssd_scan(x, dt, B_in, C_in, A, *, chunk: int, round_xbar: bool):
         return SsdScanFn.apply(x, dt, B_in, C_in, A, chunk, round_xbar)
     if _use_kernel(x.device, config):
         _record("ssd_scan", PATH_KERNEL, sig)
-        return _ssd_kernel(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
+        return _ssd_launch(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)
     _record("ssd_scan", PATH_REFERENCE, sig)
     return _ref.ssd_scan_plain(x, dt, B_in, C_in, A, chunk=chunk, round_xbar=round_xbar)

@@ -40,7 +40,14 @@ under grad where an operand requires grad (they serve the no-grad paths:
 the TSQR redo and the checkpointer).
 
 The backend is an argument, never a fallback: ``"nccl"`` takes one rank a
-card; ``"gloo"`` takes CPU ranks and ranks that share one card.  NCCL
+card; ``"gloo"`` takes CPU ranks and ranks that share one card; ``"dry"``
+(:func:`dry_mesh`) is one rank of a mesh with no process group, for the
+dry-run (``roofline/dry.py``): its collectives return tensors of the shape
+and dtype a live mesh returns and record one collective each (its kind,
+axis, group size and ring-transfer bytes, by the reference's formulas in
+``repro/roofline/hlo_stats.py``: an all-reduce moves 2(n-1)/n of its
+bytes, an all-gather (n-1)/n of the gathered result, a permute all of
+them), backwards included.  NCCL
 refuses two ranks on one device, so a request for it with more ranks than
 cards raises.  Gloo carries ``all_reduce`` and ``broadcast`` on CUDA
 tensors; every other collective here stages a CUDA tensor through the host
@@ -61,6 +68,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.roofline import dry
 from repro_torch.runtime.device import resolve_device
 
 __all__ = [
@@ -71,6 +79,7 @@ __all__ = [
     "check_backend",
     "init",
     "make_mesh",
+    "dry_mesh",
     "active_mesh",
     "use_mesh",
     "axis_names",
@@ -88,7 +97,7 @@ __all__ = [
     "spawn",
 ]
 
-BACKENDS = ("gloo", "nccl")
+BACKENDS = ("gloo", "nccl", "dry")
 
 _state = threading.local()
 
@@ -134,6 +143,13 @@ class MeshSpec:
             rank //= s
         return {a: out[a] for a in self.axes}
 
+    def rank(self, coords: dict) -> int:
+        """The rank at ``coords`` (:meth:`coords`' inverse)."""
+        r = 0
+        for a, s in zip(self.axes, self.sizes):
+            r = r * s + coords[a]
+        return r
+
     def index(self, entry, coords: dict) -> tuple:
         """(index, count) of a spec entry's block at ``coords``."""
         idx, n = 0, 1
@@ -145,16 +161,28 @@ class MeshSpec:
         return idx, n
 
 
+class _DryGroup:
+    """One axis of a dry mesh, where a live mesh has its process group."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis, self.size = axis, size
+
+    def record(self, kind: str, moved: float) -> None:
+        dry.collective(kind, self.axis, self.size, moved)
+
+
 class Mesh:
     """A live mesh: its :class:`MeshSpec` and one process group an axis
-    (a ``torch.distributed.device_mesh.DeviceMesh``)."""
+    (a ``torch.distributed.device_mesh.DeviceMesh``); or, with backend
+    ``"dry"``, one given rank of a mesh with no process group."""
 
-    def __init__(self, spec: MeshSpec, device_mesh, *, backend: str, device: torch.device):
+    def __init__(self, spec: MeshSpec, device_mesh, *, backend: str, device: torch.device,
+                 rank: Optional[int] = None):
         self.spec = spec
         self.device_mesh = device_mesh
         self.backend = backend
         self.device = device
-        self.rank = dist.get_rank()
+        self.rank = dist.get_rank() if rank is None else rank
         self.coords = spec.coords(self.rank)
 
     @property
@@ -166,6 +194,8 @@ class Mesh:
         return self.spec.axes
 
     def group(self, axis: str):
+        if self.backend == "dry":
+            return _DryGroup(axis, self.shape[axis])
         return self.device_mesh.get_group(axis)
 
     def __repr__(self) -> str:
@@ -235,6 +265,8 @@ def check_backend(backend: str, world: int, device: Union[str, torch.device]) ->
     """Raise unless ``backend`` can carry ``world`` ranks on ``device``."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend == "dry":
+        raise ValueError("a dry mesh has no process group and no processes: make one rank of it with dry_mesh")
     dev = torch.device(device)
     if backend == "nccl":
         if dev.type != "cuda":
@@ -265,6 +297,13 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     dm = init_device_mesh(_mesh_device_type(backend), spec.sizes, mesh_dim_names=spec.axes)
     device = cur.device if cur is not None else torch.device("cpu")
     return Mesh(spec, dm, backend=backend, device=device)
+
+
+def dry_mesh(spec: MeshSpec, rank: int = 0, device: Optional[Union[str, torch.device]] = None) -> Mesh:
+    """Rank ``rank`` of a mesh ``spec`` with no process group (backend
+    ``"dry"``), on ``device`` (default the card): what the dry-run runs one
+    rank of a production mesh on."""
+    return Mesh(spec, None, backend="dry", device=resolve_device(device), rank=rank)
 
 
 def init(shape: Sequence[int], axes: Sequence[str], *, backend: str, rank: int, world: int, init_file: str,
@@ -321,6 +360,15 @@ def axis_index(axis, mesh: Optional[Mesh] = None) -> int:
     return m.spec.index(names, m.coords)[0]
 
 
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """Sum ``t`` in place over ``group`` (a dry group records it)."""
+    if isinstance(group, _DryGroup):
+        n = group.size
+        group.record("all-reduce", 2.0 * (n - 1) / n * t.numel() * t.element_size())
+        return
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
 class _PSum(torch.autograd.Function):
     """The all-reduce sum over ``group``; its backward all-reduces the cotangent."""
 
@@ -328,13 +376,13 @@ class _PSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out = g.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(out, ctx.group)
         return out, None
 
 
@@ -380,7 +428,11 @@ def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tens
     # gloo gathers only CPU tensors: a CUDA tensor goes through the host
     src = x.detach().cpu().contiguous() if _staged(m, x) else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=m.group(a))
+    group = m.group(a)
+    if isinstance(group, _DryGroup):
+        group.record("all-gather", (n - 1) / n * n * src.numel() * src.element_size())
+    else:
+        dist.all_gather(parts, src, group=group)
     return torch.stack(parts).to(x.device)
 
 
@@ -390,8 +442,12 @@ def gather_to_first(x: torch.Tensor, mesh: Optional[Mesh] = None) -> Optional[li
     m = _mesh(mesh)
     # gloo gathers only CPU tensors, and the caller wants the host anyway; nccl gathers on the card
     src = x.detach().cpu().contiguous() if m.backend == "gloo" else x.detach().contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size())] if m.rank == 0 else None
-    dist.gather(src, parts, dst=0)
+    world = m.spec.size
+    parts = [torch.empty_like(src) for _ in range(world)] if m.rank == 0 else None
+    if m.backend == "dry":  # a gather to one rank, priced as the all-gather over the world
+        _DryGroup(",".join(m.axes), world).record("all-gather", (world - 1) * src.numel() * src.element_size())
+    else:
+        dist.gather(src, parts, dst=0)
     return None if parts is None else [p.cpu() for p in parts]
 
 
@@ -399,6 +455,10 @@ def _exchange(out: Optional[torch.Tensor], dst: Optional[int], like: Optional[tu
               group, staged: bool) -> Optional[torch.Tensor]:
     """Send ``out`` to global rank ``dst`` and receive a tensor ``like``
     (shape, dtype, device) from ``src``, either of them None for none."""
+    if isinstance(group, _DryGroup):  # the send is recorded, the receive an empty buffer
+        if dst is not None:
+            group.record("collective-permute", float(out.numel() * out.element_size()))
+        return None if src is None else torch.empty(like[0], dtype=like[1], device=like[2])
     work = None
     if dst is not None:
         # gloo sends only CPU tensors: a CUDA tensor goes through the host
@@ -474,8 +534,12 @@ def shift(y: Optional[torch.Tensor], axis: str, *, send: bool, recv_like: Option
     i = m.coords[axis]
     staged = m.backend == "gloo" and ((y is not None and y.device.type == "cuda")
                                       or (recv_like is not None and recv_like.device.type == "cuda"))
-    nxt = dist.get_global_rank(g, i + 1) if send else None
-    prev = dist.get_global_rank(g, i - 1) if recv_like is not None else None
+    if m.backend == "dry":
+        nxt = m.spec.rank({**m.coords, axis: i + 1}) if send else None
+        prev = m.spec.rank({**m.coords, axis: i - 1}) if recv_like is not None else None
+    else:
+        nxt = dist.get_global_rank(g, i + 1) if send else None
+        prev = dist.get_global_rank(g, i - 1) if recv_like is not None else None
     like = None if recv_like is None else (recv_like.shape, recv_like.dtype, recv_like.device)
     got, token = _Shift.apply(token, y if send else None, g, nxt, prev, like, staged)
     return (got if prev is not None else None), token

@@ -151,3 +151,27 @@ def ranks(mesh, ref: dict, ckpt_dir: str) -> dict:
 def rank_of(mesh) -> int:
     """The smallest rank program: this rank's index."""
     return mesh.rank
+
+
+def collective_shapes(mesh) -> dict:
+    """(shape, dtype) of what each collective returns on this rank of a
+    (data, model) mesh: run by live gloo ranks and by the dry mesh
+    (``tests/test_torch_roofline.py``), which must agree."""
+    def sig(t):
+        return None if t is None else (tuple(t.shape), str(t.dtype))
+
+    x = torch.zeros((2, 3), dtype=torch.float32, device=mesh.device) + mesh.rank
+    h = torch.zeros((4,), dtype=torch.bfloat16, device=mesh.device)
+    out = {"psum": sig(distributed.psum(x, "model", mesh)),
+           "psum_both": sig(distributed.psum(h, ("data", "model"), mesh)),
+           "pmean": sig(distributed.pmean(x, "data", mesh)),
+           "all_gather": sig(distributed.all_gather(h, "model", mesh))}
+    parts = distributed.gather_to_first(x, mesh)
+    out["gather_to_first"] = None if parts is None else [sig(p) for p in parts]
+    first = distributed.axis_index("data", mesh) == 0
+    token = distributed.shift_token(mesh.device, False)
+    got, token = distributed.shift(x if first else None, "data", send=first, recv_like=None if first else x,
+                                   token=token, mesh=mesh)
+    out["shift"] = sig(got)
+    out["token"] = sig(token)
+    return out
