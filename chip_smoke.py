@@ -36,7 +36,8 @@
                              # on the q = 4 llama3.2-1b, then mamba2-130m
     python3 chip_smoke.py --multi-only
                              # phase 29 (the multi-device layer on eight ranks sharing
-                             # the card) alone, on the q = 4 llama3.2-1b
+                             # the card, the tensor-parallel program in (f)) alone,
+                             # on the q = 4 llama3.2-1b
     python3 chip_smoke.py --dryrun-only
                              # phase 30 (the dry-run's counts against the card) alone
 
@@ -463,10 +464,29 @@ Phases, in order; any failure exits non-zero before the last line:
    noise a rank: correlation with the dense mean > 0.7 on each, its bytes
    < dense / 3 (both printed, and both all-reduces timed).  (e) (a)'s
    factors saved from (2, 4) (gathered to rank 0 through the host) and
-   restored onto (8, 1): bit for bit the saved blocks.  Each sub-phase's
-   seconds (rank 0, between barriers) and each kernel's launches on the
-   ranks (every one of the four > 0) are printed; the ranks time-share one
-   card, so no time here is a multi-card figure.
+   restored onto (8, 1): bit for bit the saved blocks.  (f) The
+   tensor-parallel program (``sharding/rules.py``) on the q =
+   4 llama3.2-1b cut to 2 of its 16 layers, full width, each rank holding
+   its blocks under the production rules: (i) one AdamW step (bf16, batch
+   8 x 256, the sequence over "model") whose loss and grad norm lie within
+   1.5 x the single card's bf16 distance from the fp32 step (+ 1e-3 of it),
+   and whose update, assembled from the ranks' blocks, errs from the fp32
+   step's by at most 1.2 x (RMS) and 1.5 x (largest) the single card's
+   bf16 update (the fp32-anchored rule of phases 19-20); (ii) a prefill of
+   those prompts and 8 greedy decode steps over a 264-slot cache split over
+   "model" (the ranks' attentions combined by the decode kernel's lse):
+   every greedy token equal to the single card's ``greedy_generate``, each
+   step's logits within 5e-2 of max |logit|; (iii) each rank's argument
+   bytes as its caching allocator counts them (the bytes requested for the
+   blocks, the optimizer state, the batch and the cache) within 1 MiB of
+   the dry count of the same step (counted on CPU fakes in this process
+   before the spawn), the train step's allocated bytes within 1 % of it, and its
+   collectives by axis and their count equal to the dry mesh's record, for
+   the train, prefill and decode steps; the flash, low-rank, sketch and
+   decode kernels launched.  Each sub-phase's seconds (rank 0, between
+   barriers) and each kernel's launches on the ranks (every one of the four
+   > 0) are printed; the ranks time-share one card, so no time here is a
+   multi-card figure.
 30. The dry-run against the card (``launch/dryrun.py``, ``roofline/``):
    uncompressed llama3.2-1b at full width in bf16, one card (world 1),
    through one AdamW train step at phase 28's batch (8 x 256), one prefill
@@ -481,8 +501,10 @@ Phases, in order; any failure exits non-zero before the last line:
    matmul FLOPs (``FlopCounterMode``) within 1% of its matmul FLOPs; device
    busy ms (one profiled call) printed beside max(t_compute, t_memory) at
    the H100's data-sheet rates, not gated.  Then (b) one production cell,
-   llama3.2-1b train_4k on the dry 16 x 16 mesh, runs to its end and prints
-   its record and its gradient all-reduce's bytes by mesh axis.
+   llama3.2-1b train_4k on the dry 16 x 16 mesh, runs to its end as the
+   tensor-parallel program (its rank's blocks, nothing whole that the
+   reference splits, and it fits 80 GB: gated) and prints its record and
+   its collectives' bytes by kind and by mesh axis.
 
 The line before the card line lists every kernel with its time, its
 launches on the main run of the newest path that runs it (``launches_run``;
@@ -1200,6 +1222,21 @@ def phase_kernels() -> dict:
                   library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
                   cost=kernel_cost.decode_attention(Bq, S, H, KV, hd, q.element_size(), n_rows=n_rows),
                   records=records)
+        # the lse variant (the tensor-parallel decode over a cache split across ranks combines by it), at
+        # the prefix mask: its output bit for bit the plain launch's, each head's fp32 lse against the plain
+        # version's
+        valid = prefix.contiguous()
+        got, lse = decode_attention(q, k, v, valid, return_lse=True)
+        if not torch.equal(got, decode_attention(q, k, v, valid)):
+            fail("decode_attention: the lse variant's output differs from the plain launch's")
+        mask = valid[:, None, None, :]
+        check("decode_attention", [Bq, S, H, KV, hd, "prefix mask, lse (B, H) fp32"], dtype, lse,
+              ref.decode_attention_ref(q, k, v, valid, return_lse=True)[1], rel, why,
+              kernel_fn=lambda: decode_attention(q, k, v, valid, return_lse=True),
+              plain_fn=lambda: ref.decode_attention_ref(q, k, v, valid, return_lse=True),
+              library_fn=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+              cost=kernel_cost.decode_attention(Bq, S, H, KV, hd, q.element_size(), n_rows=int(valid.sum())),
+              records=records, key="decode_attention lse" if dtype == torch.bfloat16 else None)
 
         # prefill attention: S 256 (the main path), S 200 (a ragged tile), S 200 with a window
         for S, window in ((PROMPT, None), (200, None), (200, 64)):
@@ -2831,6 +2868,10 @@ CLUSTER_KILL = (0, 3)  # replica 0 dies at its third step
 CLUSTER_HEARTBEAT_MS = 1000.0
 CLUSTER_KILL_HEARTBEAT_MS = 60000.0  # the kill and no-fault cases: never the death signal
 CLUSTER_HANG_X = 4.0  # a hang of this many times the replica's adapted deadline
+# (iii) arms the hang, and tightens the heartbeat to CLUSTER_HEARTBEAT_MS, only once replica 0 has stepped
+# this many times in a row under the adapted deadline: a natural stall at the trace's start (0.44 s steps
+# in one full run on the H100) once declared it dead before its armed hang
+CLUSTER_STEADY_STEPS = 3
 CLUSTER_SLOW_S, CLUSTER_STRAGGLER_S = 1.5, 1.0  # (iv): one slow engine step, and the death floor it clears
 
 
@@ -3178,23 +3219,46 @@ def _phase_cluster(model, params, live) -> dict:
     parts["ii"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
 
-    # (iii) hang: the heartbeat alone catches it
+    # (iii) hang: the heartbeat alone catches it.  The heartbeat stays at the kill cases' loose floor until
+    # replica 0 has stepped CLUSTER_STEADY_STEPS times in a row under the adapted deadline; then (in its
+    # own thread, before its next step) the floor drops to CLUSTER_HEARTBEAT_MS and the hang is armed at
+    # that next step.  Every interval between replica 0's steps is kept, and printed at any miss
     log_path, log = log_at("cluster_hang_events.jsonl")
-    inj = FaultInjector()
+    steady = {"on": False, "times": [], "run": 0, "last": None, "armed": None}
+
+    class SteadyHang(FaultInjector):
+        def on_replica_step(self, replica, step_idx):
+            if replica == 0 and steady["on"] and steady["armed"] is None:
+                now = time.monotonic()
+                if steady["last"] is not None:
+                    steady["times"].append(now - steady["last"])
+                    steady["run"] = steady["run"] + 1 if steady["times"][-1] < deadline else 0
+                    if steady["run"] >= CLUSTER_STEADY_STEPS:
+                        clu.heartbeat_ms = CLUSTER_HEARTBEAT_MS
+                        self.hang_replica = steady["armed"] = (0, step_idx)
+                steady["last"] = now
+            super().on_replica_step(replica, step_idx)
+
+    inj = SteadyHang()
     clu = cluster(2, pool, injector=inj, event_log=log)
     first["iii"] = cluster_warm(clu, cfg, "(iii)")
     clu.heartbeat_ms = CLUSTER_HEARTBEAT_MS
     deadline = max(clu._deadline_s(r) for r in clu.replicas)
     inj.hang_s = CLUSTER_HANG_X * deadline
-    inj.hang_replica = (0, clu.replicas[0].step_count + 3)  # its thread is idle: the count is settled
-    say(f"[cluster] (iii) adapted deadline {deadline:.3f}s; hang {inj.hang_s:.3f}s at replica 0's step "
-        f"{inj.hang_replica[1]}")
+    clu.heartbeat_ms = CLUSTER_KILL_HEARTBEAT_MS
+    steady["on"] = True  # the warm-up is over
+    say(f"[cluster] (iii) adapted deadline {deadline:.3f}s; hang {inj.hang_s:.3f}s once replica 0 has stepped "
+        f"{CLUSTER_STEADY_STEPS} times in a row under it")
     reqs = trace()
     cluster_run(clu, reqs, "(iii) hang_replica", libs)
     st = clu.stats()
+    times = ", ".join(f"{t:.3f}" for t in steady["times"])
+    armed = None if steady["armed"] is None else steady["armed"][1]
+    say(f"[cluster] (iii) hang armed at replica 0's step {armed}; its step intervals before: [{times}]s")
     if inj.fired.get("hang_replica") != 1 or st["heartbeat_misses"] != 1 or st["replica_deaths"] != 1 \
             or st["failovers"] < 1 or st["exhausted"]:
-        fail(f"cluster (iii): fired {inj.fired}, stats {st}")
+        fail(f"cluster (iii): fired {inj.fired}, stats {st}; replica 0's step intervals before the hang "
+             f"[{times}]s against the deadline {deadline:.3f}s")
     out["iii"] = cluster_streams(model, params, clu, reqs, refs, "cluster (iii)")
     cluster_rejoin(clu, 0, inj.hang_s + 30.0, "cluster (iii)")
     errs = cluster_dead_errors(clu, "cluster (iii)")
@@ -5920,13 +5984,211 @@ MULTI_LAYER_MATRICES = {  # one llama3.2-1b layer's matrices (C, D) at full widt
     "wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512), "wo": (2048, 2048),
     "w_gate": (2048, 8192), "w_up": (2048, 8192), "w_down": (8192, 2048)}
 MULTI_KERNELS = ("sketch_matmul", "lowrank_matmul_batched", "flash_attention", "lowrank_matmul")
+# (f): the tensor-parallel program on the q = 4 llama3.2-1b at full width, 2 of its 16 layers (the
+# collectives go through the host under gloo: the tied table's 65 MB blocks are the largest), one AdamW
+# step at batch 8 x 256, then a prefill of those prompts and 8 greedy decode steps over a 264-slot cache
+# (66 a rank of "model")
+MULTI_TP_LAYERS, MULTI_TP_BATCH, MULTI_TP_DECODE, MULTI_TP_LR = 2, (8, 256), 8, 1e-3
+MULTI_TP_KERNELS = ("lowrank_matmul", "flash_attention", "sketch_matmul", "decode_attention")
+MULTI_TP_ARG_SLACK = 2**20  # the allocator's requested bytes of a rank's arguments against its dry count
+MULTI_TP_ALLOC_REL = 0.01  # the train step's allocated bytes (rounded blocks) against it (phase 30's rule)
 
 
 def _multi_kernels() -> dict:
-    from repro_torch.kernels import flash_attention, lowrank_matmul, lowrank_matmul_batched, sketch_matmul
+    from repro_torch.kernels import (decode_attention, flash_attention, lowrank_matmul, lowrank_matmul_batched,
+                                     sketch_matmul)
 
     return {"sketch_matmul": sketch_matmul.KERNEL, "lowrank_matmul_batched": lowrank_matmul_batched.KERNEL,
-            "flash_attention": flash_attention.KERNEL, "lowrank_matmul": lowrank_matmul.KERNEL}
+            "flash_attention": flash_attention.KERNEL, "lowrank_matmul": lowrank_matmul.KERNEL,
+            "decode_attention": decode_attention.KERNEL}
+
+
+def _tree_bytes(*trees) -> int:
+    """The bytes of the distinct storages under ``trees`` (a TrainState's
+    fields included), as the dry-run's op counter counts its arguments."""
+    from repro_torch.roofline.op_stats import _tensors
+
+    seen = {}
+    for t in _tensors(list(trees)):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _alloc_bytes(dev) -> tuple:
+    """(requested, allocated) bytes of the caching allocator now, after
+    what is unreferenced is collected and cuBLAS's workspaces released."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    st = torch.cuda.memory_stats(dev)
+    if "requested_bytes.all.current" not in st:
+        raise RuntimeError("the caching allocator keeps no requested_bytes statistic")
+    return st["requested_bytes.all.current"], st["allocated_bytes.all.current"]
+
+
+def multi_tp(mesh, inp: dict, part) -> dict:
+    """(f) on this rank: its blocks of the q = 4 llama3.2-1b (2 layers) under
+    the production rules, one AdamW step, a prefill and
+    ``MULTI_TP_DECODE`` greedy decode steps over the cache split over
+    "model"; each step's argument bytes as the caching allocator counts
+    them (the bytes requested for the blocks, the optimizer state, the
+    batch rows and the prefill's cache, and those allocated for the train
+    step's), its tensors' storages beside them, and its collectives
+    (``distributed.collective_counts``)."""
+    import torch
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import distributed
+    from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+    from repro_torch.sharding.rules import layout_specs, shard_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.tree import tree_paths
+
+    dev = mesh.device
+    cfg = inp["tp_cfg"]
+    model = build_model(cfg, device=dev)
+    rules = make_rules(mesh, sequence_parallel=True)
+    specs = layout_specs(inp["tp_params"], rules)
+    opt = opt_mod.adamw(opt_mod.constant_schedule(MULTI_TP_LR))
+    r0, a0 = _alloc_bytes(dev)
+    blocks = shard_params(inp["tp_params"], rules, specs=specs)
+    r1, _ = _alloc_bytes(dev)
+    state = TrainState(params=blocks, opt_state=opt.init(blocks), step=torch.zeros((), dtype=torch.int32))
+    batch = shard_batch({"tokens": inp["tp_tokens"], "targets": inp["tp_targets"]}, rules)
+    r2, a2 = _alloc_bytes(dev)
+    # the allocator's requested bytes are gated; its allocated bytes round each block up (a block of over
+    # 1 MB keeps a remainder of its segment under 1 MB unsplit in its own count) and are gated at 1 %
+    args = {"train": _tree_bytes(state, batch)}
+    alloc = {"train": r2 - r0, "train_allocated": a2 - a0, "blocks": r1 - r0}
+    colls = {}
+    fn = make_train_step(model, opt, rules=rules, specs=specs)
+
+    def train():
+        distributed.reset_collective_counts()
+        with use_dispatch(DispatchConfig.from_arch(cfg)):
+            r = fn(state, batch)
+        torch.cuda.synchronize(dev)
+        colls["train"] = distributed.collective_counts()
+        return r
+
+    new, metrics = part("f_train", train)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": {k: v.detach().cpu() for k, v in tree_paths(new.params)}}
+    del new, state
+
+    rows = batch["tokens"]
+    S, ML = rows.shape[1], rows.shape[1] + MULTI_TP_DECODE
+    prefill = make_prefill_step(model, rules=rules, max_len=ML)
+    decode = make_decode_step(model, rules=make_rules(mesh, sequence_parallel=False))
+    keep = mesh.coords["model"] == 0
+
+    def generate():
+        toks, logits_out = [], []
+        with torch.no_grad(), use_dispatch(DispatchConfig.from_arch(cfg)):
+            r_pre, _ = _alloc_bytes(dev)
+            distributed.reset_collective_counts()
+            logits, cache = prefill(blocks, {"tokens": rows})
+            torch.cuda.synchronize(dev)
+            colls["prefill"] = distributed.collective_counts()
+            # what the prefill left allocated is its logits and the cache
+            cache_alloc = _alloc_bytes(dev)[0] - r_pre - logits.untyped_storage().nbytes()
+            args["prefill"] = _tree_bytes(blocks, {"tokens": rows})
+            alloc["prefill"] = alloc["blocks"] + _tree_bytes(rows)
+            for i in range(MULTI_TP_DECODE + 1):
+                full = distributed.all_gather(logits, "model", mesh, dim=-1)  # this rank's rows, every id
+                tok = torch.argmax(full, dim=-1)
+                toks.append(tok.cpu())
+                if keep:
+                    logits_out.append(full.float().cpu())
+                if i == MULTI_TP_DECODE:
+                    break
+                if i == 0:
+                    tok_bytes = tok[:, None].numel() * tok.element_size()
+                    args["decode"] = _tree_bytes(blocks, cache) + tok_bytes
+                    alloc["decode"] = alloc["blocks"] + cache_alloc + tok_bytes
+                    distributed.reset_collective_counts()
+                logits, cache = decode(blocks, cache, tok[:, None], S + i)
+                if i == 0:
+                    torch.cuda.synchronize(dev)
+                    colls["decode"] = distributed.collective_counts()
+        return torch.stack(toks, 1), logits_out, {k: tuple(v.shape) for k, v in tree_paths(cache)}
+
+    toks, logits_out, cache_shapes = part("f_generate", generate)
+    out.update(tokens=toks, logits=logits_out if keep else None, cache_shapes=cache_shapes, args=args,
+               alloc=alloc, colls=colls)
+    return out
+
+
+def tp_dry_counts(cfg, params, rank: int) -> dict:
+    """(f)'s three steps on rank ``rank`` of the dry (2, 4) mesh, on fakes of
+    ``params``' shapes: each step's argument bytes and collectives by axis,
+    as the dry-run counts them."""
+    import torch
+
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline import dry, op_stats
+    from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+    from repro_torch.runtime.distributed import MeshSpec, dry_mesh
+    from repro_torch.sharding.rules import layout_specs, shard_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.tree import tree_map
+
+    out = {}
+    B, S = MULTI_TP_BATCH
+    rows = B // MULTI_MESH[0]
+    with dry.dry_world():
+        fake = tree_map(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype), params)
+        mesh = dry_mesh(MeshSpec(MULTI_MESH, ("data", "model")), rank)
+        rules = make_rules(mesh, sequence_parallel=True)
+        specs = layout_specs(fake, rules)
+        blocks = shard_params(fake, rules, specs=specs)
+        model = build_model(cfg)
+        opt = opt_mod.adamw(opt_mod.constant_schedule(MULTI_TP_LR))
+        state = TrainState(params=blocks, opt_state=opt.init(blocks), step=torch.zeros((), dtype=torch.int32))
+        batch = {"tokens": torch.zeros((rows, S), dtype=torch.int64),
+                 "targets": torch.zeros((rows, S), dtype=torch.int64)}
+        fn = make_train_step(model, opt, rules=rules, specs=specs)
+        policy = DispatchConfig.from_arch(cfg)
+
+        def count(name, step, arguments):
+            r, st = op_stats.measure(step, arguments=arguments)
+            out[name] = {"argument_bytes": st.argument_bytes, "by_axis": dict(st.coll_by_axis), "ops": st.coll_ops}
+            return r
+
+        def train():
+            with use_dispatch(policy):
+                return fn(state, batch)
+
+        count("train", train, (state, batch))
+        prefill = make_prefill_step(model, rules=rules, max_len=S + MULTI_TP_DECODE)
+        decode = make_decode_step(model, rules=make_rules(mesh, sequence_parallel=False))
+        toks = {"tokens": batch["tokens"]}
+
+        def pf():
+            with use_dispatch(policy), torch.no_grad():
+                return prefill(blocks, toks)
+
+        _, cache = count("prefill", pf, (blocks, toks))
+        tok = torch.zeros((rows, 1), dtype=torch.int64)
+
+        def dc():
+            with use_dispatch(policy), torch.no_grad():
+                return decode(blocks, cache, tok, S)
+
+        count("decode", dc, (blocks, cache, tok))
+    return out
 
 
 def _sha(t) -> str:
@@ -6109,7 +6371,162 @@ def multi_ranks(mesh, inp: dict, ckpt_dir: str) -> dict:
                 "S": torch.equal(restored["S"], factors["S"]),
                 "Vt": torch.equal(restored["Vt"][:, i * cols:(i + 1) * cols], factors["Vt"]),
                 "U_shape": tuple(restored["U"].shape), "Vt_shape": tuple(restored["Vt"].shape)}
+    del factors, restored
+
+    # (f) the tensor-parallel program
+    out["f"] = multi_tp(mesh, inp, part)
     return out
+
+
+def tp_references(model, params) -> dict:
+    """(f)'s single-card references: the model cut to MULTI_TP_LAYERS, its
+    batch, one AdamW step in bf16 and in fp32 (the anchor of (i)'s
+    tolerance), ``greedy_generate`` of the prompts and each step's logits
+    (the prefill, then the decode steps fed its greedy tokens)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.serve_step import greedy_generate
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(model.cfg, n_layers=MULTI_TP_LAYERS)
+    fmodel = build_model(cfg)
+    fparams = {**params, "layers": tree_map(lambda t: t[:MULTI_TP_LAYERS], params["layers"])}
+    gen = torch.Generator().manual_seed(29)
+    B, S = MULTI_TP_BATCH
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    targets = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+    batch = {"tokens": tokens.cuda(), "targets": targets.cuda()}
+    opt = opt_mod.adamw(opt_mod.constant_schedule(MULTI_TP_LR))
+    policy = DispatchConfig.from_arch(cfg)
+    out = {"cfg": cfg, "params": fparams, "tokens": tokens, "targets": targets}
+
+    def step(m, p):
+        state = TrainState(params=p, opt_state=opt.init(p), step=torch.zeros((), dtype=torch.int32))
+        with use_dispatch(policy):
+            new, metrics = make_train_step(m, opt)(state, batch)
+        return new.params, {k: float(v) for k, v in metrics.items()}
+
+    out["bf16"] = step(fmodel, fparams)
+    to32 = lambda t: {k: to32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()  # noqa: E731
+    out["fp32"] = step(build_model(dataclasses.replace(cfg, dtype="float32")), to32(fparams))
+    with torch.no_grad(), use_dispatch(policy):
+        out["greedy"] = greedy_generate(fmodel, fparams, {"tokens": batch["tokens"]}, steps=MULTI_TP_DECODE + 1,
+                                        max_len=S + MULTI_TP_DECODE).cpu()
+        logits, cache = fmodel.prefill(fparams, {"tokens": batch["tokens"]}, S + MULTI_TP_DECODE)
+        steps = [logits.float().cpu()]
+        for i in range(MULTI_TP_DECODE):
+            logits, cache = fmodel.decode_step(fparams, cache, out["greedy"][:, i:i + 1].cuda(), S + i)
+            steps.append(logits.float().cpu())
+    out["logits"] = steps
+    return out
+
+
+def tp_gates(outs, ref, dry_counts, specs) -> dict:
+    """(f)'s gates.  (i) The train step against the single card's: its loss
+    and grad norm within 1.5 x the single card's bf16 distance from the fp32
+    step plus 1e-3 of the fp32 value; the params assembled from the ranks'
+    blocks, their update (new - old) against the fp32 step's: the RMS error
+    within 1.2 x the single card's bf16 update's, the largest within 1.5 x
+    (phases 19-20's fp32-anchored rule).  (ii) The greedy tokens equal the
+    single card's ``greedy_generate``, and every step's logits within 5e-2 of
+    max |logit| of its (phase 29 (b)'s bf16 tolerance).  (iii) Each rank's
+    argument bytes as the caching allocator counts them (the bytes
+    requested) within 1 MiB of its dry count, the train step's allocated
+    bytes within 1 % of it (phase 30's rule), and its collectives (bytes by
+    axis, their count) equal to the dry mesh's record, for the train,
+    prefill and decode steps; its tensors' storages are printed beside
+    them.  Each kernel of MULTI_TP_KERNELS launched."""
+    import torch
+
+    from repro_torch.runtime.distributed import MeshSpec, assemble
+    from repro_torch.tree import tree_paths
+
+    res = {}
+    f0 = outs[0]["f"]
+    m32, mb = ref["fp32"][1], ref["bf16"][1]
+    for k in ("loss", "grad_norm"):
+        got = [o["f"]["metrics"][k] for o in outs]
+        tol = 1.5 * abs(mb[k] - m32[k]) + 1e-3 * abs(m32[k])
+        res[k] = {"tp": got[0], "single_bf16": mb[k], "fp32": m32[k], "tol": tol}
+        if any(abs(g - m32[k]) > tol for g in got) or len(set(got)) != 1:
+            fail(f"phase 29 (f) (i): {k} {got} against the fp32 step's {m32[k]} (tol {tol:.3e}; the single card's "
+                 f"bf16 {mb[k]})")
+    mesh = MeshSpec(MULTI_MESH, ("data", "model"))
+    old = dict(tree_paths(ref["params"]))
+    new32, newb = dict(tree_paths(ref["fp32"][0])), dict(tree_paths(ref["bf16"][0]))
+    num = {"tp": 0.0, "single": 0.0}
+    top = {"tp": 0.0, "single": 0.0}
+    n = 0
+    worst = (None, 0.0)
+    for path, sp in tree_paths(specs):
+        got = assemble([o["f"]["params"][path] for o in outs], sp, mesh).float()
+        o32 = old[path].float().cpu()
+        d32 = new32[path].float().cpu() - o32
+        e_tp = (got - o32) - d32
+        e_s = (newb[path].float().cpu() - o32) - d32
+        num["tp"] += float(e_tp.pow(2).sum())
+        num["single"] += float(e_s.pow(2).sum())
+        top["tp"], top["single"] = max(top["tp"], float(e_tp.abs().max())), max(top["single"], float(e_s.abs().max()))
+        n += got.numel()
+        r = float(e_tp.pow(2).mean().sqrt()) / max(float(e_s.pow(2).mean().sqrt()), 1e-30)
+        if r > worst[1]:
+            worst = (path, r)
+    ratios = {"rms": (num["tp"] / max(num["single"], 1e-30)) ** 0.5, "max": top["tp"] / max(top["single"], 1e-30)}
+    res["update_vs_fp32"] = {"ratios": ratios, "max_err": top, "elements": n, "worst_leaf_rms_ratio": worst}
+    if not (ratios["rms"] <= 1.2 and ratios["max"] <= 1.5):
+        fail(f"phase 29 (f) (i): the assembled update against the fp32 step's is {ratios} x the single card's "
+             "(tol RMS 1.2, largest 1.5)")
+
+    # (ii): the ranks' tokens over "data" rows, against the single card's
+    toks = torch.cat([outs[d * MULTI_MESH[1]]["f"]["tokens"] for d in range(MULTI_MESH[0])])
+    for o in outs:
+        row = o["rank"] // MULTI_MESH[1]
+        if not torch.equal(o["f"]["tokens"], outs[row * MULTI_MESH[1]]["f"]["tokens"]):
+            fail(f"phase 29 (f) (ii): rank {o['rank']}'s tokens differ from its data row's")
+    same = int((toks == ref["greedy"]).sum())
+    errs = []
+    for i, want in enumerate(ref["logits"]):
+        got = torch.cat([outs[d * MULTI_MESH[1]]["f"]["logits"][i] for d in range(MULTI_MESH[0])])
+        errs.append(float((got - want).abs().max()) / float(want.abs().max()))
+    res["generate"] = {"tokens_equal": same, "tokens": toks.numel(), "logits_rel_err": errs,
+                       "cache_shapes": f0["cache_shapes"]}
+    if same != toks.numel() or max(errs) > 5e-2:
+        fail(f"phase 29 (f) (ii): {same} of {toks.numel()} greedy tokens equal the single card's; logits "
+             f"{max(errs):.3e} x max |logit| (tol 5e-2)")
+
+    # (iii): each rank's counts against the dry count (of rank 0; every rank's blocks are alike)
+    res["counts"] = {}
+    for o in outs:
+        for step in ("train", "prefill", "decode"):
+            requested, live = o["f"]["alloc"][step], o["f"]["colls"][step]
+            want = dry_counts[step]
+            dry_args = want["argument_bytes"]
+            allocated = o["f"]["alloc"]["train_allocated"] if step == "train" else None
+            if o["rank"] in (0, 5):
+                res["counts"][f"rank {o['rank']} {step}"] = {
+                    "allocator_requested_bytes": requested, "allocator_allocated_bytes": allocated,
+                    "storage_bytes": o["f"]["args"][step], "dry_argument_bytes": dry_args,
+                    "by_axis": live["by_axis"], "by_kind": live["by_kind"], "ops": live["ops"]}
+            same_axes = set(live["by_axis"]) == set(want["by_axis"]) and all(
+                abs(live["by_axis"][a] - want["by_axis"][a]) <= 1e-9 * max(1.0, want["by_axis"][a])
+                for a in want["by_axis"])
+            if abs(requested - dry_args) > MULTI_TP_ARG_SLACK or not same_axes or live["ops"] != want["ops"] \
+                    or (allocated is not None and abs(allocated - dry_args) > MULTI_TP_ALLOC_REL * dry_args):
+                fail(f"phase 29 (f) (iii) rank {o['rank']} {step}: the allocator's requested bytes {requested} "
+                     f"(allocated {allocated}; storages {o['f']['args'][step]}) against the dry count's {dry_args}, "
+                     f"collectives {live} against {want}")
+    launches = {n: sum(o["launches"][p][n] for o in outs for p in ("f_train", "f_generate"))
+                for n in MULTI_TP_KERNELS}
+    res["launches"] = launches
+    if any(c <= 0 for c in launches.values()):
+        fail(f"phase 29 (f): kernels never launched on the tensor-parallel path: {launches}")
+    return res
 
 
 def _tree_blocks(tree, mesh, rank, prefix=""):
@@ -6158,8 +6575,10 @@ def phase_multi(model, params, runs: dict) -> dict:
     each stage's slice within 5e-2 of max |g| of the single rank's
     gradient over the same microbatches, leaf by leaf;
     (d) PowerSGD's mean correlated > 0.7 with the dense mean on every
-    matrix, its bytes < dense / 3; (e) the reshard bit for bit; and each
-    kernel of the path launched on the ranks."""
+    matrix, its bytes < dense / 3; (e) the reshard bit for bit; (f) the
+    tensor-parallel program's step, prefill and greedy decode against the
+    single card and its counts against the dry mesh's (:func:`tp_gates`);
+    and each kernel of the path launched on the ranks."""
     import dataclasses
     import tempfile
 
@@ -6260,10 +6679,17 @@ def phase_multi(model, params, runs: dict) -> dict:
     pipe_grads = sync_time("c_backward_sequential", seq_backward)
     del live
 
+    # (f)'s single-card references, and its dry counts on rank 0 (CPU fakes; every rank's blocks, and
+    # so its arguments and collectives, are alike)
+    tp_ref = sync_time("f_single", lambda: tp_references(model, params))
+    tp_dry = sync_time("f_dry", lambda: tp_dry_counts(tp_ref["cfg"], tp_ref["params"], 0))
+
     inp = {"W_qwen": W_qwen, "W_spectral": W_spec, "omega": omega, "single_U": single["spectral"]["res"].U,
            "single_S": single["spectral"]["res"].S, "single_Vt": single["spectral"]["res"].Vt,
            "moe_cfg": mcfg, "moe_p": moe_p, "moe_p32": moe_p32, "moe_x": x_moe,
-           "llama_cfg": lcfg, "llama_layers": layers, "llama_x0": x0, "pipe_wo": wo, "pipe_grads": pipe_grads}
+           "llama_cfg": lcfg, "llama_layers": layers, "llama_x0": x0, "pipe_wo": wo, "pipe_grads": pipe_grads,
+           "tp_cfg": tp_ref["cfg"], "tp_params": tp_ref["params"], "tp_tokens": tp_ref["tokens"],
+           "tp_targets": tp_ref["targets"]}
     say(f"[multi] inputs and single-rank references in {time.perf_counter() - t_phase:.1f}s: "
         + json.dumps({k: round(v, 3) for k, v in secs.items()}))
     ckpt_dir = tempfile.mkdtemp(prefix="phase29_ckpt_")
@@ -6359,6 +6785,16 @@ def phase_multi(model, params, runs: dict) -> dict:
     summary["e"] = {"U_shape": r0["e"]["U_shape"], "Vt_shape": r0["e"]["Vt_shape"]}
     if not all(o["e"]["U"] and o["e"]["S"] and o["e"]["Vt"] for o in outs):
         fail("phase 29 (e): the blocks restored onto (8, 1) differ from the saved ones")
+
+    # (f) gates
+    from repro_torch.runtime.distributed import MeshSpec
+    from repro_torch.sharding.rules import MeshRules, layout_specs
+
+    tp_specs = layout_specs(tp_ref["params"], MeshRules(MeshSpec(MULTI_MESH, ("data", "model"))))
+    summary["f"] = tp_gates(outs, tp_ref, tp_dry, tp_specs)
+    summary["f"]["rank0_s"] = {k: r0["seconds"][k] for k in ("f_train", "f_generate")}
+    runs["tensor-parallel ranks"] = summary["f"]["launches"]
+    del tp_ref, tp_dry
 
     launches = {n: sum(o["launches"][p][n] for o in outs for p in o["launches"]) for n in MULTI_KERNELS}
     runs["multi-device ranks"] = launches
@@ -6499,9 +6935,16 @@ def phase_dryrun() -> dict:
                                "collectives_by_axis", "collective_rate_by_axis", "t_compute", "t_memory",
                                "t_collective", "bottleneck", "peak_bytes", "fits", "sharded_by_reference_bytes",
                                "kernels", "card")}
+    brief.update(tensor_parallel=r["tensor_parallel"], collectives_by_kind=r["collectives_by_kind"],
+                 argument_bytes=r["argument_bytes"])
     say(f"{tag} (b) llama3.2-1b train_4k on the dry 16 x 16 mesh in {cell_s:.1f}s: " + json.dumps(brief))
-    say(f"{tag} (b) the gradient all-reduce a rank, bytes by axis: " + json.dumps(r["collectives_by_axis"])
-        + f"; priced at {HW.NAME}'s data-sheet rates")
+    say(f"{tag} (b) the tensor-parallel step's collectives a rank (FSDP gathers over data, the sequence's gathers "
+        "and reduce-scatters over model, the gradient mean over data), bytes by axis: "
+        + json.dumps(r["collectives_by_axis"]) + f"; priced at {HW.NAME}'s data-sheet rates")
+    # the tensor-parallel count: the rank holds its blocks (1/256 of each 2-D leaf), nothing whole that the
+    # reference splits, and the cell fits
+    if not (r["tensor_parallel"] and r["sharded_by_reference_bytes"] == 0 and r["fits"]):
+        fail(f"{tag} (b): the cell is not the tensor-parallel program's ({brief})")
     out["b"] = brief
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase 30 in {out['phase_s']:.1f}s")
@@ -6739,6 +7182,7 @@ def main() -> int:
         # 1024; the batched kernel at the decode and the skewed occupancy; phase 18's fp32
         # shapes (the sketch GEMM on Fig 4.1's W, the low-rank kernel on Table 4.1's fc1)
         subs = (("hd128", phi, name), ("g1", g1, name), ("trans_a", records, f"{name} trans_a"),
+                ("lse", records, f"{name} lse"),
                 ("logits", records, f"{name} logits"), ("untied_head", records, f"{name} untied head"),
                 ("m8", records, f"{name} M 8"), ("m256", records, f"{name} M 256"),
                 ("m1024", records, f"{name} M 1024"), ("decode_occupancy", records, f"{name} decode"),

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel repro/kernels/decode_attention.py::decode_attention_pallas
 // (kernel decode_attention_kernel, pallas_call at :118), with its contract:
 // q (B,1,H,hd), k_cache (B,S,KV,hd), v_cache (B,S,KV,vd), a strict (B,S)
-// valid mask -> (B,1,H,vd) in q's dtype.  The kernel and its numerics are in
+// valid mask -> (B,1,H,vd) in q's dtype, and where `lse` is not null each
+// head's fp32 log-sum-exp (B,H) beside it.  The kernel and its numerics are in
 // decode_attention.cuh, shared with the paged kernel; this file gives it the
 // flat layout.
 //
@@ -35,22 +36,24 @@ struct FlatRows {
 };
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B, int S, int KV, int G,
-           int hd, int vd, float scale, int clusters, int warps, int stages, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse, int B, int S, int KV,
+           int G, int hd, int vd, float scale, int clusters, int warps, int stages, void* stream) {
     FlatRows rows{static_cast<const uint8_t*>(valid), S, KV};
-    return repro::decode::launch<T>(q, k, v, rows, out, B, S, KV, G, hd, vd, scale, clusters, warps, stages, stream);
+    return repro::decode::launch<T>(q, k, v, rows, out, lse, B, S, KV, G, hd, vd, scale, clusters, warps, stages,
+                                    stream);
 }
 
 }  // namespace
 
 REPRO_EXPORT int decode_attention_bf16(const void* q, const void* k, const void* v, const void* valid, void* out,
-                                       int B, int S, int KV, int G, int hd, int vd, float scale, int clusters,
-                                       int warps, int stages, void* stream) {
-    return launch<__nv_bfloat16>(q, k, v, valid, out, B, S, KV, G, hd, vd, scale, clusters, warps, stages, stream);
+                                       void* lse, int B, int S, int KV, int G, int hd, int vd, float scale,
+                                       int clusters, int warps, int stages, void* stream) {
+    return launch<__nv_bfloat16>(q, k, v, valid, out, lse, B, S, KV, G, hd, vd, scale, clusters, warps, stages,
+                                 stream);
 }
 
-REPRO_EXPORT int decode_attention_f32(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-                                      int S, int KV, int G, int hd, int vd, float scale, int clusters, int warps,
-                                      int stages, void* stream) {
-    return launch<float>(q, k, v, valid, out, B, S, KV, G, hd, vd, scale, clusters, warps, stages, stream);
+REPRO_EXPORT int decode_attention_f32(const void* q, const void* k, const void* v, const void* valid, void* out,
+                                      void* lse, int B, int S, int KV, int G, int hd, int vd, float scale, int clusters,
+                                      int warps, int stages, void* stream) {
+    return launch<float>(q, k, v, valid, out, lse, B, S, KV, G, hd, vd, scale, clusters, warps, stages, stream);
 }

@@ -17,7 +17,11 @@
 // scaled in fp32 and rounded to the cache dtype; scores accumulate in fp32;
 // the softmax is online in fp32; p is rounded to V's dtype before PV; p is
 // re-masked after the exp, so a fully-masked row keeps l = 0 and flushes
-// to zeros, never NaN.
+// to zeros, never NaN.  Where the caller passes an lse buffer, the cluster's
+// combine also writes each head's fp32 log-sum-exp of its scores over the
+// valid positions (-inf where none is): what combining the partial
+// attentions of a cache split over several ranks takes.  Without it the
+// output and its bits are unchanged.
 //
 // What bounds it on the H100: the bytes of the live K/V rows, each read once
 // (~1 FLOP a byte), a few microseconds at most at the main path's shapes.
@@ -328,7 +332,8 @@ __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 v
 template <typename T, int VT, typename Rows>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Rows rows,
-              T* __restrict__ out, int S, int KV, int G, int hd, int vd, int stages, float scale) {
+              T* __restrict__ out, float* __restrict__ lse, int S, int KV, int G, int hd, int vd, int stages,
+              float scale) {
     constexpr bool BF16 = sizeof(T) == 2;
     constexpr int ESZ = sizeof(T), VEC = 16 / ESZ;
     using Warp = typename std::conditional<BF16, MmaWarp<VT / 16>, FmaWarp>::type;
@@ -493,14 +498,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const float den = fmaxf(L, 1e-30f);
         store4<T>(out + ((size_t)b * KV * G + (size_t)kvh * G + g0 + g) * vd + v0 + d,
                   make_float4(A.x / den, A.y / den, A.z / den, A.w / den));
+        // the optional lse (fp32, (B, H)): log sum_j exp(s_j) over the valid positions, -inf where none is,
+        // once a head (by the thread of its first feature chunk's first 4 features)
+        if (lse != nullptr && vc == 0 && d == 0)
+            lse[(size_t)b * KV * G + (size_t)kvh * G + g0 + g] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
     }
     hopper::cluster_sync();  // no block leaves while another reads its shared memory
 }
 
 // One launch on `stream`: S logical positions under the wrapper's plan (clusters, warps, stages).
 template <typename T, typename Rows>
-int launch(const void* q, const void* k, const void* v, Rows rows, void* out, int B, int S, int KV, int G, int hd,
-           int vd, float scale, int clusters, int warps, int stages, void* stream) {
+int launch(const void* q, const void* k, const void* v, Rows rows, void* out, void* lse, int B, int S, int KV, int G,
+           int hd, int vd, float scale, int clusters, int warps, int stages, void* stream) {
     if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || hd <= 0 || vd <= 0) return cudaErrorInvalidValue;
     if (clusters < 1 || clusters > MAX_CLUSTER || warps < 1 || warps > MAX_WARPS || stages < 1 ||
         stages > MAX_STAGES)
@@ -510,7 +519,7 @@ int launch(const void* q, const void* k, const void* v, Rows rows, void* out, in
     const long long ny = (long long)KV * ((G + HN - 1) / HN) * ((vd + VMAX - 1) / VMAX);
     if (bytes > SMEM_MAX || ny > 65535 || B > 65535) return cudaErrorInvalidValue;
     const int vw = vd < VMAX ? vd : VMAX;
-    void (*kernel)(const T*, const T*, const T*, Rows, T*, int, int, int, int, int, int, float);
+    void (*kernel)(const T*, const T*, const T*, Rows, T*, float*, int, int, int, int, int, int, float);
     if constexpr (sizeof(T) == 4)
         kernel = decode_kernel<T, VMAX, Rows>;
     else
@@ -531,7 +540,8 @@ int launch(const void* q, const void* k, const void* v, Rows rows, void* out, in
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), rows, static_cast<T*>(out), S, KV, G, hd, vd, stages, scale);
+                           static_cast<const T*>(v), rows, static_cast<T*>(out), static_cast<float*>(lse), S, KV,
+                           G, hd, vd, stages, scale);
     return e != cudaSuccess ? e : cudaGetLastError();
 }
 

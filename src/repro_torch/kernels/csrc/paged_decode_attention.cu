@@ -47,8 +47,8 @@ int launch(const void* q, const void* k, const void* v, const void* bt, const vo
            void* stream) {
     if (page <= 0 || n_tbl <= 0) return cudaErrorInvalidValue;
     PagedRows rows{static_cast<const int*>(bt), static_cast<const int*>(n_valid), n_tbl, page, KV};
-    return repro::decode::launch<T>(q, k, v, rows, out, B, n_tbl * page, KV, G, hd, vd, scale, clusters, warps,
-                                    stages, stream);
+    return repro::decode::launch<T>(q, k, v, rows, out, nullptr, B, n_tbl * page, KV, G, hd, vd, scale, clusters,
+                                    warps, stages, stream);
 }
 
 }  // namespace

@@ -41,7 +41,7 @@ WARP_EXTRA = 640  # bytes a warp: 16 row indices and a P buffer
 SMEM_MAX = 232448  # dynamic shared memory a block may take on the H100
 SM_SMEM = 233472  # shared memory of one SM, 1 KB of it reserved a resident block
 
-_ARGS = [P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P]
+_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P]
 KERNEL = KernelLib("decode_attention", {
     "decode_attention_bf16": _ARGS,
     "decode_attention_f32": _ARGS,
@@ -100,12 +100,15 @@ def plan_groups(B: int, KV: int, G: int, vd: int) -> int:
     return B * KV * -(-G // HEADS) * -(-vd // VMAX)
 
 
-def decode_attention(q, k_cache, v_cache, valid):
+def decode_attention(q, k_cache, v_cache, valid, *, return_lse: bool = False):
     """q: (B, 1, H, hd); k_cache: (B, S, KV, hd); v_cache: (B, S, KV, vd);
-    valid: (B, S) bool -> (B, 1, H, vd) in q's dtype."""
+    valid: (B, S) bool -> (B, 1, H, vd) in q's dtype; with ``return_lse``
+    also each head's fp32 log-sum-exp (B, H) of its scores over the valid
+    positions (-inf where none is), which combines attentions over a cache
+    split across ranks.  Without it the kernel writes no lse."""
     ts = (q, k_cache, v_cache, valid)
     if all(t.device.type == "cpu" for t in ts):
-        return ref.decode_attention_ref(q, k_cache, v_cache, valid)
+        return ref.decode_attention_ref(q, k_cache, v_cache, valid, return_lse=return_lse)
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError(f"decode_attention: operands on {[str(t.device) for t in ts]}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not (q.dtype == k_cache.dtype == v_cache.dtype):
@@ -127,7 +130,8 @@ def decode_attention(q, k_cache, v_cache, valid):
     check_vector_layout("decode_attention", q, k_cache, v_cache)
     plan = decode_plan(S, hd, vd, q.element_size(), plan_groups(B, KV, H // KV, vd), sm_count(q.device.index or 0))
     out = torch.empty((B, 1, H, vd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     entry = "decode_attention_f32" if q.dtype == torch.float32 else "decode_attention_bf16"
     KERNEL.launch(entry, q.device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-                  out.data_ptr(), B, S, KV, H // KV, hd, vd, hd**-0.5, *plan)
-    return out
+                  out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, S, KV, H // KV, hd, vd, hd**-0.5, *plan)
+    return (out, lse) if return_lse else out

@@ -67,13 +67,15 @@ def lowrank_matmul_ref(x, A, B, *, return_xa: bool = False):
     return (y, t) if return_xa else y
 
 
-def decode_attention_ref(q, k_cache, v_cache, valid):
+def decode_attention_ref(q, k_cache, v_cache, valid, *, return_lse: bool = False):
     """Dense one-token GQA attention over a cache — flash-decode oracle.
 
     q: (B, 1, H, hd); k_cache: (B, S, KV, hd); v_cache: (B, S, KV, vd);
     valid: (B, S) bool strict per-slot mask.  q is scaled in fp32 and cast to
     the cache dtype; probabilities are re-masked after the exp, so a
-    fully-masked row produces zeros.
+    fully-masked row produces zeros.  ``return_lse``: also each head's fp32
+    log-sum-exp (B, H) of its scores over the valid positions (-inf where
+    none is).
     """
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
@@ -84,9 +86,14 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
-    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp(l, min=1e-30)
     out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).float(), v_cache.float())
-    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+    out = out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
+    return out, lse.reshape(B, H)
 
 
 def gather_pages(pool, block_table):

@@ -10,12 +10,20 @@ the counts at one H100's data-sheet figures (``roofline/analysis.py``).
 Results go to ``--out`` (default ``build/dryrun_results/``), one JSON file a
 cell under the mesh's tag.
 
-What one rank runs is what the port runs on a live mesh: the whole params
-(dense linears are not tensor-parallel in the port), its rows of the global
-batch (split over ("pod", "data") where they divide), the MoE layers
-expert-parallel over "model", and the collectives of
-``runtime/distributed.py`` on a dry mesh (the train step's gradient mean
-over the world, the expert-parallel psums).  Rank 0 stands for all ranks.
+What one rank runs is what the port runs on a live mesh, its rows of the
+global batch (split over ("pod", "data") where they divide) and the
+collectives of ``runtime/distributed.py`` on a dry mesh, in one of two
+programs.  The dense family and the moe family without MLA run the
+tensor-parallel program (``sharding/rules.py``): the rank
+holds its blocks of the params and optimizer state under the reference's
+specs, FSDP blocks gathered over "data" just before their products, the
+linears column- and row-parallel over "model", the embedding and head
+vocab-parallel, the sequence over "model" between blocks in train and
+prefill cells, the experts as its "ep" block, the decode cache's slots
+over "model" (``cache_specs``), the gradient mean over the batch axes.  The other archs (MLA, the SSM families, the vlm and the
+encoder-decoder) keep the whole-param program: every param whole on
+every rank, the MoE layers expert-parallel over "model", the train step's
+gradient mean over the world.  Rank 0 stands for all ranks.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -29,8 +37,9 @@ the seconds of the counted run; ``xla_cost_analysis_flops_raw`` and
 ``argument_bytes``, ``peak_bytes`` and ``fits`` (the peak within
 ``HW.HBM_PER_CHIP``), ``card`` and ``sharded_by_reference_bytes`` (the
 bytes of the param and optimizer leaves this rank holds whole that the
-reference's ``param_specs`` splits over the mesh: what the port's lack of
-tensor-parallel dense layers costs in memory).  A cell that does not fit
+reference's ``param_specs`` splits over the mesh: 0 under the
+tensor-parallel program, what the whole-param program costs in memory
+elsewhere).  A cell that does not fit
 is a result, not a failure; a cell that cannot run prints FAIL and the run
 exits non-zero.
 """
@@ -54,11 +63,11 @@ from repro_torch.roofline import dry, op_stats
 from repro_torch.roofline.analysis import axis_bandwidth, roofline_terms
 from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch
 from repro_torch.runtime.distributed import MeshSpec, axis_names, dry_mesh
-from repro_torch.sharding.rules import param_specs
+from repro_torch.sharding.rules import layout_specs, param_specs, shard_params, tensor_parallel, use_rules
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.train_step import TrainState, make_train_step, state_specs
-from repro_torch.tree import tree_paths
+from repro_torch.tree import tree_map, tree_paths
 
 __all__ = ["RESULTS_DIR", "MESH_TAGS", "input_specs", "build_step", "run_cell", "main"]
 
@@ -104,10 +113,16 @@ def build_step(arch: Union[str, ArchConfig], shape: Union[str, ShapeCell], mesh:
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch, reduced=reduced)
     cell = shape if isinstance(shape, ShapeCell) else get_shape(shape)
     rules = None
+    sharded = mesh is not None and tensor_parallel(cfg)
     if mesh is not None:
         rules = make_rules(dry_mesh(mesh, rank, device), sequence_parallel=cell.kind != "decode")
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator(device=model.device).manual_seed(seed))
+    specs = whole = None
+    if sharded:  # this rank's blocks; the whole leaves' shapes stay behind as meta tensors
+        specs = layout_specs(params, rules)
+        whole = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+        params = shard_params(params, rules, specs=specs)
     rows = local_rows(cell, rules)
     batch = input_specs(cfg, cell, rows, model.device)
     policy = DispatchConfig.from_arch(cfg)
@@ -116,7 +131,9 @@ def build_step(arch: Union[str, ArchConfig], shape: Union[str, ShapeCell], mesh:
         opt = _make_optimizer(cfg)
         state = TrainState(params=params, opt_state=opt.init(params),
                            step=torch.zeros((), dtype=torch.int32, device=model.device))
-        fn = make_train_step(model, opt, rules=rules, accum_steps=cfg.accum_steps)
+        if whole is not None:
+            whole = TrainState(params=whole, opt_state=opt.init(whole), step=state.step)
+        fn = make_train_step(model, opt, rules=rules, accum_steps=cfg.accum_steps, specs=specs)
         arguments = (state, batch)
 
         def step():
@@ -130,7 +147,8 @@ def build_step(arch: Union[str, ArchConfig], shape: Union[str, ShapeCell], mesh:
             with use_dispatch(policy), torch.no_grad():
                 return fn(params, batch)
     elif cell.kind == "decode":
-        cache = model.init_cache(rows, cell.seq_len)
+        with use_rules(rules):  # this rank's block of the cache under tensor-parallel rules
+            cache = model.init_cache(rows, cell.seq_len)
         fn = make_decode_step(model, rules=rules)
         pos = cell.seq_len - 1  # the cache's last position: every row of it valid
         arguments = (params, cache, batch)
@@ -152,7 +170,10 @@ def build_step(arch: Union[str, ArchConfig], shape: Union[str, ShapeCell], mesh:
         "n_params_active": n_active,
         "model_flops_global": _model_flops(cfg, cell, n_params, n_active),
         "rows_per_rank": rows,
+        "tensor_parallel": sharded,
     }
+    if rules is not None:
+        meta["sharded_by_reference_bytes"] = sharded_by_reference_bytes(arguments, rules, cell.kind, whole)
     return step, arguments, meta, rules
 
 
@@ -162,20 +183,23 @@ def _model_flops(cfg, cell, n_params, n_active):
     return mult * n_active * cell.tokens
 
 
-def sharded_by_reference_bytes(arguments, rules, kind: str) -> int:
+def sharded_by_reference_bytes(arguments, rules, kind: str, whole=None) -> int:
     """Bytes of the param (and, for a train step, optimizer-state) leaves
-    this rank holds whole that the reference's specs split over the mesh."""
+    this rank holds whole that the reference's specs split over the mesh.
+    ``whole``: the same tree (a TrainState, or the params) with every leaf
+    whole (meta tensors will do), where ``arguments`` hold blocks."""
+    held = arguments[0]
+    ref = held if whole is None else whole
     if kind == "train":
-        state = arguments[0]
-        specs = state_specs(state, rules)
-        pairs = [(state.params, specs.params), (state.opt_state, specs.opt_state)]
+        specs = state_specs(ref, rules)
+        pairs = [(held.params, ref.params, specs.params), (held.opt_state, ref.opt_state, specs.opt_state)]
     else:
-        pairs = [(arguments[0], param_specs(arguments[0], rules))]
+        pairs = [(held, ref, param_specs(ref, rules))]
     total = 0
-    for tree, spec_tree in pairs:
-        specs = dict(tree_paths(spec_tree))
+    for tree, ref_tree, spec_tree in pairs:
+        specs, shapes = dict(tree_paths(spec_tree)), {p: tuple(t.shape) for p, t in tree_paths(ref_tree)}
         for path, leaf in tree_paths(tree):
-            if any(e is not None for e in specs.get(path, ())):
+            if any(e is not None for e in specs.get(path, ())) and tuple(leaf.shape) == shapes[path]:
                 total += leaf.numel() * leaf.element_size()
     return total
 
@@ -191,7 +215,7 @@ def count_cell(arch, shape, mesh: Optional[MeshSpec], *, reduced: bool = False,
         t0 = time.time()
         _, stats = op_stats.measure(step, arguments=arguments)
         t_run = time.time() - t0
-        sharded = sharded_by_reference_bytes(arguments, rules, meta["kind"]) if rules is not None else 0
+        sharded = meta.pop("sharded_by_reference_bytes", 0)
     return stats, meta, sharded, t_build, t_run
 
 

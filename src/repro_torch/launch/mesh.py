@@ -23,6 +23,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
 
 
 def make_rules(mesh, *, sequence_parallel: bool = True):
+    """The production rules: the sequence over "model" between blocks
+    (``sequence_parallel``)."""
     from repro_torch.sharding.rules import MeshRules
 
     rules = MeshRules(mesh)

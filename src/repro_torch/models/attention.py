@@ -39,6 +39,8 @@ import torch
 
 from repro_torch.kernels.ref import NEG_INF, gather_pages
 from repro_torch.models import modules as nn
+from repro_torch.runtime import distributed
+from repro_torch.sharding.rules import leaf_spec
 
 __all__ = [
     "position_vector",
@@ -78,17 +80,42 @@ def position_vector(pos, batch: int, device) -> torch.Tensor:
     return pos.expand(batch) if pos.dim() == 0 else pos.reshape(batch)
 
 
-def decode_attention(q, k_cache, v_cache, n_valid):
+def decode_attention(q, k_cache, v_cache, n_valid, *, return_lse: bool = False):
     """One-token attention over a cache.  q: (B, 1, H, hd); caches
     (B, S, KV, *).  ``n_valid``: valid cache slots — a scalar or a (B,)
     vector; masking is strictly per sequence.  A fully-masked row produces
-    zeros."""
+    zeros (and with ``return_lse`` an lse of -inf)."""
     from repro_torch.runtime import dispatch
 
     B, S = q.shape[0], k_cache.shape[1]
     nv = position_vector(n_valid, B, q.device)
     valid = torch.arange(S, device=q.device)[None, :] < nv[:, None]
-    return dispatch.decode_attention(q, k_cache, v_cache, valid)
+    return dispatch.decode_attention(q, k_cache, v_cache, valid, return_lse=return_lse)
+
+
+def cache_block(S: int, tp) -> tuple:
+    """(first slot, slots) of a decode cache of ``S`` slots (positions, or a
+    ring's) that this rank holds: the reference's ``cache_specs`` split the
+    slots over "model" where they divide, and keep the cache whole
+    otherwise (and without ``tp``)."""
+    if tp is None or tp.size == 1 or S % tp.size:
+        return 0, S
+    n = S // tp.size
+    return tp.index * n, n
+
+
+def _combine_split(out, lse, tp):
+    """The attentions of this rank's cache slots (out (B, 1, H, vd), fp32
+    lse (B, H)) combined over "model" exactly by their log-sum-exp: each
+    rank's output weighted by exp(lse - max lse), summed (one all-reduce of
+    the weighted outputs and the weights), divided by the summed weights."""
+    m = distributed.pmax(lse, "model", tp.mesh)
+    w = torch.exp(lse - m)  # a rank with no valid slot: exp(-inf) = 0
+    B, _, H, vd = out.shape
+    part = torch.cat([(out.float() * w[:, None, :, None]).reshape(B, -1), w], dim=1)
+    tot = distributed.psum(part, "model", tp.mesh)
+    num, den = tot[:, :H * vd].reshape(B, 1, H, vd), tot[:, H * vd:]
+    return (num / den[:, None, :, None]).to(out.dtype)
 
 
 def gqa_init(generator: torch.Generator, cfg, dtype, device) -> dict:
@@ -107,9 +134,59 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device) -> dict:
     return p
 
 
-def _qkv(p, x, cfg, positions, *, rope: bool = True):
+def _heads_split(tp, n_heads: int) -> bool:
+    """Whether the reference's head constraint splits ``n_heads`` over
+    "model" (``rules.resolve("tp", heads)``; minitron-4b's 24 query heads
+    do not divide 16, so its q stays whole there)."""
+    return tp is not None and tp.size > 1 and n_heads % tp.size == 0
+
+
+def _proj_tp(p, name: str, x, cfg, tp, n_heads: int, bias: str):
+    """One of q / k / v under ``tp``: (B, S, heads, hd) on this rank's heads
+    where they split over "model" (True), else every head (False), the
+    projection's column blocks gathered (they hold parts of heads)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    shape = (cfg.d_model, n_heads * hd)
+    y = nn.tp_linear(tp, p[name], x, "attn/" + name, shape)
+    cols = leaf_spec("attn/" + name, shape)[1] == "model"  # else the projection came out whole
+    if cfg.qkv_bias:  # the bias's rule splits the same dim, or keeps it whole with the projection
+        y = y + (p[bias] if cols else tp.copy(p[bias]))
+    split = _heads_split(tp, n_heads)
+    if not split and cols:
+        y = tp.gather_features(y)  # a block holds part of a head
+    return y.reshape(B, S, -1, hd), split
+
+
+def _local_kv(k, v, cfg, tp, q_split: bool, kv_split: bool):
+    """K/V heads for this rank's query heads: its own where both split,
+    every head where the queries do not, and where only the queries split
+    (half a KV head a rank and the like) the one KV head they all read:
+    "model" is then a multiple of the KV heads, at every config of the
+    families."""
+    if not q_split or kv_split:
+        return k, v
+    KV = cfg.n_kv_heads
+    if tp.size % KV:
+        raise ValueError(f"{KV} KV heads over \"model\" ({tp.size}): neither divides the other")
+    lo = tp.index * KV // tp.size
+    return k[:, :, lo:lo + 1], v[:, :, lo:lo + 1]
+
+
+def _qkv(p, x, cfg, positions, *, rope: bool = True, tp=None):
+    """(q, k, v) (B, S, heads, hd).  Under ``tp`` x is the region's input
+    (whole rows) and q / k / v lie on their heads' layout (:func:`_proj_tp`);
+    also returns (q split, k/v split)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if tp is not None:
+        q, q_split = _proj_tp(p, "wq", x, cfg, tp, H, "bq")
+        k, kv_split = _proj_tp(p, "wk", x, cfg, tp, KV, "bk")
+        v, _ = _proj_tp(p, "wv", x, cfg, tp, KV, "bv")
+        if rope:
+            q = nn.apply_rope(q, positions, cfg.rope_theta)
+            k = nn.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v.contiguous(), (q_split, kv_split)
     q = nn.dense(p["wq"], x)
     k = nn.dense(p["wk"], x)
     v = nn.dense(p["wv"], x)
@@ -123,23 +200,51 @@ def _qkv(p, x, cfg, positions, *, rope: bool = True):
     return q, k, v
 
 
+def _out_tp(p, out, cfg, tp, q_split: bool):
+    """The attention output (B, S, heads, vd) through ``wo``, leaving the
+    region: this rank's heads are wo's row block where the heads split;
+    otherwise every head was computed here, sliced to that block (or kept
+    whole where wo itself is whole over "model")."""
+    B, S = out.shape[:2]
+    shape = (cfg.n_heads * cfg.head_dim, cfg.d_model)
+    out = out.reshape(B, S, -1)
+    if not q_split and leaf_spec("attn/wo", shape)[0] == "model":
+        out = tp.own_features(out)
+    return nn.tp_linear(tp, p["wo"], out, "attn/wo", shape, row=True)
+
+
 def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, rope: bool = True,
-                return_cache: bool = False):
+                return_cache: bool = False, tp=None):
     """Full-sequence GQA attention (prefill), through the flash kernel.
     ``rope=False`` (whisper's encoder and decoder prompt) applies no rotary
     embedding; ``causal=False`` (whisper's encoder) masks nothing.
 
     Returns the output, and with ``return_cache`` also the (k, v) of every
-    position for the decode cache."""
+    position for the decode cache.  Under ``tp`` (``models/modules.py``)
+    ``x`` is this rank's rows of the residual stream's layout: the rows
+    enter the region, the flash kernel runs on this rank's heads (every
+    head where the query heads do not divide over "model"), and ``wo``
+    leaves it; the cache rows come back with every KV head."""
     from repro_torch.runtime import dispatch
 
-    B, S, _ = x.shape
     W = cfg.sliding_window
+    if tp is not None:
+        x = tp.enter(x)
+    B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(p, x, cfg, positions, rope=rope)
-    out = dispatch.flash_attention(q, k, v, causal=causal, window=W)
-    out = nn.dense(p["wo"], out.reshape(B, S, -1))
+    if tp is not None:
+        q, k, v, (q_split, kv_split) = _qkv(p, x, cfg, positions, rope=rope, tp=tp)
+        kq, vq = _local_kv(k, v, cfg, tp, q_split, kv_split)
+        out = dispatch.flash_attention(q, kq.contiguous(), vq.contiguous(), causal=causal, window=W)
+        out = _out_tp(p, out, cfg, tp, q_split)
+        if return_cache and kv_split:  # the cache holds every KV head
+            k = distributed.all_gather(k, "model", tp.mesh, dim=2)
+            v = distributed.all_gather(v, "model", tp.mesh, dim=2)
+    else:
+        q, k, v = _qkv(p, x, cfg, positions, rope=rope)
+        out = dispatch.flash_attention(q, k, v, causal=causal, window=W)
+        out = nn.dense(p["wo"], out.reshape(B, S, -1))
     if not return_cache:
         return out
     if W is not None and S > W:
@@ -149,37 +254,66 @@ def gqa_forward(p, x, cfg, *, positions=None, causal: bool = True, rope: bool = 
     return out, (k, v)
 
 
-def gqa_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+def gqa_init_cache(cfg, batch: int, max_len: int, dtype, device, tp=None) -> dict:
     """A cache of ``max_len`` positions a row; a sliding window W's ring of
-    ``min(max_len, W)``."""
+    ``min(max_len, W)``.  Under ``tp`` this rank's block of its slots
+    (:func:`cache_block`)."""
     KV, hd, W = cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
-    S = min(max_len, W) if W is not None else max_len
+    S = cache_block(min(max_len, W) if W is not None else max_len, tp)[1]
     return {
         "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
     }
 
 
-def gqa_decode(p, x, cache, pos, cfg):
+def gqa_decode(p, x, cache, pos, cfg, tp=None, slots=None):
     """x: (B, 1, d); pos: absolute position of the new token — a scalar or a
     (B,) vector (``lm_decode_step`` passes one (B,) device vector to every
     layer).  Writes the new K/V into ``cache`` IN PLACE (the tensors may be
     views of the model's stacked (L, B, S, KV, hd) cache) and returns
-    (out, cache)."""
+    (out, cache).  Under ``tp`` the cache is this rank's block of the
+    ``slots`` slots of the whole (``cache_specs``' layout, :func:`cache_block`)
+    and every query head attends it.  Where the slots split over "model" the
+    new row's K/V (every head) is written only by the rank that holds slot
+    ``pos % slots`` and the ranks' attentions are combined exactly by their
+    log-sum-exp (:func:`_combine_split`); where they do not, every rank holds
+    and writes the whole cache and attends it unsplit.  The output is sliced
+    to wo's row block."""
     B = x.shape[0]
     pos_v = position_vector(pos, B, x.device)
-    q, k, v = _qkv(p, x, cfg, pos_v[:, None])
+    if tp is not None:
+        q, k, v, (q_split, kv_split) = _qkv(p, tp.enter(x), cfg, pos_v[:, None], tp=tp)
+        if q_split:
+            q = distributed.all_gather(q, "model", tp.mesh, dim=2)
+        if kv_split:
+            k = distributed.all_gather(k, "model", tp.mesh, dim=2)
+            v = distributed.all_gather(v, "model", tp.mesh, dim=2)
+    else:
+        q, k, v = _qkv(p, x, cfg, pos_v[:, None])
     b_idx = torch.arange(B, device=x.device)
-    S = cache["k"].shape[1]
+    S = cache["k"].shape[1] if tp is None else slots
+    lo, n_loc = cache_block(S, tp)
+    split = n_loc != S
     slot = pos_v % S  # the ring for SWA; identity while pos < max_len otherwise, as in the reference
-    cache["k"][b_idx, slot] = k[:, 0]
-    cache["v"][b_idx, slot] = v[:, 0]
+    if not split:
+        cache["k"][b_idx, slot] = k[:, 0]
+        cache["v"][b_idx, slot] = v[:, 0]
+    else:  # only the rank holding the slot writes (the others rewrite a row with itself)
+        own = ((slot >= lo) & (slot < lo + n_loc))[:, None, None]
+        li = torch.clamp(slot - lo, 0, n_loc - 1)
+        cache["k"][b_idx, li] = torch.where(own, k[:, 0], cache["k"][b_idx, li])
+        cache["v"][b_idx, li] = torch.where(own, v[:, 0], cache["v"][b_idx, li])
     n_valid = pos_v + 1
     if cfg.sliding_window is not None and S == cfg.sliding_window:
         # a full ring holds the window exactly: every slot is valid once pos >= S - 1 (a
         # device-side clamp, no host sync: the decode block is captured as a CUDA graph)
         n_valid = torch.clamp(n_valid, max=S)
+    if split:
+        out, lse = decode_attention(q, cache["k"], cache["v"], torch.clamp(n_valid - lo, 0, n_loc), return_lse=True)
+        return _out_tp(p, _combine_split(out, lse, tp), cfg, tp, False), cache
     out = decode_attention(q, cache["k"], cache["v"], n_valid)
+    if tp is not None:
+        return _out_tp(p, out, cfg, tp, False), cache
     return nn.dense(p["wo"], out.reshape(B, 1, -1)), cache
 
 

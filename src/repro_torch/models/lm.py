@@ -49,6 +49,20 @@ decode, and ``lm_prefill_chunk`` writes one chunk of one slot's prompt
 into its pages (dense and moe only: a recurrent state cannot be
 prefilled in page-backed chunks, nor a vlm's cross blocks enter
 mid-prompt, as in the reference).
+
+Under tensor-parallel rules (``sharding/rules.py``; the dense family and
+the moe family without MLA) each rank holds its blocks of the params and
+the forward, the prefill and the decode step run on them
+(``models/modules.py::TensorParallel``): the embedding and the head are
+vocab-parallel, the residual stream's sequence lies over "model" between
+blocks where ``"seq"`` is mapped (gathered before the column-parallel
+linears, reduce-scattered after the row-parallel ones, the norms on this
+rank's rows), the attention and the feed-forward half run on this rank's
+heads and columns, and the logits come back as this rank's vocab block.
+The decode cache is this rank's block of its slots, split over "model"
+as the reference's ``cache_specs`` lay it out: the prefill writes its
+slots, a decode step's new row goes to the rank holding its slot, and the
+ranks' attentions combine by their log-sum-exp (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +77,7 @@ from repro_torch.models import modules as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.runtime import dispatch
-from repro_torch.sharding.rules import bound_to_rules
+from repro_torch.sharding.rules import bound_to_rules, leaf_spec, tensor_parallel
 
 __all__ = [
     "lm_init",
@@ -254,12 +268,64 @@ def lm_init(generator: torch.Generator, cfg, device) -> dict:
     return p
 
 
-def _logits(p, x, cfg) -> torch.Tensor:
+def _tp(cfg, seq_len: Optional[int] = None):
+    """The forward's tensor-parallel layout where the rules and the family run it, else None."""
+    return nn.tensor_parallel(seq_len) if tensor_parallel(cfg) else None
+
+
+def _head_name(cfg) -> tuple:
+    """(leaf, whole shape) of the head: the tied embedding or the untied head."""
+    if cfg.tie_embeddings:
+        return "embed", (cfg.vocab_padded, cfg.d_model)
+    return "lm_head", (cfg.d_model, cfg.vocab_padded)
+
+
+def lm_head_params(p, cfg) -> dict:
+    """``p`` with the head's dense table gathered over "data" once (the
+    training step's chunks then share it); ``p`` itself outside
+    tensor-parallel rules."""
+    tp = _tp(cfg)
+    name, _ = _head_name(cfg)
+    if tp is None or lowrank.is_lowrank(p[name]):
+        return p
+    return {**p, name: _head_table(p, cfg, tp)}
+
+
+def _head_spec(cfg) -> tuple:
+    """The head leaf's spec; raises where the vocab does not split over
+    "model" (the program has no fallback for it, ``sharding/rules.py``)."""
+    name, shape = _head_name(cfg)
+    spec = leaf_spec(name, shape)
+    if spec[0 if name == "embed" else 1] != "model":
+        raise ValueError(f"the tensor-parallel head needs the padded vocab {cfg.vocab_padded} to divide "
+                         "over \"model\"")
+    return spec
+
+
+def _head_table(p, cfg, tp):
+    """The head's dense table on this rank: its vocab block, every ``d``
+    column (gathered over "data" unless :func:`lm_head_params` did)."""
+    name, shape = _head_name(cfg)
+    w, spec = p[name], _head_spec(cfg)
+    d_dim = 1 if name == "embed" else 0
+    if w.shape[d_dim] == cfg.d_model:  # already gathered
+        return w
+    return lowrank.gather_blocks(w, spec, tp.mesh)
+
+
+def _logits(p, x, cfg, tp=None) -> torch.Tensor:
     """fp32 logits (``repro/models/lm.py::_logits``).  The tied embedding and
     a dense untied head give fp32-accumulated logits never rounded to the
     model dtype; a compressed head goes through ``nn.dense`` like any
     factored linear, so its logits ARE rounded to the model dtype first and
-    then cast to fp32, as the reference's are."""
+    then cast to fp32, as the reference's are.  Under ``tp`` the rows x are
+    whole and the logits this rank's vocab block."""
+    if tp is not None:
+        name, shape = _head_name(cfg)
+        if lowrank.is_lowrank(p[name]):
+            _head_spec(cfg)
+            return nn.tp_linear(tp, p[name], x, name, shape).float()
+        return dispatch.logits_apply(x, _head_table(p, cfg, tp), tied=cfg.tie_embeddings)
     if cfg.tie_embeddings:
         return dispatch.logits_apply(x, p["embed"])
     head = p["lm_head"]
@@ -268,30 +334,31 @@ def _logits(p, x, cfg) -> torch.Tensor:
     return dispatch.logits_apply(x, head, tied=False)
 
 
-def _mlp(lp, h, cfg, *, with_aux: bool = False):
+def _mlp(lp, h, cfg, *, with_aux: bool = False, tp=None):
     """The block's feed-forward half: routed experts or the dense FFN.
     Returns (out, aux loss).  The aux loss is computed only ``with_aux``
     (lm_forward reads it; the serving paths skip its kernels) and is 0.0
     otherwise and for a dense model."""
     if "moe" not in lp:
-        return moe_mod.ffn_forward(lp["mlp"], h), 0.0
+        return moe_mod.ffn_forward(lp["mlp"], h, tp=tp, d_ff=cfg.d_ff), 0.0
     if with_aux:
-        return moe_mod.moe_forward(lp["moe"], h, cfg)
-    return moe_mod.moe_apply(lp["moe"], h, cfg), 0.0
+        return moe_mod.moe_forward(lp["moe"], h, cfg, tp=tp)
+    return moe_mod.moe_apply(lp["moe"], h, cfg, tp=tp), 0.0
 
 
-def _self_block(lp, x, cfg, positions, *, return_cache: bool = False):
+def _self_block(lp, x, cfg, positions, *, return_cache: bool = False, tp=None):
     """An attention block over a whole sequence; with ``return_cache`` also
     its cache rows, in :func:`_cache_names` order."""
-    h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    h = nn.rmsnorm(lp["attn_norm"], x, cfg.norm_eps, tp)
+    kw = {} if tp is None else {"tp": tp}
     forward = attn.mla_forward if _mla(cfg) else attn.gqa_forward
-    a = forward(lp["attn"], h, cfg, positions=positions, return_cache=return_cache)
+    a = forward(lp["attn"], h, cfg, positions=positions, return_cache=return_cache, **kw)
     kv = None
     if return_cache:
         a, kv = a
     x = x + a
-    h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-    m, aux = _mlp(lp, h, cfg, with_aux=not return_cache)  # return_cache: the serving prefill
+    h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps, tp)
+    m, aux = _mlp(lp, h, cfg, with_aux=not return_cache, tp=tp)  # return_cache: the serving prefill
     return x + m, kv, aux
 
 
@@ -351,7 +418,8 @@ def lm_forward_features(p, batch, cfg):
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = nn.embed_lookup(p["embed"], tokens)
+    tp = _tp(cfg, S)
+    x = nn.embed_lookup(p["embed"], tokens, tp, (cfg.vocab_padded, cfg.d_model))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     mamba = _layer_kind(cfg) == "mamba"
     img = _image(batch, x) if cfg.family == "vlm" else None
@@ -365,33 +433,42 @@ def lm_forward_features(p, batch, cfg):
             elif kind == "layer" and mamba:
                 x, _ = _mamba_block(_layer(p["layers"], i), x, cfg)
             else:
-                x, _, a = _self_block(_block(p, kind, i), x, cfg, positions)
+                x, _, a = _self_block(_block(p, kind, i), x, cfg, positions, tp=tp)
                 aux = aux + a
         return x, aux
 
     x, aux = remat_groups(run, _schedule(cfg), x, cfg)
-    return nn.rmsnorm(p["final_norm"], x, cfg.norm_eps), aux
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps, tp)
+    # under tp: every row, on every rank, for the vocab-parallel head
+    return (x if tp is None else tp.enter(x)), aux
 
 
 def lm_head_apply(p, x, cfg) -> torch.Tensor:
-    """fp32 logits of hidden states x (..., d)."""
-    return _logits(p, x, cfg)
+    """fp32 logits of hidden states x (..., d) (under tensor-parallel
+    rules: every row, this rank's vocab block)."""
+    return _logits(p, x, cfg, _tp(cfg))
 
 
 def lm_forward(p, batch, cfg):
     """batch['tokens']: (B, S) -> (logits fp32 (B, S, Vp), aux_loss)
     (:func:`lm_forward_features`, then the head)."""
     x, aux = lm_forward_features(p, batch, cfg)
-    return _logits(p, x, cfg), aux
+    return _logits(p, x, cfg, _tp(cfg)), aux
 
 
 def _stacked_zeros(one: dict, n: int, device) -> dict:
     return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=device) for k, v in one.items()}
 
 
+def _slots(cfg, max_len: int) -> int:
+    """A decode cache's slots a row: ``max_len``, or a sliding window's ring."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window is not None else max_len
+
+
 def _attn_cache(cfg, batch_size: int, max_len: int, device) -> dict:
-    init = attn.mla_init_cache if _mla(cfg) else attn.gqa_init_cache
-    return init(cfg, batch_size, max_len, _dtype(cfg), device)
+    if _mla(cfg):
+        return attn.mla_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
+    return attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device, tp=_tp(cfg))
 
 
 def _cross_kv_cache(cfg, batch_size: int, device) -> dict:
@@ -415,6 +492,10 @@ def lm_init_cache(cfg, batch_size: int, max_len: int, device) -> dict:
     if cfg.family == "hybrid":
         one = attn.gqa_init_cache(cfg, batch_size, max_len, _dtype(cfg), device)
         cache["shared_attn"] = _stacked_zeros(one, _n_shared_apps(cfg), device)
+    if _tp(cfg) is not None:
+        # the whole cache's slot count, in the shape of an empty leaf: a rank's block alone does not tell
+        # a split cache from one kept whole (attention.cache_block)
+        cache["slots"] = torch.empty((0, _slots(cfg, max_len)), dtype=torch.int32, device=device)
     return cache
 
 
@@ -491,7 +572,8 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
     if S > max_len:
         raise ValueError(f"prompt length {S} > max_len {max_len}")
     cache = lm_init_cache(cfg, B, max_len, tokens.device)
-    x = nn.embed_lookup(p["embed"], tokens)
+    tp = _tp(cfg, S)
+    x = nn.embed_lookup(p["embed"], tokens, tp, (cfg.vocab_padded, cfg.d_model))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     mamba = _layer_kind(cfg) == "mamba"
     img = _image(batch, x) if cfg.family == "vlm" else None
@@ -510,17 +592,21 @@ def lm_prefill(p, batch, cfg, max_len: int, *, last_index: Optional[torch.Tensor
             continue
         # an attention block: a stacked layer, a dense first layer, or the
         # hybrid's shared block with its own cache per application
-        x, rows, _ = _self_block(_block(p, kind, i), x, cfg, positions, return_cache=True)
+        x, rows, _ = _self_block(_block(p, kind, i), x, cfg, positions, return_cache=True, tp=tp)
         for name, t in zip(_cache_names(cfg), rows):
-            n = t.shape[1]  # S, or the ring's W slots of a longer prompt
-            cache[_SUB[kind]][name][i, :, :n] = t
-    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
+            dst = cache[_SUB[kind]][name][i]
+            lo = attn.cache_block(_slots(cfg, max_len), tp)[0]
+            t = t[:, lo:lo + dst.shape[1]]  # this rank's slots of S, or of the ring's W of a longer prompt
+            dst[:, :t.shape[1]] = t
+    x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps, tp)
+    if tp is not None:
+        x = tp.whole(x)
     if last_index is None:
         last = x[:, -1:, :]
     else:
         idx = torch.as_tensor(last_index, dtype=torch.int64, device=x.device)
         last = x[torch.arange(B, device=x.device), idx][:, None, :]
-    return _logits(p, last, cfg)[:, 0], cache
+    return _logits(p, last, cfg, tp)[:, 0], cache
 
 
 @dispatch.prefill_rows()
@@ -579,7 +665,8 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
     is a slot row; the mamba layers' conv tails and states, and a vlm's
     ``cross_kv``, are slot rows either way."""
     _check_family(cfg)
-    x = nn.embed_lookup(p["embed"], tokens)
+    tp = _tp(cfg)
+    x = nn.embed_lookup(p["embed"], tokens, tp, (cfg.vocab_padded, cfg.d_model))
     pos_v = attn.position_vector(pos, tokens.shape[0], tokens.device)  # once per step, on the device
     bt = cache.get("block_table") if cfg.sliding_window is None else None
     mamba = _layer_kind(cfg) == "mamba"
@@ -598,10 +685,12 @@ def lm_decode_step(p, cache, tokens, pos, cfg):
         if bt is not None:
             decode = attn.mla_decode_paged if mla else attn.gqa_decode_paged
             a, _ = decode(lp["attn"], h, c, pos_v, cfg, bt)
+        elif tp is not None:
+            a, _ = attn.gqa_decode(lp["attn"], h, c, pos_v, cfg, tp, cache["slots"].shape[1])
         else:
             a, _ = (attn.mla_decode if mla else attn.gqa_decode)(lp["attn"], h, c, pos_v, cfg)
         x = x + a
         h = nn.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + _mlp(lp, h, cfg)[0]
+        x = x + _mlp(lp, h, cfg, tp=tp)[0]
     x = nn.rmsnorm(p["final_norm"], x, cfg.norm_eps)
-    return _logits(p, x, cfg)[:, 0], cache
+    return _logits(p, x, cfg, tp)[:, 0], cache

@@ -53,6 +53,9 @@ class ModelApi:
     # cache is a sliding window's ring, or the prompt attends a per-request
     # context (vlm, audio): the engine prefills those monolithically
     prefill_chunk: Any = None
+    # (params) -> params with the head's blocks gathered once for a training
+    # step's loss chunks (tensor-parallel rules); None: the params as they are
+    head_params: Any = None
 
 
 def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] = None) -> ModelApi:
@@ -83,6 +86,7 @@ def build_model(cfg: ArchConfig, *, device: Optional[Union[str, torch.device]] =
         forward=lambda p, b: lm_mod.lm_forward(p, b, cfg),
         forward_features=lambda p, b: lm_mod.lm_forward_features(p, b, cfg),
         head_apply=lambda p, x: lm_mod.lm_head_apply(p, x, cfg),
+        head_params=lambda p: lm_mod.lm_head_params(p, cfg),
         init_cache=lambda bs, ml: lm_mod.lm_init_cache(cfg, bs, ml, dev),
         prefill=lambda p, b, ml, **kw: lm_mod.lm_prefill(p, b, cfg, ml, **kw),
         decode_step=lambda p, c, t, pos: lm_mod.lm_decode_step(p, c, t, pos, cfg),

@@ -19,16 +19,25 @@ Under active sharding rules on a live mesh with a ``"model"`` axis that
 divides ``n_experts``, the layer runs expert-parallel
 (:func:`_moe_expert_parallel`, the reference's ``shard_map`` path written
 as per-rank code): each rank holds its block of the batch and its
-``n_experts / model`` experts, and one psum over ``"model"`` combines them.
+``n_experts / model`` experts, and one sum over ``"model"`` combines them.
+The two programs of ``sharding/rules.py`` differ only in where the experts
+come from and how the sum leaves the layer.  In the whole-param program
+(a ``moe_forward`` without ``tp``: the MLA archs) the experts are sliced
+from the whole stacks and a psum combines them.  In the
+tensor-parallel one (a ``tp`` layout from ``models/modules.py``) they are
+stored as this rank's ``"ep"`` block, their ``d`` gathered over "data"
+just before the products, the router and the shared experts follow the
+linear rules, and the region's exit of the conjugate pair sums them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lowrank import gather_blocks
 from repro_torch.models import modules as nn
 from repro_torch.runtime import distributed
-from repro_torch.sharding.rules import active_rules
+from repro_torch.sharding.rules import active_rules, leaf_spec
 from repro_torch.tree import tree_map
 
 __all__ = ["moe_init", "moe_forward", "moe_apply", "ffn_init", "ffn_forward", "moe_capacity"]
@@ -42,10 +51,19 @@ def ffn_init(generator: torch.Generator, d: int, f: int, dtype, device) -> dict:
     }
 
 
-def ffn_forward(p, x: torch.Tensor) -> torch.Tensor:
-    g = nn.dense(p["w_gate"], x)
-    u = nn.dense(p["w_up"], x)
-    return nn.dense(p["w_down"], nn.swiglu(g, u))
+def ffn_forward(p, x: torch.Tensor, *, tp=None, d_ff=None, name: str = "mlp") -> torch.Tensor:
+    """SwiGLU FFN.  Under ``tp`` (``d_ff`` its whole width, ``name`` its
+    path under a layer) x is this rank's rows of the residual stream:
+    w_gate / w_up column-parallel, w_down row-parallel out of the region."""
+    if tp is None:
+        g = nn.dense(p["w_gate"], x)
+        u = nn.dense(p["w_up"], x)
+        return nn.dense(p["w_down"], nn.swiglu(g, u))
+    h = tp.enter(x)
+    d = h.shape[-1]
+    g = nn.tp_linear(tp, p["w_gate"], h, name + "/w_gate", (d, d_ff))
+    u = nn.tp_linear(tp, p["w_up"], h, name + "/w_up", (d, d_ff))
+    return nn.tp_linear(tp, p["w_down"], nn.swiglu(g, u), name + "/w_down", (d_ff, d), row=True)
 
 
 def moe_init(generator: torch.Generator, cfg, dtype, device) -> dict:
@@ -184,44 +202,39 @@ def _local_experts(experts, E: int, E_loc: int, j: int):
     return tree_map(one, experts)
 
 
-def _moe_expert_parallel(p, x: torch.Tensor, cfg, rules, *, with_aux: bool = True):
-    """Expert-parallel MoE on this rank (the reference's production path).
+def _moe_expert_parallel(xf, gate_w, experts, cfg, mesh, j: int, *, with_aux: bool, enter=None):
+    """The expert-parallel layer's body on this rank (the reference's
+    ``shard_map`` path written as per-rank code), for both programs.
 
-    x is this rank's block of the batch (the batch over ("pod", "data") where
-    it divides, else the whole batch), replicated over "model"; the experts
-    lie over "model", E / m a rank (sliced here from the whole stacks in
-    ``p["experts"]``, each expert with its full inner dims: FSDP-sharded
-    expert blocks are not gathered).  Each rank routes its tokens (redundantly
-    over "model": a d x E product), keeps the assignments to its own experts
-    (the rest take the drop sentinel E_loc), runs its expert stack through
-    the batched path (one call of the batched low-rank kernel when
-    compressed), and one psum over "model" sums each token's top-k outputs:
-    one fp32 (T_loc, d) all-reduce a layer, whatever E.  The aux loss is
-    this shard's, pmean'd over the batch axes (a per-shard estimator, close
-    to the single-device loss, not equal; None without ``with_aux``).
-    Returns (out, aux)."""
-    mesh = rules.mesh
-    m_size = mesh.shape["model"]
-    E_loc = cfg.n_experts // m_size
-    B, S, d = x.shape
-    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-    # the local capacity: tokens of ONE batch shard to ONE expert, with more
-    # slack than the global rule (x 1.6) because local loads vary more
-    T = B * S
+    ``xf`` (T, d): this rank's tokens (its block of the batch, the same on
+    every rank of "model"); ``gate_w`` the whole router weight;
+    ``experts`` this rank's ``E / m`` experts, each with its full inner
+    dims, ``j`` its index along "model".  Each rank routes its tokens
+    (redundantly over "model": a d x E product), keeps the assignments to
+    its own experts (the rest take the drop sentinel E_loc) and runs its
+    expert stack through the batched path (one call of the batched low-rank
+    kernel when compressed).  The local capacity counts the tokens of ONE
+    batch shard to ONE expert, with more slack than the global rule (x 1.6)
+    because local loads vary more.  The aux loss is this shard's, pmean'd
+    over the batch axes (a per-shard estimator, close to the single-device
+    loss, not equal; None without ``with_aux``).  ``enter`` maps the tokens
+    and gates into the experts' region (the tensor-parallel program's
+    conjugate copy).  Returns (each token's fp32 sum of its top-k outputs
+    from this rank's experts, aux): the caller sums it over "model"."""
+    E_loc = cfg.n_experts // mesh.shape.get("model", 1)
+    T = xf.shape[0]
     C = int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor * 1.6)
     C = max(((C + 127) // 128) * 128, 128)
-    xf = x.reshape(T, d)
-    ids, gates, probs = _route(xf, p["router"]["gate_w"], cfg)
+    ids, gates, probs = _route(xf, gate_w, cfg)
     aux = _aux_loss(probs, ids, cfg) if with_aux else None
-    for a in batch_axes if with_aux else ():
-        aux = distributed.pmean(aux, a, mesh)
-    j = distributed.axis_index("model", mesh)
+    for a in ("pod", "data") if with_aux else ():
+        if a in mesh.shape:
+            aux = distributed.pmean(aux, a, mesh)
     lo = j * E_loc
     local = torch.where((ids >= lo) & (ids < lo + E_loc), ids - lo, torch.full_like(ids, E_loc))
-    experts = _local_experts(p["experts"], cfg.n_experts, E_loc, j)
-    out = _dispatch_compute_combine(xf, local, gates, experts, C, E_loc, x.dtype)
-    out = distributed.psum(out, "model", mesh)
-    return out.to(x.dtype).reshape(B, S, d), aux
+    if enter is not None:
+        xf, gates = enter(xf), enter(gates)
+    return _dispatch_compute_combine(xf, local, gates, experts, C, E_loc, xf.dtype), aux
 
 
 def _expert_parallel(cfg):
@@ -233,23 +246,57 @@ def _expert_parallel(cfg):
     return None
 
 
-def _moe(p, x: torch.Tensor, cfg, *, with_aux: bool):
+def _moe_tp(p, x: torch.Tensor, cfg, tp, *, with_aux: bool):
+    """The layer in the tensor-parallel program: x is this rank's rows of
+    the residual stream, the experts this rank's ``"ep"`` block, their
+    ``d`` gathered over "data" just before the products.  Every rank
+    routes every row of its batch block (full cotangents: the rows gathered
+    with a sliced backward, the router's ``d`` gathered over "data"), its
+    experts take the copies of the rows and gates that enter the region,
+    and the exit sums the combine over "model", reduce-scattered onto the
+    sequence where it lies over "model"."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    if E % tp.size:
+        raise ValueError(f"the tensor-parallel MoE layer needs n_experts {E} to divide over \"model\" ({tp.size})")
+    xw = tp.whole(x)
+    B, S, _ = xw.shape
+    gate_w = gather_blocks(p["router"]["gate_w"], leaf_spec("moe/router/gate_w", (d, E)), tp.mesh)
+    shapes = {"w_gate": (E, d, f), "w_up": (E, d, f), "w_down": (E, f, d)}
+    experts = {k: gather_blocks(w, leaf_spec("moe/experts/" + k, shapes[k]), tp.mesh)
+               for k, w in p["experts"].items()}
+    out, aux = _moe_expert_parallel(xw.reshape(B * S, d), gate_w, experts, cfg, tp.mesh, tp.index,
+                                    with_aux=with_aux, enter=tp.copy)
+    out = tp.exit(out.reshape(B, S, d)).to(x.dtype)
+    if "shared" in p:
+        out = out + ffn_forward(p["shared"], x, tp=tp, d_ff=cfg.n_shared_experts * f, name="moe/shared")
+    return out, aux
+
+
+def _moe(p, x: torch.Tensor, cfg, *, with_aux: bool, tp=None):
+    if tp is not None:
+        return _moe_tp(p, x, cfg, tp, with_aux=with_aux)
     rules = _expert_parallel(cfg)
     if rules is None:
         out, ids, probs = _moe_local(p, x, cfg)
         return out, (_aux_loss(probs, ids, cfg) if with_aux else None)
-    out, aux = _moe_expert_parallel(p, x, cfg, rules, with_aux=with_aux)
+    mesh = rules.mesh
+    B, S, d = x.shape
+    j = distributed.axis_index("model", mesh)
+    experts = _local_experts(p["experts"], cfg.n_experts, cfg.n_experts // mesh.shape["model"], j)
+    out, aux = _moe_expert_parallel(x.reshape(B * S, d), p["router"]["gate_w"], experts, cfg, mesh, j,
+                                    with_aux=with_aux)
+    out = distributed.psum(out, "model", mesh).to(x.dtype).reshape(B, S, d)
     if "shared" in p:
         out = out + ffn_forward(p["shared"], x)
     return out, aux
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
+def moe_apply(p, x: torch.Tensor, cfg, *, tp=None) -> torch.Tensor:
     """x: (B, S, d) -> out, without the load-balance loss: the serving
     paths discard it, so they do not launch its kernels."""
-    return _moe(p, x, cfg, with_aux=False)[0]
+    return _moe(p, x, cfg, with_aux=False, tp=tp)[0]
 
 
-def moe_forward(p, x: torch.Tensor, cfg):
+def moe_forward(p, x: torch.Tensor, cfg, *, tp=None):
     """x: (B, S, d).  Returns (out, aux_loss)."""
-    return _moe(p, x, cfg, with_aux=True)
+    return _moe(p, x, cfg, with_aux=True, tp=tp)

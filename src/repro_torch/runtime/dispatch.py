@@ -404,15 +404,15 @@ class LogitsFn(torch.autograd.Function):
     rows at a time."""
 
     @staticmethod
-    def forward(ctx, x2, table, tied: bool, kernel: bool):
+    def forward(ctx, x2, table, tied: bool, kernel: bool, op: str = "logits"):
         ctx.save_for_backward(x2, table)
         ctx.tied = tied
-        return _logits_forward(x2, table, tied, kernel)
+        return _logits_forward(x2, table, tied, kernel, op)
 
     @staticmethod
     def backward(ctx, dlogits):
         x2, table = ctx.saved_tensors
-        return (*_ref.logits_bwd_ref(x2, table, dlogits, tied=ctx.tied), None, None)
+        return (*_ref.logits_bwd_ref(x2, table, dlogits, tied=ctx.tied), None, None, None)
 
 
 class SsdScanFn(torch.autograd.Function):
@@ -576,14 +576,36 @@ def logits_apply(x: torch.Tensor, table: torch.Tensor, *, tied: bool = True) -> 
     return out.reshape(x.shape[:-1] + (V,))
 
 
-def _logits_forward(x2: torch.Tensor, table: torch.Tensor, tied: bool, kernel: bool) -> torch.Tensor:
+def _logits_forward(x2: torch.Tensor, table: torch.Tensor, tied: bool, kernel: bool,
+                    op: str = "logits") -> torch.Tensor:
     """(M, V) fp32 logits of the rows x2 (M, d): the sketch kernel or its plain version."""
-    gemm = functools.partial(_sketch_launch, op="logits") if kernel else _ref.sketch_matmul_ref
+    gemm = functools.partial(_sketch_launch, op=op) if kernel else _ref.sketch_matmul_ref
     if tied:
         return gemm(table, aligned_rows(x2.T) if kernel else x2.T, out_dtype=torch.float32).T
     if kernel:
         return gemm(table, aligned_rows(x2.T), trans_a=True, out_dtype=torch.float32).T
     return gemm(x2, table, out_dtype=torch.float32)
+
+
+FACTOR_OP = "lowrank_factor"  # the op name the split products of a row-parallel factored linear count under
+
+
+def factor_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x @ w`` for ONE factor of a row-parallel factored linear
+    (``core/lowrank.py::apply_linear``), whose sum over "model" sits between
+    its two products: on the card the sketch GEMM with an fp32 output, ``w``
+    read in place as an untied head is (:func:`logits_apply`'s form, its
+    autograd Function and plain backward); the plain version elsewhere."""
+    config = active_dispatch()
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    kernel = _use_kernel(x.device, config)
+    _record(FACTOR_OP, PATH_KERNEL if kernel else PATH_REFERENCE, (x2.shape[0], d, w.shape[-1]))
+    if _via_function(config, x2, w):
+        out = LogitsFn.apply(x2, w, False, kernel, "sketch_matmul")
+    else:
+        out = _logits_forward(x2, w, False, kernel, "sketch_matmul")
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
@@ -639,11 +661,13 @@ def mla_materialize(w) -> torch.Tensor:
     return lowrank.materialize(w)
 
 
-def decode_attention(q, k_cache, v_cache, valid):
+def decode_attention(q, k_cache, v_cache, valid, *, return_lse: bool = False):
     """One-token GQA attention over a cache (the serving decode hot path).
 
     q: (B, 1, H, hd); k_cache: (B, S, KV, hd); v_cache: (B, S, KV, vd);
     valid: (B, S) bool strict per-slot mask.  Fully-masked rows give zeros.
+    ``return_lse``: also each head's fp32 log-sum-exp (B, H) (the tensor-parallel
+    decode over a cache split across ranks combines by it).
     """
     config = active_dispatch()
     check_no_backward("decode_attention", q, k_cache, v_cache, device_type=q.device.type, config=config)
@@ -657,10 +681,10 @@ def decode_attention(q, k_cache, v_cache, valid):
             return dry.kernel("decode_attention",
                               kernel_cost.decode_attention(B, S, H, KV, hd, q.element_size(), n_rows=B * S,
                                                                    vd=vd),
-                              lambda: _ref.decode_attention_ref(q, k_cache, v_cache, valid))
-        return _decode_kernel(q, k_cache, v_cache, valid)
+                              lambda: _ref.decode_attention_ref(q, k_cache, v_cache, valid, return_lse=return_lse))
+        return _decode_kernel(q, k_cache, v_cache, valid, return_lse=return_lse)
     _record("decode_attention", PATH_REFERENCE, sig)
-    return _ref.decode_attention_ref(q, k_cache, v_cache, valid)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, valid, return_lse=return_lse)
 
 
 def choose_paged_decode_path(*, device_type: str, config: Optional[DispatchConfig] = None) -> str:

@@ -26,18 +26,46 @@ kernels.
   :func:`axis_size` read the active mesh (:func:`use_mesh`), as the
   reference's read the ``shard_map`` axis environment.
 
-Gradients.  :func:`psum` and :func:`shift` are autograd Functions: the
-backward of a psum is the same psum of the cotangent, and the backward of a
-shift is the reverse shift.  So a rank's backward of its loss L_r gives
-d(sum_r L_r)/d(its local values), and the gradient of the mean loss
-G = mean_r L_r with respect to a value is the sum of that over the value's
-replicas, over the world size (``train_step.make_train_step(rules=)``
-averages every gradient over the world, each rank holding the whole
-params).  Each Function keeps its group, not the thread-local mesh, since
-autograd runs the backward of CUDA tensors on a thread of its own.
-:func:`all_gather` and :func:`gather_to_first` have no backward and raise
-under grad where an operand requires grad (they serve the no-grad paths:
-the TSQR redo and the checkpointer).
+Gradients.  Every collective here but :func:`gather_to_first` is an
+autograd Function, for two programs:
+
+* The whole-param program (the archs outside the tensor-parallel slice:
+  MLA, the SSM leaves, the vlm and the encoder-decoder): every rank holds the whole params and backpropagates its own
+  loss L_r, and each collective's backward is its exact adjoint, so a
+  rank's backward gives d(sum_r L_r)/d(its local values).  :func:`psum`'s
+  backward is the same psum of the cotangent and :func:`shift`'s the
+  reverse shift; the gradient of the mean loss G = mean_r L_r with respect
+  to a value is the sum of that over the value's replicas, over the world
+  size (``train_step.make_train_step(rules=)`` averages every gradient
+  over the world).  :func:`psum` serves this program: the expert-parallel
+  combine of the whole-param MoE layer, the pipeline, distributed RSI and
+  the world-mean step.
+* The tensor-parallel program (the dense and moe families under rules on
+  a live mesh; each rank holds its blocks of the params,
+  ``sharding/rules.py``), in Megatron's convention:
+  every rank of a "data" row computes the same loss L_d and backpropagates
+  it, and gets d L_d / d(its blocks).  A value replicated over "model" then
+  carries either its full cotangent (the residual stream) or a
+  rank-partial one (inside a tensor-parallel region, where each rank
+  reaches the loss through its own columns), and the conjugate pair moves
+  between the two: :func:`tp_copy` (the identity forward, a psum of the
+  cotangent backward) enters a region, :func:`tp_reduce` (a psum forward,
+  the identity backward) leaves it.  With the sequence over "model",
+  :func:`all_gather` along the sequence (its backward a reduce-scatter of
+  the cotangent) and :func:`reduce_scatter` (its backward an all-gather)
+  take their places; ``all_gather(..., backward="slice")`` gathers a value
+  whose consumers carry full cotangents (the router).  An all-gather over
+  "data" of an FSDP block sums its gradient over the batch's ranks in the
+  reduce-scatter of its backward.
+
+Each Function keeps its group, not the thread-local mesh, since autograd
+runs the backward of CUDA tensors on a thread of its own.
+:func:`gather_to_first` has no backward and raises under grad where its
+operand requires grad (it serves the checkpointer).
+
+Every collective on a live mesh adds its ring-transfer bytes to a tally by
+kind and by axis (:func:`collective_counts`), by the dry mesh's formulas,
+so a live rank's traffic compares with its dry count.
 
 The backend is an argument, never a fallback: ``"nccl"`` takes one rank a
 card; ``"gloo"`` takes CPU ranks and ranks that share one card; ``"dry"``
@@ -46,12 +74,15 @@ dry-run (``roofline/dry.py``): its collectives return tensors of the shape
 and dtype a live mesh returns and record one collective each (its kind,
 axis, group size and ring-transfer bytes, by the reference's formulas in
 ``repro/roofline/hlo_stats.py``: an all-reduce moves 2(n-1)/n of its
-bytes, an all-gather (n-1)/n of the gathered result, a permute all of
-them), backwards included.  NCCL
+bytes, an all-gather (n-1)/n of the gathered result, a reduce-scatter
+n-1 times its scattered block, a permute all of them), backwards
+included.  NCCL
 refuses two ranks on one device, so a request for it with more ranks than
 cards raises.  Gloo carries ``all_reduce`` and ``broadcast`` on CUDA
 tensors; every other collective here stages a CUDA tensor through the host
-under gloo (said at each such place).
+under gloo (said at each such place).  Gloo has no reduce-scatter: there
+:func:`reduce_scatter` all-reduces and keeps its block (counted as the
+reduce-scatter it stands for).
 """
 
 from __future__ import annotations
@@ -59,10 +90,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import math
 import os
 import tempfile
 import threading
+from collections import Counter
 from typing import Callable, Optional, Sequence, Union
 
 import torch
@@ -87,7 +120,13 @@ __all__ = [
     "axis_size",
     "psum",
     "pmean",
+    "pmax",
     "all_gather",
+    "reduce_scatter",
+    "tp_copy",
+    "tp_reduce",
+    "collective_counts",
+    "reset_collective_counts",
     "gather_to_first",
     "shift",
     "shift_token",
@@ -171,6 +210,39 @@ class _DryGroup:
         dry.collective(kind, self.axis, self.size, moved)
 
 
+class _LiveGroup:
+    """One axis of a live mesh: its process group, name and size."""
+
+    def __init__(self, pg, axis: str, size: int):
+        self.pg, self.axis, self.size = pg, axis, size
+
+    def record(self, kind: str, moved: float) -> None:
+        with _TALLY_LOCK:
+            _TALLY[("kind", kind)] += float(moved)
+            _TALLY[("axis", self.axis)] += float(moved)
+            _TALLY[("ops", "")] += 1
+
+
+_TALLY_LOCK = threading.Lock()
+_TALLY: Counter = Counter()  # guarded by: _TALLY_LOCK -- live collectives' bytes by kind and axis
+
+
+def collective_counts() -> dict:
+    """The live collectives since :func:`reset_collective_counts`, as a dry
+    count reports them: ``{"by_kind": ..., "by_axis": ..., "ops": n}``
+    (ring-transfer bytes a rank)."""
+    with _TALLY_LOCK:
+        t = dict(_TALLY)
+    return {"by_kind": {k: v for (w, k), v in t.items() if w == "kind"},
+            "by_axis": {k: v for (w, k), v in t.items() if w == "axis"},
+            "ops": int(t.get(("ops", ""), 0))}
+
+
+def reset_collective_counts() -> None:
+    with _TALLY_LOCK:
+        _TALLY.clear()
+
+
 class Mesh:
     """A live mesh: its :class:`MeshSpec` and one process group an axis
     (a ``torch.distributed.device_mesh.DeviceMesh``); or, with backend
@@ -194,9 +266,11 @@ class Mesh:
         return self.spec.axes
 
     def group(self, axis: str):
+        """The axis's group: a process group wrapped with its name and size
+        (a dry mesh: the stand-in that records instead)."""
         if self.backend == "dry":
             return _DryGroup(axis, self.shape[axis])
-        return self.device_mesh.get_group(axis)
+        return _LiveGroup(self.device_mesh.get_group(axis), axis, self.shape[axis])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, backend={self.backend}, rank={self.rank})"
@@ -360,13 +434,12 @@ def axis_index(axis, mesh: Optional[Mesh] = None) -> int:
     return m.spec.index(names, m.coords)[0]
 
 
-def _all_reduce(t: torch.Tensor, group) -> None:
-    """Sum ``t`` in place over ``group`` (a dry group records it)."""
-    if isinstance(group, _DryGroup):
-        n = group.size
-        group.record("all-reduce", 2.0 * (n - 1) / n * t.numel() * t.element_size())
-        return
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """Reduce ``t`` in place over ``group`` (a dry group only records it)."""
+    n = group.size
+    group.record("all-reduce", 2.0 * (n - 1) / n * t.numel() * t.element_size())
+    if isinstance(group, _LiveGroup):
+        dist.all_reduce(t, op=op, group=group.pg)
 
 
 class _PSum(torch.autograd.Function):
@@ -407,33 +480,179 @@ def pmean(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tensor:
     return x
 
 
-def _staged(m: Mesh, x: torch.Tensor) -> bool:
-    return m.backend == "gloo" and x.device.type == "cuda"
-
-
 def _check_no_backward(op: str, x: torch.Tensor) -> None:
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError(f"{op} has no backward, and its operand requires grad; "
                            "run it under torch.no_grad()")
 
 
-def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """(n, *x.shape): every member's ``x`` along one named axis, in index order."""
-    _check_no_backward("all_gather", x)
+def _gather_parts(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` in index order (a dry
+    group records it and returns the shape)."""
+    n = group.size
+    shape = list(x.shape)
+    shape[dim] *= n
+    group.record("all-gather", (n - 1) / n * math.prod(shape) * x.element_size())
+    if isinstance(group, _DryGroup):
+        return x.new_empty(shape)
+    # gloo gathers only CPU tensors: a CUDA tensor goes through the host
+    staged = dist.get_backend(group.pg) == "gloo" and x.device.type == "cuda"
+    src = x.detach().cpu().contiguous() if staged else x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group.pg)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _scatter_sum(x: torch.Tensor, group, dim: int, idx: int) -> torch.Tensor:
+    """The sum over the members of ``x``, this member's ``idx``-th block
+    along ``dim`` of it (a dry group records it and returns the shape)."""
+    n = group.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide over {n}")
+    c = x.shape[dim] // n
+    shape = list(x.shape)
+    shape[dim] = c
+    group.record("reduce-scatter", (n - 1.0) * math.prod(shape) * x.element_size())
+    if isinstance(group, _DryGroup):
+        return x.new_empty(shape)
+    if dist.get_backend(group.pg) == "nccl":
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((c,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group.pg)
+        return out.movedim(0, dim).contiguous()
+    # gloo has no reduce-scatter: the all-reduce, then this member's block
+    full = x.detach().contiguous().clone()
+    dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group.pg)
+    return full.narrow(dim, idx * c, c).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    """The members' blocks concatenated along ``dim``.  Backward
+    ``"reduce_scatter"``: the sum of the members' cotangents, this member's
+    block of it (the cotangents are rank-partial); ``"slice"``: this
+    member's block of its own cotangent (they are full)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int, idx: int, backward: str):
+        ctx.meta = (group, dim, idx, backward, x.shape[dim])
+        return _gather_parts(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, idx, backward, c = ctx.meta
+        if backward == "slice":
+            return g.narrow(dim, idx * c, c).contiguous(), None, None, None, None
+        return _scatter_sum(g, group, dim, idx), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The members' sum, this member's block along ``dim``; the backward
+    all-gathers the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int, idx: int):
+        ctx.meta = (group, dim)
+        return _scatter_sum(x, group, dim, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.meta
+        return _gather_parts(g.contiguous(), group, dim), None, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity forward, a psum of the cotangent backward (Megatron's
+    entry into a tensor-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        _all_reduce(out, ctx.group)
+        return out, None
+
+
+class _Reduce(torch.autograd.Function):
+    """A psum forward, the identity backward (Megatron's exit from a
+    tensor-parallel region: the cotangent arrives full on every member)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        _all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _axis(axis, mesh: Optional[Mesh]):
+    """(mesh, the one axis name, its size) of a one-axis argument."""
     m = _mesh(mesh)
     (a,) = axis_names(axis)
-    n = m.shape[a]
+    return m, a, m.shape[a]
+
+
+def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None, *, dim: Optional[int] = None,
+               backward: str = "reduce_scatter") -> torch.Tensor:
+    """Every member's ``x`` along one named axis, in index order: stacked,
+    (n, *x.shape), or with ``dim`` concatenated along that dim.  Its
+    backward (``backward``): ``"reduce_scatter"`` sums the members'
+    cotangents and keeps this member's block (the gathered value's
+    consumers reach the loss through rank-partial paths); ``"slice"`` keeps
+    this member's block of its own cotangent (they carry full ones)."""
+    if backward not in ("reduce_scatter", "slice"):
+        raise ValueError(f"all_gather backward {backward!r}")
+    m, a, n = _axis(axis, mesh)
+    if dim is None:
+        return all_gather(x[None], a, m, dim=0, backward=backward)
     if n == 1:
-        return x[None]
-    # gloo gathers only CPU tensors: a CUDA tensor goes through the host
-    src = x.detach().cpu().contiguous() if _staged(m, x) else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    group = m.group(a)
-    if isinstance(group, _DryGroup):
-        group.record("all-gather", (n - 1) / n * n * src.numel() * src.element_size())
-    else:
-        dist.all_gather(parts, src, group=group)
-    return torch.stack(parts).to(x.device)
+        return x
+    return _AllGather.apply(x, m.group(a), dim % x.dim(), m.coords[a], backward)
+
+
+def reduce_scatter(x: torch.Tensor, axis, dim: int, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The sum of ``x`` over the members of one named axis, this member's
+    block of it along ``dim`` (n-way); its backward all-gathers."""
+    m, a, n = _axis(axis, mesh)
+    if n == 1:
+        return x
+    return _ReduceScatter.apply(x, m.group(a), dim % x.dim(), m.coords[a])
+
+
+def tp_copy(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``x`` itself; the backward psums the cotangent over ``axis`` (None: the identity)."""
+    for a in axis_names(axis):
+        m = _mesh(mesh)
+        if m.shape[a] > 1:
+            x = _Copy.apply(x, m.group(a))
+    return x
+
+
+def tp_reduce(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The psum of ``x`` over ``axis``; the backward passes the cotangent on."""
+    for a in axis_names(axis):
+        m = _mesh(mesh)
+        if m.shape[a] > 1:
+            x = _Reduce.apply(x, m.group(a))
+    return x
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, axis, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axis`` (no backward: it serves
+    the log-sum-exp's shift, which the result does not depend on)."""
+    x = x.detach().contiguous().clone()
+    for a in axis_names(axis):
+        m = _mesh(mesh)
+        if m.shape[a] > 1:
+            _all_reduce(x, m.group(a), dist.ReduceOp.MAX)
+    return x
 
 
 def gather_to_first(x: torch.Tensor, mesh: Optional[Mesh] = None) -> Optional[list]:
@@ -444,9 +663,10 @@ def gather_to_first(x: torch.Tensor, mesh: Optional[Mesh] = None) -> Optional[li
     src = x.detach().cpu().contiguous() if m.backend == "gloo" else x.detach().contiguous()
     world = m.spec.size
     parts = [torch.empty_like(src) for _ in range(world)] if m.rank == 0 else None
-    if m.backend == "dry":  # a gather to one rank, priced as the all-gather over the world
-        _DryGroup(",".join(m.axes), world).record("all-gather", (world - 1) * src.numel() * src.element_size())
-    else:
+    # a gather to one rank, priced as the all-gather over the world
+    cls = _DryGroup if m.backend == "dry" else functools.partial(_LiveGroup, None)
+    cls(",".join(m.axes), world).record("all-gather", (world - 1) * src.numel() * src.element_size())
+    if m.backend != "dry":
         dist.gather(src, parts, dst=0)
     return None if parts is None else [p.cpu() for p in parts]
 
@@ -455,20 +675,20 @@ def _exchange(out: Optional[torch.Tensor], dst: Optional[int], like: Optional[tu
               group, staged: bool) -> Optional[torch.Tensor]:
     """Send ``out`` to global rank ``dst`` and receive a tensor ``like``
     (shape, dtype, device) from ``src``, either of them None for none."""
+    if dst is not None:
+        group.record("collective-permute", float(out.numel() * out.element_size()))
     if isinstance(group, _DryGroup):  # the send is recorded, the receive an empty buffer
-        if dst is not None:
-            group.record("collective-permute", float(out.numel() * out.element_size()))
         return None if src is None else torch.empty(like[0], dtype=like[1], device=like[2])
     work = None
     if dst is not None:
         # gloo sends only CPU tensors: a CUDA tensor goes through the host
         out = out.cpu().contiguous() if staged else out.contiguous()
-        work = dist.isend(out, dst=dst, group=group)
+        work = dist.isend(out, dst=dst, group=group.pg)
     got = None
     if src is not None:
         shape, dtype, device = like
         buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
-        dist.recv(buf, src=src, group=group)
+        dist.recv(buf, src=src, group=group.pg)
         got = buf.to(device)
     if work is not None:
         work.wait()
@@ -538,8 +758,8 @@ def shift(y: Optional[torch.Tensor], axis: str, *, send: bool, recv_like: Option
         nxt = m.spec.rank({**m.coords, axis: i + 1}) if send else None
         prev = m.spec.rank({**m.coords, axis: i - 1}) if recv_like is not None else None
     else:
-        nxt = dist.get_global_rank(g, i + 1) if send else None
-        prev = dist.get_global_rank(g, i - 1) if recv_like is not None else None
+        nxt = dist.get_global_rank(g.pg, i + 1) if send else None
+        prev = dist.get_global_rank(g.pg, i - 1) if recv_like is not None else None
     like = None if recv_like is None else (recv_like.shape, recv_like.dtype, recv_like.device)
     got, token = _Shift.apply(token, y if send else None, g, nxt, prev, like, staged)
     return (got if prev is not None else None), token

@@ -21,6 +21,39 @@ heads sit on a 16-way model axis).
 :class:`~repro_torch.runtime.distributed.MeshSpec` serves as well as a live
 :class:`~repro_torch.runtime.distributed.Mesh`: specs need no process group.
 A spec is a tuple with one entry per dim, as ``tuple(PartitionSpec(...))``.
+
+The layout of one rank's program.  Under rules on a live (or dry) mesh,
+the dense family and the moe family without MLA (:func:`tensor_parallel`)
+run the tensor-parallel program:
+
+* Params, optimizer state and caches: each rank holds exactly its blocks
+  under ``param_specs``, ``train_step.state_specs`` and
+  ``serve_step.cache_specs`` (:func:`shard_params`), with the reference's
+  divisibility fallback to replicated: a linear whose split dim does not
+  divide over "model" is held whole there and computed whole on every rank
+  (``models/modules.py::tp_linear``), and a decode cache whose slots do not
+  divide over "model" is held whole and attended unsplit
+  (``models/attention.py::cache_block``).  Two leaves have no fallback in
+  the program: the vocab (``embed``, ``lm_head``; ``vocab_padded`` is a
+  multiple of 256, so it divides any "model" axis of a power of two up to
+  256) and the expert stacks, whose indivisible case the reference runs
+  as the single-device layer over the global batch.  A factored leaf takes its
+  dense leaf's spec through ``core/compress.py::_default_spec_transform``
+  (:func:`layout_specs`): A the input dim's entry, B the output dim's.
+* Activations: the layout the reference's ``maybe_constrain`` call at that
+  point resolves to under the same rules: the heads over "model" where
+  the head count divides; the sequence over "model" between blocks where
+  "seq" is mapped; whole otherwise.
+* Moving between the two is an explicit collective in the model code
+  (``runtime/distributed.py``: the all-gather of an FSDP block just
+  before its product, the conjugate pair and the sequence's gather and
+  reduce-scatter around the tensor-parallel regions).
+
+:func:`leaf_spec` tells the model code which dim of a leaf is split over
+which axis.  The other archs (MLA, the SSM leaves, the cross-attention
+and the encoder) keep the whole-param program: every rank holds every
+param whole, and the rules split only the batch and the MoE experts'
+compute.
 """
 
 from __future__ import annotations
@@ -31,7 +64,9 @@ import re
 import threading
 from typing import Any, Optional, Sequence
 
-from repro_torch.runtime.distributed import NamedSharding
+import torch
+
+from repro_torch.runtime.distributed import Mesh, NamedSharding
 from repro_torch.tree import tree_from_paths, tree_map, tree_paths
 
 __all__ = [
@@ -44,6 +79,11 @@ __all__ = [
     "param_specs",
     "param_shardings",
     "local_params",
+    "layout_specs",
+    "shard_params",
+    "tensor_parallel",
+    "tp_rules",
+    "leaf_spec",
     "PARAM_RULES",
 ]
 
@@ -120,10 +160,38 @@ def bound_to_rules(fn):
 
 def maybe_constrain(x, logical_axes: Sequence[Optional[str]]):
     """The identity.  The reference constrains an activation's layout here
-    (``with_sharding_constraint``) for XLA to honour; per-rank code holds its
-    local blocks and its explicit collectives fix every layout, so there is
-    nothing left to constrain."""
+    (``with_sharding_constraint``) for XLA to honour; the port's per-rank
+    code holds each activation in the layout that constraint resolves to
+    and moves it by explicit collectives (the module docstring), so there
+    is nothing left to constrain."""
     return x
+
+
+def tensor_parallel(cfg) -> bool:
+    """Whether ``cfg``'s family runs the tensor-parallel program: the dense
+    family and the moe family without MLA (its leaves are plain linears,
+    embeddings and expert stacks).  The MLA latents, the SSM leaves, the
+    cross-attention and the encoder keep the whole-param program."""
+    return cfg.family == "dense" or (cfg.family == "moe" and not cfg.kv_lora_rank and not cfg.first_dense_layers)
+
+
+def tp_rules():
+    """The active rules where their mesh is live (or dry), else None: the
+    rules a tensor-parallel forward of a :func:`tensor_parallel` family runs
+    under (a mesh description has no ranks to split anything over)."""
+    rules = active_rules()
+    return rules if rules is not None and isinstance(rules.mesh, Mesh) else None
+
+
+def leaf_spec(name: str, shape: Sequence[int]) -> tuple:
+    """The per-leaf query: the spec of the leaf ``name`` (its path under a
+    layer, e.g. ``"attn/wq"``) of GLOBAL ``shape`` under the active
+    tensor-parallel rules, one entry per dim (the mesh axis it is split
+    over, or None); all None outside them."""
+    rules = tp_rules()
+    if rules is None:
+        return (None,) * len(shape)
+    return spec_for("layers/" + name, tuple(shape), rules) or (None,) * len(shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -197,3 +265,60 @@ def param_shardings(params: Any, rules: MeshRules, *, rank: Optional[int] = None
 def local_params(params: Any, rules: MeshRules, *, rank: Optional[int] = None) -> Any:
     """Each leaf's block that ``rank`` (default: this process's) holds, as views."""
     return tree_map(lambda leaf, sh: sh.local(leaf), params, param_shardings(params, rules, rank=rank))
+
+
+def _is_factor(path: str) -> bool:
+    return path.endswith("/a") or path.endswith("/b")
+
+
+def layout_specs(params: Any, rules: MeshRules) -> Any:
+    """The spec tree of the tensor-parallel layout: ``param_specs``, but a
+    factored leaf ``{"a", "b"}`` takes its dense leaf's spec (its path and
+    the shape ``a.shape[:-1] + b.shape[-1:]``) through
+    ``core/compress.py::_default_spec_transform``, as ``compress_tree``
+    gives it: A the leading and input-dim entries, B the leading and
+    output-dim ones, the rank axis whole."""
+    leaves = dict(tree_paths(params))
+    out = []
+    for path, leaf in leaves.items():
+        if _is_factor(path):
+            base = path[:-2]
+            a, b = leaves.get(base + "/a"), leaves.get(base + "/b")
+            if a is not None and b is not None:
+                dense = tuple(a.shape[:-1]) + (b.shape[-1],)
+                sp = spec_for(base, dense, rules)
+                sp = tuple(sp) + (None,) * (len(dense) - len(sp))
+                lead, in_sp, out_sp = sp[:-2], sp[-2], sp[-1]
+                out.append((path, lead + ((in_sp, None) if path.endswith("/a") else (None, out_sp))))
+                continue
+        out.append((path, spec_for(path, tuple(leaf.shape), rules)))
+    return tree_from_paths(out)
+
+
+def _own_block(block, factor: bool):
+    """``block`` copied into storage of its own (a factor's rows padded to
+    8 elements, ``core/lowrank.py::lowrank_params``'s layout)."""
+    if factor and block.dim() >= 2:
+        cols = block.shape[-1]
+        out = torch.empty(tuple(block.shape[:-1]) + (-(-cols // 8) * 8,), dtype=block.dtype,
+                          device=block.device)[..., :cols]
+    else:
+        out = torch.empty(tuple(block.shape), dtype=block.dtype, device=block.device)
+    return out.copy_(block)
+
+
+def shard_params(params: Any, rules: MeshRules, *, rank: Optional[int] = None, specs: Any = None) -> Any:
+    """Each leaf's block under :func:`layout_specs` (or ``specs``) that
+    ``rank`` (default: the mesh's own, else this process's) holds, each in
+    storage of its own, not a view of the whole (:func:`local_params` gives
+    views).  Factors keep their padded-row storage."""
+    specs = layout_specs(params, rules) if specs is None else specs
+    if rank is None:
+        rank = getattr(rules.mesh, "rank", None)
+    mesh = rules.mesh
+    sp = dict(tree_paths(specs))
+    out = []
+    for path, leaf in tree_paths(params):
+        sh = NamedSharding(mesh, tuple(sp[path]), rank)
+        out.append((path, _own_block(sh.local(leaf), _is_factor(path))))
+    return tree_from_paths(out)

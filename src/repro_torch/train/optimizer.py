@@ -9,6 +9,13 @@ come from torch autograd; the optimizers only read them.
 Adafactor keeps factored second moments for >=2-D leaves (row/col
 statistics).  All moment math runs in fp32 whatever the param dtype, and the
 schedules return 0-d fp32 tensors, as the reference computes them.
+
+On blocks (the tensor-parallel train step passes ``specs=``, the params'
+layout spec tree, under rules on a live mesh) AdamW and SGD-momentum are
+elementwise and need nothing; Adafactor's factored statistics are means
+over a param's last two dims, so where one of them is split its mean is
+pmean'd over the axes that split it, and the update's RMS over the whole
+leaf likewise.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.runtime.distributed import pmean
 from repro_torch.tree import tree_map as _map
 from repro_torch.tree import tree_part as _part
 from repro_torch.tree import tree_paths
@@ -28,6 +36,7 @@ __all__ = [
     "adafactor",
     "sgdm",
     "clip_by_global_norm",
+    "scale_by_norm",
     "cosine_schedule",
     "linear_schedule",
     "constant_schedule",
@@ -50,10 +59,15 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def scale_by_norm(grads, norm: torch.Tensor, max_norm: float):
+    """The grads scaled to a global norm of at most ``max_norm``, given their norm."""
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return _map(lambda g: (g.float() * scale).to(g.dtype), grads)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return _map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return scale_by_norm(grads, norm, max_norm), norm
 
 
 def apply_updates(params, updates):
@@ -107,7 +121,7 @@ def adamw(lr: Callable, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": _map(zeros, params), "v": _map(zeros, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, specs=None):
         t = _f32(step) + 1.0
         lr_t = lr(step)
         bc1 = 1 - b1**t
@@ -142,18 +156,31 @@ def adafactor(lr: Callable, *, decay: float = 0.8, eps: float = 1e-30, clip_thre
 
         return _map(leaf, params)
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, specs=None):
         t = _f32(step) + 1.0
         beta = 1.0 - t**-decay
         lr_t = lr(step)
+        mesh = None
+        if specs is not None:
+            from repro_torch.sharding.rules import tp_rules
 
-        def upd(g, s, p):
+            mesh = tp_rules().mesh
+
+        def upd(g, s, p, spec=None):
+            sp = tuple(spec or ()) + (None,) * (g.dim() - len(spec or ()))
+
+            def over(x, dims):
+                """A local mean, pmean'd over the axes that split the param's ``dims``."""
+                for d in dims if mesh is not None else ():
+                    x = pmean(x, sp[d], mesh)
+                return x
+
             g32 = g.float()
             g2 = torch.square(g32) + eps
             if g.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                denom = torch.mean(vr, dim=-1, keepdim=True)
+                vr = beta * s["vr"] + (1 - beta) * over(torch.mean(g2, dim=-1), (-1,))
+                vc = beta * s["vc"] + (1 - beta) * over(torch.mean(g2, dim=-2), (-2,))
+                denom = over(torch.mean(vr, dim=-1, keepdim=True), (-2,))
                 rhat = (vr / torch.clamp(denom, min=eps))[..., None]
                 u = g32 * torch.rsqrt(rhat * vc[..., None, :] + eps)
                 new_s = {"vr": vr, "vc": vc}
@@ -162,14 +189,14 @@ def adafactor(lr: Callable, *, decay: float = 0.8, eps: float = 1e-30, clip_thre
                 u = g32 * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms = torch.sqrt(over(torch.mean(torch.square(u)), range(g.dim())) + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             u = -lr_t * u
             if weight_decay and p.dim() >= 2:
                 u = u - lr_t * weight_decay * p.float()
             return u, new_s
 
-        outs = _map(upd, grads, state, params)
+        outs = _map(upd, grads, state, params) if specs is None else _map(upd, grads, state, params, specs)
         return _part(outs, 0), _part(outs, 1)
 
     return Optimizer(init, update)
@@ -182,7 +209,7 @@ def sgdm(lr: Callable, *, momentum: float = 0.9, nesterov: bool = False) -> Opti
     def init(params):
         return _map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, specs=None):
         lr_t = lr(step)
 
         def upd(g, m):

@@ -5,7 +5,12 @@ The port's counterpart of ``repro/train/serve_step.py``.  ``greedy_generate``
 is the reference contract that the continuous-batching engine is held to;
 ``make_prefill_step`` / ``make_decode_step`` run the model's own under the
 sharding rules given, and :func:`cache_specs` lays out a decode cache by
-the reference's rules.
+the reference's rules.  Under rules on a live mesh, for the families of
+``sharding/rules.py::tensor_parallel``, the steps take this rank's blocks
+of the params, return this rank's vocab block of the logits, and the
+prefill's cache comes out in :func:`cache_specs`' layout (this rank's rows
+and its block of the slots, or every slot where they do not divide over
+"model"), which the decode step takes and updates in place.
 """
 
 from __future__ import annotations

@@ -463,9 +463,11 @@ def test_cluster_straggler_death(llama, trace_refs):
     """One slow step inside replica 0's engine (the engine-level fault, so
     its watchdog times it): flagged above 3 x the median, and above the
     cluster's floor, it is the only death signal (the heartbeat floor is
-    30 s).  The slow step is 30 x the measured step median (at least 0.2 s)
-    and the floor half that, so a healthy step would have to run 15 x the
-    median to die."""
+    30 s).  The fault is armed at the replica's next step, so no healthy
+    step comes before it; the floor is at least 1 s (and 15 x the measured
+    median), and the slow step 4 x the floor, so a healthy step would have
+    to stall for a second under the suite's load to die, and the injected
+    one exceeds the floor four-fold."""
     tm, tp, _, _ = llama
     trace, _, refs = trace_refs
     eng_inj = FaultInjector()
@@ -480,10 +482,10 @@ def test_cluster_straggler_death(llama, trace_refs):
     try:
         for rep in clu.replicas:
             _warm(rep.eng, tm.cfg.vocab)
-        slow_s = max(0.2, 30 * max(rep.eng.watchdog.median for rep in clu.replicas))
-        clu.straggler_min_s = slow_s / 2
-        base = clu.replicas[0].eng._step_idx
-        eng_inj.slow_ms, eng_inj.slow_steps = slow_s * 1e3, (base + 4, base + 5)
+        clu.straggler_min_s = max(1.0, 15 * max(rep.eng.watchdog.median for rep in clu.replicas))
+        slow_s = 4 * clu.straggler_min_s
+        base = clu.replicas[0].eng._step_idx  # the engine's next step is base + 1
+        eng_inj.slow_ms, eng_inj.slow_steps = slow_s * 1e3, (base + 1, base + 2)
         reqs = _build(trace)
         clu.run(reqs, timeout_s=120.0)
         assert eng_inj.fired.get("slow_step") == 1 and clu.replicas[0].eng.straggler_flags >= 1

@@ -31,9 +31,22 @@ Tolerances (fp32 throughout; the frameworks sum in other orders):
   eight singular values within 1e-5 of the single-device port's
   (Householder) and each reconstruction within 0.02 of W in the spectral
   norm, as the single-device energy test holds it (the directions past the
-  eighth are noise at 0.01 either way).
+  eighth are noise at 0.01 either way);
+* the tensor-parallel program (``torch_ranks.TP_CASES``: reduced
+  llama3.2-1b, minitron-4b, phi3.5-moe, h2o-danube-1.8b with its window
+  cut below the prompt, and a llama whose linears and cache divide no split
+  over 4, trained with the sequence whole, in fp32 under the production
+  rules, the sequence over "model"), against the reference's steps jitted
+  with the specs as in_shardings: each rank's blocks exactly the
+  reference's shard shapes; one step's loss, aux loss and grad norm within
+  1e-5, its params within 1e-3 (absolute; 1e-6 on average: AdamW and
+  Adafactor step an element whose gradient is at fp32 noise by a noisy
+  fraction of the learning rate); the prefill and decode logits within
+  1e-4 and the split decode cache within 1e-5; each rank's live
+  collectives equal to the dry mesh's count of the same step.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,7 +62,7 @@ import torch  # noqa: E402
 import torch_ranks  # noqa: E402
 from repro_torch.core.rsi import QR_FALLBACKS, rsi  # noqa: E402
 from repro_torch.runtime import distributed  # noqa: E402
-from repro_torch.runtime.distributed import MeshSpec, assemble  # noqa: E402
+from repro_torch.runtime.distributed import MeshSpec, assemble, local_block  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse: one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,6 +146,67 @@ state, m = jax.jit(jts.make_train_step(model, opt, rules=MeshRules(mesh)))(
 flat("ts_p/", p0)
 flat("ts_new/", state.params)
 out.update(ts_tokens=batch["tokens"], ts_targets=batch["targets"], **{"ts_" + k: v for k, v in m.items()})
+# the whole-param program's step: reduced deepseek-v2 (MLA, its MoE layers expert-parallel)
+cfg = dataclasses.replace(get_arch("deepseek-v2-236b", reduced=True), dtype="float32", remat="none",
+                          capacity_factor=8.0)
+model = build_model(cfg)
+p0 = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0)))
+state = jts.TrainState(params=p0, opt_state=opt.init(p0), step=jnp.zeros((), jnp.int32))
+batch = SyntheticLM(cfg, batch=4, seq=16, seed=3).at_step(0)
+state, m = jax.jit(jts.make_train_step(model, opt, rules=MeshRules(mesh)))(
+    state, jax.tree_util.tree_map(jnp.asarray, batch))
+flat("wp_p/", p0)
+flat("wp_new/", state.params)
+out.update(wp_tokens=batch["tokens"], wp_targets=batch["targets"], **{"wp_" + k: v for k, v in m.items()})
+
+# the tensor-parallel cases: jitted with the specs as in_shardings, as repro/launch/dryrun.py jits them
+from repro.launch.mesh import make_rules
+from repro.sharding.rules import param_specs
+from repro.train.serve_step import cache_specs, make_decode_step, make_prefill_step
+def shardings(specs):
+    return jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), specs, is_leaf=lambda x: isinstance(x, P))
+def rows(rules, a):
+    return NamedSharding(mesh, rules.spec(("batch",) + (None,) * (a.ndim - 1), a.shape))
+for tag, (arch, opt_name) in %(tp)r.items():
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32", remat="none", capacity_factor=8.0,
+                              **%(cfg)r.get(tag, {}))
+    model = build_model(cfg)
+    opt = (jopt.adafactor if opt_name == "adafactor" else jopt.adamw)(jopt.constant_schedule(%(lr)r))
+    p0 = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0)))
+    rules = make_rules(mesh, sequence_parallel=True)
+    p_specs = param_specs(p0, rules)
+    if tag in %(rsi)r:
+        from repro.core.compress import CompressionPolicy, compress_tree
+        p0, p_specs, _ = compress_tree(p0, CompressionPolicy(**%(rsi)r[tag]), jax.random.PRNGKey(5), specs=p_specs)
+    flat(tag + "_p/", p0)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(p0)[0]:
+        spec = p_specs
+        for k in path:
+            spec = spec[k.key]
+        out[tag + "_shape/" + "/".join(str(k.key) for k in path)] = np.array(NamedSharding(mesh, P(*spec)).shard_shape(leaf.shape))
+    state = jts.TrainState(params=p0, opt_state=opt.init(p0), step=jnp.zeros((), jnp.int32))
+    st = jts.state_specs(state, rules)
+    st_sh = jts.TrainState(params=shardings(st.params), opt_state=shardings(st.opt_state), step=NamedSharding(mesh, P()))
+    batch = jax.tree_util.tree_map(jnp.asarray, SyntheticLM(cfg, batch=4, seq=16, seed=3).at_step(0))
+    trules = make_rules(mesh, sequence_parallel=%(train_seq)r.get(tag, True))
+    new, m = jax.jit(jts.make_train_step(model, opt, rules=trules),
+                     in_shardings=(st_sh, {k: rows(rules, v) for k, v in batch.items()}))(state, batch)
+    flat(tag + "_new/", new.params)
+    out.update({tag + "_tokens": batch["tokens"], tag + "_targets": batch["targets"]},
+               **{tag + "_" + k: v for k, v in m.items()})
+    p_sh = shardings(p_specs)
+    tok = batch["tokens"]
+    logits, cache = jax.jit(make_prefill_step(model, rules=rules, max_len=%(max_lens)r.get(tag, %(max_len)r)),
+                            in_shardings=(p_sh, {"tokens": rows(rules, tok)}))(p0, {"tokens": tok})
+    drules = make_rules(mesh, sequence_parallel=False)
+    c_sh = shardings(cache_specs(cache, drules))
+    cache = jax.device_put(cache, c_sh)
+    step_tok = tok[:, -1:]
+    dlogits, cache2 = jax.jit(make_decode_step(model, rules=drules),
+                              in_shardings=(p_sh, c_sh, rows(drules, step_tok), NamedSharding(mesh, P())))(
+        p0, cache, step_tok, jnp.int32(tok.shape[1]))
+    flat(tag + "_cache/", cache2)
+    out.update({tag + "_prefill": logits, tag + "_decode": dlogits})
 np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in out.items()})
 """
 
@@ -143,7 +217,10 @@ def ref(tmp_path_factory):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + env.get("PYTHONPATH", "")
-    script = textwrap.dedent(_REFERENCE) % {"lr": torch_ranks.TRAIN_LR}
+    script = textwrap.dedent(_REFERENCE) % {"lr": torch_ranks.TRAIN_LR, "tp": torch_ranks.TP_CASES,
+                                            "max_len": torch_ranks.TP_MAX_LEN, "rsi": torch_ranks.TP_RSI,
+                                            "max_lens": torch_ranks.TP_MAX_LENS, "cfg": torch_ranks.TP_CFG,
+                                            "train_seq": torch_ranks.TP_TRAIN_SEQ}
     r = subprocess.run([sys.executable, "-c", script, path], capture_output=True, text=True,
                        cwd=REPO, env=env, timeout=600)
     assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr[-3000:]}"
@@ -158,7 +235,9 @@ def port(ref, tmp_path_factory):
     # through each rank's start pipe in turn)
     inputs = {k: torch.from_numpy(v) for k, v in ref.items()
               if k.startswith(("rsi_W", "rsi_omega", "tsqr_", "moe_p/", "moe_x", "moe_w", "pipe_ws", "pipe_x",
-                               "pipe_wo", "psgd_grads", "psgd_q", "ts_p/", "ts_tokens", "ts_targets"))}
+                               "pipe_wo", "psgd_grads", "psgd_q", "ts_p/", "ts_tokens", "ts_targets", "wp_p/",
+                               "wp_tokens", "wp_targets"))
+              or any(k.startswith((tag + "_p/", tag + "_tokens", tag + "_targets")) for tag in torch_ranks.TP_CASES)}
     return distributed.spawn(torch_ranks.ranks, 8, (2, 4), ("data", "model"), "cpu", inputs, ckpt_dir)
 
 
@@ -253,21 +332,44 @@ def test_gpipe_backward_matches_reference(ref, port):
 
 def test_train_step_under_rules_matches_reference(ref, port):
     """One SGD-momentum step of make_train_step(rules=) on the (2, 4) mesh
-    (reduced phi3.5-moe, its MoE layers expert-parallel, the batch's rows
-    over "data"): the loss, the aux loss and the gradient norm within 1e-5
-    of the reference's step under its rules, every leaf after the step
-    within the single-device step test's tolerance, and every rank holding
-    the same bits."""
+    (reduced phi3.5-moe in the tensor-parallel program: each rank's blocks,
+    its MoE layers expert-parallel, the batch's rows over "data"): the
+    loss, the aux loss and the gradient norm within 1e-5 of the reference's
+    step under its rules, every leaf assembled from the ranks' blocks after
+    the step within the single-device step test's tolerance, and every
+    replica of a block holding the same bits."""
     for r in port:
         for k in ("loss", "aux_loss", "grad_norm"):
             np.testing.assert_allclose(r["train"]["metrics"][k], float(ref["ts_" + k]), rtol=1e-5, err_msg=k)
-    got = port[0]["train"]["params"]
+    specs = port[0]["train"]["specs"]
     want = {k[len("ts_new/"):]: ref[k] for k in ref if k.startswith("ts_new/")}
+    assert sorted(port[0]["train"]["params"]) == sorted(want)
+    for k in want:
+        got = assemble([torch.from_numpy(r["train"]["params"][k]) for r in port], specs[k], MESH)
+        np.testing.assert_allclose(got.numpy(), want[k], rtol=1e-5, atol=2e-4, err_msg=k)
+        for rank, r in enumerate(port):
+            assert np.array_equal(r["train"]["params"][k], local_block(got, specs[k], MESH, rank).numpy()), k
+
+
+def test_whole_param_train_step_matches_reference(ref, port):
+    """One SGD-momentum step of make_train_step(rules=) on the (2, 4) mesh
+    in the whole-param program (reduced deepseek-v2: MLA, outside the
+    tensor-parallel families; its MoE layers expert-parallel over the whole
+    expert stacks, the batch's rows over "data", the gradients averaged
+    over the world): the loss, the aux loss and the gradient norm within
+    1e-5 of the reference's step under its rules, every leaf after the
+    step within the single-device step test's tolerance, and every rank
+    holding the same bits."""
+    for r in port:
+        for k in ("loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(r["whole_train"]["metrics"][k], float(ref["wp_" + k]), rtol=1e-5, err_msg=k)
+    got = port[0]["whole_train"]["params"]
+    want = {k[len("wp_new/"):]: ref[k] for k in ref if k.startswith("wp_new/")}
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=2e-4, err_msg=k)
         for r in port[1:]:
-            assert np.array_equal(r["train"]["params"][k], got[k]), k
+            assert np.array_equal(r["whole_train"]["params"][k], got[k]), k
 
 
 def test_gpipe_matches_reference_and_sequential(ref, port):
@@ -311,3 +413,124 @@ def test_backend_is_explicit():
         distributed.spawn(torch_ranks.ranks, 2, (2,), ("data",), "cpu", backend="nccl")
     with pytest.raises(ValueError, match="does not hold"):
         distributed.spawn(torch_ranks.ranks, 2, (4,), ("data",), "cpu")
+
+
+TP_TAGS = tuple(torch_ranks.TP_CASES)
+
+
+def _tp_whole(port, tag: str, key: str, spec) -> np.ndarray:
+    return assemble([torch.from_numpy(r[tag]["params"][key]) for r in port], spec, MESH).numpy()
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_tensor_parallel_blocks_are_the_reference_shard_shapes(ref, port, tag):
+    """Every rank holds each leaf as exactly its block: the shape the
+    reference's ``NamedSharding(mesh, param_specs(...)).shard_shape`` gives
+    it under the production rules on the (2, 4) mesh (the divisibility
+    fallbacks included: minitron-4b's 48-wide d over 2, its 16-wide wk over 4);
+    a compressed tree's factors take the specs ``compress_tree`` transforms
+    them to (A the input dim's entry, B the output dim's)."""
+    want = {k[len(tag) + len("_shape/"):]: tuple(int(x) for x in ref[k]) for k in ref if k.startswith(tag + "_shape/")}
+    assert want
+    for r in port:
+        assert r[tag]["shapes"] == want
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_tensor_parallel_train_step_matches_reference(ref, port, tag):
+    """One step of the tensor-parallel program (its blocks, Megatron's
+    conjugate pair, the sequence over "model", the vocab-parallel
+    cross-entropy, the gradient mean over "data" only; AdamW, or Adafactor
+    for minitron-4b) against the reference's step jitted with the same
+    specs as in_shardings, fp32: the loss, the aux loss and the grad norm
+    within 1e-5 (relative), every rank the same; every leaf assembled from
+    the ranks' blocks within 1e-3 of the reference's, absolute, and on
+    average within 1e-6.  AdamW and Adafactor move each element by about
+    the learning rate (1e-2) times g / sqrt(v): where a gradient is at
+    fp32 noise (|g| ~ 1e-8, the two frameworks summing in other orders),
+    that ratio is noise too, so single elements differ by up to ~1e-3 while
+    the rest agree to ~1e-7."""
+    for r in port:
+        for k in ("loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(r[tag]["metrics"][k], float(ref[tag + "_" + k]), rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+    want = {k[len(tag) + len("_new/"):]: ref[k] for k in ref if k.startswith(tag + "_new/")}
+    assert sorted(want) == sorted(port[0][tag]["params"])
+    for k, w in want.items():
+        got = _tp_whole(port, tag, k, port[0][tag]["specs"][k])
+        diff = np.abs(got - w)
+        assert float(diff.max()) <= 1e-3 and float(diff.mean()) <= 1e-6, (k, float(diff.max()), float(diff.mean()))
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_tensor_parallel_prefill_and_decode_match_reference(ref, port, tag):
+    """The prefill (the sequence over "model", flash on this rank's heads)
+    and one decode step on the blocks against the reference's steps jitted
+    with the specs: the logits, this rank's vocab block of its rows,
+    assembled, within 1e-4 (fp32); the decode cache in ``cache_specs``'
+    layout (its rows over "data", its slots over "model": the decode wrote
+    the new row on the rank holding its slot and combined the ranks'
+    attentions by their lse; tp_danube's ring of the prompt's last 8
+    positions, 2 slots a rank; tp_whole's 22 slots whole on every rank, as
+    the reference keeps a cache whose slots do not divide), assembled,
+    within 1e-5 of the reference's."""
+    for part in ("prefill", "decode"):
+        got = assemble([torch.from_numpy(r[tag][part]) for r in port], ("data", "model"), MESH).numpy()
+        np.testing.assert_allclose(got, ref[tag + "_" + part], rtol=0, atol=1e-4, err_msg=part)
+    cfg = torch_ranks.tp_cfg(tag)
+    slots = torch_ranks.TP_MAX_LENS.get(tag, torch_ranks.TP_MAX_LEN)
+    slots = min(slots, cfg.sliding_window) if cfg.sliding_window is not None else slots
+    spec = (None, "data", "model") if slots % 4 == 0 else (None, "data")  # cache_specs' fallback: whole
+    for name in ("layers/k", "layers/v"):
+        assert port[0][tag]["cache"][name].shape[2] == (slots // 4 if slots % 4 == 0 else slots)
+        got = assemble([torch.from_numpy(r[tag]["cache"][name]) for r in port], spec, MESH).numpy()
+        np.testing.assert_allclose(got, ref[tag + "_cache/" + name], rtol=0, atol=1e-5, err_msg=name)
+
+
+def _dry_train_count(cfg, opt_name, whole_shapes, rank, seq: bool = True):
+    """The tensor-parallel train step of rank ``rank`` on fakes of params of
+    ``whole_shapes`` (path -> shape), the sequence over "model" where
+    ``seq``, counted (inside a dry world)."""
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline import op_stats
+    from repro_torch.runtime.distributed import dry_mesh
+    from repro_torch.sharding.rules import layout_specs, shard_params
+    from repro_torch.train import optimizer as t_opt
+    from repro_torch.train import train_step as t_ts
+
+    whole = t_ts.tree_from_paths((p, torch.empty(s, dtype=torch.float32)) for p, s in whole_shapes.items())
+    rules = make_rules(dry_mesh(MESH, rank), sequence_parallel=seq)
+    specs = layout_specs(whole, rules)
+    blocks = shard_params(whole, rules, specs=specs)
+    opt = (t_opt.adafactor if opt_name == "adafactor" else t_opt.adamw)(t_opt.constant_schedule(1e-2))
+    state = t_ts.TrainState(params=blocks, opt_state=opt.init(blocks), step=torch.zeros((), dtype=torch.int32))
+    batch = {k: torch.zeros((2, 16), dtype=torch.int32) for k in ("tokens", "targets")}
+    fn = t_ts.make_train_step(build_model(cfg), opt, rules=rules, specs=specs)
+    return op_stats.measure(lambda: fn(state, batch), arguments=(state, batch))[1]
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_tensor_parallel_collectives_equal_the_dry_count(port, tag):
+    """Each rank's live collectives in the train step (bytes by kind and by
+    axis, and their count) equal the dry mesh's record of the same step on
+    that rank: the dry-run prices what the ranks move."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import dry, op_stats
+
+    opt_name = torch_ranks.TP_CASES[tag][1]
+    cfg = dataclasses.replace(torch_ranks.tp_cfg(tag), optimizer=opt_name)
+    for rank in (0, 5):
+        with dry.dry_world():
+            seq = torch_ranks.TP_TRAIN_SEQ.get(tag, True)
+            if tag in torch_ranks.TP_RSI or not seq:  # the same step on fakes of these params, under its rules
+                st = _dry_train_count(cfg, opt_name, port[rank][tag]["whole"], rank, seq)
+            else:
+                step, args, meta, _ = dryrun.build_step(cfg, ShapeCell("t", 16, 4, "train"), MESH, rank=rank)
+                _, st = op_stats.measure(step, arguments=args)
+                assert meta["tensor_parallel"] and meta["sharded_by_reference_bytes"] == 0
+        live = port[rank][tag]["train_collectives"]
+        assert st.coll_ops == live["ops"]
+        assert {k: v for k, v in st.coll_bytes.items() if v} == pytest.approx(live["by_kind"], rel=1e-12)
+        assert st.coll_by_axis == pytest.approx(live["by_axis"], rel=1e-12)

@@ -45,7 +45,7 @@ from repro_torch.roofline import dry, kernel_cost, op_stats  # noqa: E402
 from repro_torch.runtime import dispatch  # noqa: E402
 from repro_torch.runtime.dispatch import DispatchConfig, use_dispatch  # noqa: E402
 from repro_torch.runtime.distributed import MeshSpec, dry_mesh  # noqa: E402
-from repro_torch.sharding.rules import use_rules  # noqa: E402
+from repro_torch.sharding.rules import layout_specs, use_rules  # noqa: E402
 from repro_torch.train import optimizer as t_opt  # noqa: E402
 from repro_torch.train.train_step import TrainState, make_train_step  # noqa: E402
 from repro_torch.tree import tree_paths  # noqa: E402
@@ -196,28 +196,174 @@ def test_ep_psum_bytes_on_a_dry_mesh():
     assert st.coll_by_axis == {"model": _allreduce(4, 2 * 16 * cfg.d_model * 4), "data": _allreduce(2, 4)}
 
 
+class _Expected:
+    """Collectives by kind and axis, at the reference's ring formulas."""
+
+    def __init__(self):
+        self.by_kind, self.by_axis, self.ops = {}, {}, 0
+
+    def add(self, kind, axis, moved):
+        self.by_kind[kind] = self.by_kind.get(kind, 0.0) + moved
+        self.by_axis[axis] = self.by_axis.get(axis, 0.0) + moved
+        self.ops += 1
+
+    def ag(self, axis, n, result):  # an all-gather's gathered result, bytes
+        self.add("all-gather", axis, (n - 1) / n * result)
+
+    def rs(self, axis, n, block):  # a reduce-scatter's scattered block, bytes
+        self.add("reduce-scatter", axis, (n - 1.0) * block)
+
+    def ar(self, axis, n, nbytes):
+        self.add("all-reduce", axis, 2.0 * (n - 1) / n * nbytes)
+
+
+def _tp_train_collectives(cfg, rows: int, seq: int, D: int, M: int, specs) -> _Expected:
+    """The tensor-parallel train step's collectives on one rank of (D, M)
+    ("data", "model"), derived from the params' specs (every linear of
+    these reduced configs splits over both axes; the sequence over "model"):
+
+    * each FSDP block gathered over "data" just before its product (the
+      gather's backward a reduce-scatter), each column-parallel region
+      entered by the sequence's gather over "model" and each row-parallel
+      one left by its reduce-scatter (the backwards swap them), the norm
+      scales' copies psummed over "model" in the backward, the KV heads that
+      do not divide "model" gathered from their column blocks;
+    * the embedding: its ``d`` gathered, its rows reduce-scattered onto the
+      sequence; the head: gathered once, the final rows gathered over the
+      sequence; the cross-entropy's max, sum of exponentials and gold logit
+      all-reduced over "model" a chunk, again in the chunk's recomputation;
+    * each block recomputed in the backward up to its last saved tensor:
+      everything but its final reduce-scatter;
+    * a MoE layer: the rows gathered whole (a sliced backward), the router's
+      ``d`` gathered, the aux loss's mean over "data" (forward and
+      backward), the experts' ``d`` gathered, the rows' and gates' copies
+      psummed in the backward, the fp32 combine reduce-scattered;
+    * then the gradient mean over "data" of every leaf "data" does not
+      split (fp32), the loss and aux means, the global norm's psum."""
+    e = 2  # bf16
+    B, S, d, V = rows, seq, cfg.d_model, cfg.vocab_padded
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = _Expected()
+    row, row_s = B * S * d * e, B * (S // M) * d * e  # whole rows, this rank's sequence block
+
+    def linear_fwd(d_in, d_out):
+        x.ag("data", D, d_in * d_out // M * e)
+
+    def linear_bwd(d_in, d_out):
+        x.rs("data", D, d_in * d_out // (M * D) * e)
+
+    def attn(fwd):
+        if fwd:
+            x.ag("model", M, row)
+            for n in (H * hd, KV * hd, KV * hd):
+                linear_fwd(d, n)
+            for _ in range(2 if KV % M else 0):
+                x.ag("model", M, B * S * KV * hd * e)
+            linear_fwd(H * hd, d)
+            x.rs("model", M, row_s)
+        else:
+            x.rs("model", M, row_s)
+            for n in (H * hd, KV * hd, KV * hd):
+                linear_bwd(d, n)
+            for _ in range(2 if KV % M else 0):
+                x.rs("model", M, B * S * KV * hd // M * e)
+            linear_bwd(H * hd, d)
+            x.ag("model", M, row)
+
+    def mlp(fwd, last=True):
+        if cfg.family == "moe":
+            E, f, K, T = cfg.n_experts, cfg.moe_d_ff, cfg.top_k, B * S
+            if fwd:
+                x.ag("model", M, row)
+                x.ag("data", D, d * E * e)
+                x.ar("data", D, 4)
+                for shape in ((d, f), (d, f), (f, d)):
+                    x.ag("data", D, E // M * shape[0] * shape[1] * e)
+                if last:
+                    x.rs("model", M, B * (S // M) * d * 4)
+            else:
+                x.rs("data", D, d // D * E * e)
+                x.ar("data", D, 4)
+                for shape in ((d, f), (d, f), (f, d)):
+                    x.rs("data", D, E // M * shape[0] * shape[1] // D * e)
+                x.ar("model", M, T * d * e)
+                x.ar("model", M, T * K * 4)
+                x.ag("model", M, B * S * d * 4)
+            return
+        f = cfg.d_ff
+        if fwd:
+            x.ag("model", M, row)
+            linear_fwd(d, f)
+            linear_fwd(d, f)
+            linear_fwd(f, d)
+            if last:
+                x.rs("model", M, row_s)
+        else:
+            x.rs("model", M, row_s)
+            for shape in ((d, f), (d, f), (f, d)):
+                linear_bwd(*shape)
+            x.ag("model", M, row)
+
+    n_chunks = 16
+    while S % n_chunks:
+        n_chunks //= 2
+    # forward: the embedding, every block, the final rows, the head, the chunks
+    x.ag("data", D, V // M * d * e)
+    x.rs("model", M, row_s)
+    for _ in range(cfg.n_layers):
+        attn(True)
+        mlp(True)
+    x.ag("model", M, row)
+    x.ag("data", D, V // M * d * e)
+    for _ in range(3 * n_chunks):
+        x.ar("model", M, B * (S // n_chunks) * 4)
+    # backward: the chunks' recomputation, the head and final rows, each block's recomputation and
+    # backward (its two norm scales' copies), the final norm's copy, the embedding
+    for _ in range(3 * n_chunks):
+        x.ar("model", M, B * (S // n_chunks) * 4)
+    x.rs("data", D, V // M * d // D * e)
+    x.rs("model", M, row_s)
+    x.ar("model", M, d * e)
+    for _ in range(cfg.n_layers):
+        attn(True)
+        mlp(True, last=False)
+        mlp(False)
+        x.ar("model", M, d * e)
+        attn(False)
+        x.ar("model", M, d * e)
+    x.ag("model", M, row)
+    x.rs("data", D, V // M * d // D * e)
+    # the gradient mean over "data", the loss and aux means, the global norm
+    for _, spec, leaf in specs:
+        if "data" not in spec:
+            x.ar("data", D, leaf.numel() * 4)
+    x.ar("data", D, 4)
+    x.ar("data", D, 4)
+    x.ar("data", D, 4)
+    x.ar("model", M, 4)
+    return x
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_collective_bytes_on_a_dry_mesh(arch):
-    """The train step's gradient mean: every floating leaf's fp32 gradient
-    and the loss and aux scalars, all-reduced over "data" then "model".  The
-    MoE layers add their expert-parallel psum over "model" in the forward
-    and its backward (the block's recomputation stops before it, once every
-    value the backward saved is back) and the aux loss's mean over "data"
-    in the forward, the recomputation and the backward."""
+    """The tensor-parallel train step on rank 5 of (2, 4): its collectives
+    by kind and by axis, and their count, equal those derived from the
+    params' specs (:func:`_tp_train_collectives`), exactly; the rank holds
+    only its blocks (``sharded_by_reference_bytes`` 0)."""
     cfg = get_arch(arch, reduced=True)
     rows, seq = 2, 32
     with dry.dry_world():
-        step, args, meta, _ = dryrun.build_step(cfg, ShapeCell("t", seq, 2 * rows, "train"),
-                                                MeshSpec((2, 4), ("data", "model")))
+        step, args, meta, rules = dryrun.build_step(cfg, ShapeCell("t", seq, 2 * rows, "train"),
+                                                    MeshSpec((2, 4), ("data", "model")), rank=5)
         _, st = op_stats.measure(step, arguments=args)
-        n = sum(t.numel() for _, t in tree_paths(args[0].params) if t.is_floating_point())
-    assert meta["rows_per_rank"] == rows
-    grad = 4 * (n + 2)  # fp32 gradients, the loss, the aux loss
-    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
-    ep = _allreduce(4, rows * seq * cfg.d_model * 4)
-    assert st.coll_by_axis == {"data": _allreduce(2, grad) + n_moe * 3 * _allreduce(2, 4),
-                               "model": _allreduce(4, grad) + n_moe * 2 * ep}
-    assert st.coll_bytes["all-reduce"] == st.total_coll_bytes
+        whole = build_model(cfg).init(torch.Generator().manual_seed(0))
+        specs = dict(tree_paths(layout_specs(whole, rules)))
+        leaves = [(p, tuple(specs[p] or ()), t) for p, t in tree_paths(args[0].params)]
+    assert meta["rows_per_rank"] == rows and meta["tensor_parallel"] and meta["sharded_by_reference_bytes"] == 0
+    want = _tp_train_collectives(cfg, rows, seq, 2, 4, leaves)
+    assert st.coll_ops == want.ops
+    assert {k: v for k, v in st.coll_bytes.items() if v} == pytest.approx(want.by_kind, rel=1e-12)
+    assert st.coll_by_axis == pytest.approx(want.by_axis, rel=1e-12)
 
 
 def test_dryrun_writes_every_reference_key(tmp_path):
@@ -227,9 +373,24 @@ def test_dryrun_writes_every_reference_key(tmp_path):
         r = json.load(f)
     assert set(REFERENCE_KEYS) <= set(r)
     assert r["chips"] == 256 and r["rows_per_rank"] == 128 // 16 and r["fits"] is True
-    assert r["kernels"]["decode_attention"]["calls"] == get_arch("llama3.2-1b", reduced=True).n_layers
-    assert r["peak_bytes"] >= r["argument_bytes"] > 0 and r["sharded_by_reference_bytes"] > 0
+    cfg = get_arch("llama3.2-1b", reduced=True)
+    assert r["kernels"]["decode_attention"]["calls"] == cfg.n_layers
+    assert r["peak_bytes"] >= r["argument_bytes"] > 0 and r["sharded_by_reference_bytes"] == 0
     assert r["bottleneck"] in ("compute", "memory", "collective")
+    # the arguments are the rank's blocks under the specs: each param leaf's block (its dims over
+    # "data" and "model" where they divide 16), the cache's 8 rows of 32768 / 16 slots, the tokens
+    mesh = MeshSpec((16, 16), ("data", "model"))
+    with dry.dry_world():
+        whole = build_model(cfg).init(torch.Generator().manual_seed(0))
+        specs = dict(tree_paths(layout_specs(whole, make_rules(mesh))))
+        blocks = 0
+        for path, leaf in tree_paths(whole):
+            split = 1
+            for dim, entry in enumerate(specs[path] or ()):
+                split *= mesh.shape[entry] if entry else 1
+            blocks += leaf.numel() * leaf.element_size() // split
+    cache = 2 * cfg.n_layers * 8 * (32768 // 16) * cfg.n_kv_heads * cfg.head_dim * 2
+    assert r["argument_bytes"] == blocks + cache + 8 * 4
 
 
 def test_train_fake_devices_gives_the_same_losses(capsys):

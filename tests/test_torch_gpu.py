@@ -416,6 +416,44 @@ def test_gpu_decode_attention(cuda, S, G, hd, vd, mask, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", ["prefix", "holes"])
+@pytest.mark.parametrize("S,G,hd,vd", [(45, 4, 64, 64), (300, 8, 64, 64), (150, 4, 80, 80), (90, 16, 16, 16),
+                                       (70, 2, 32, 320), (2048, 4, 64, 64)])
+def test_gpu_decode_attention_lse(cuda, S, G, hd, vd, mask, dtype):
+    """The lse variant (the tensor-parallel decode's combine reads it)
+    against its plain version: the output as the kernel without the flag
+    gives it, bit for bit, and each head's fp32 log-sum-exp within 1e-4
+    (fp32 scores) or 2e-2 (bf16 q and K rounded before their product),
+    absolute; a fully-masked row gives -inf.  Two halves of the cache's
+    slots, attended apart and combined by their lse, give the whole's
+    output within the attention tolerance."""
+    B, KV = 3, 2
+    q, k, v = (_rand(s, 6 + i, dtype, cuda) for i, s in enumerate([(B, 1, KV * G, hd), (B, S, KV, hd),
+                                                                      (B, S, KV, vd)]))
+    if mask == "prefix":
+        valid = torch.arange(S, device=cuda)[None, :] < torch.tensor([[S], [S // 3], [0]], device=cuda)
+    else:
+        valid = _holes(B, S, cuda)
+    out, lse = decode_attention(q, k, v, valid, return_lse=True)
+    assert torch.equal(out, decode_attention(q, k, v, valid))
+    want_out, want_lse = ref.decode_attention_ref(q, k, v, valid, return_lse=True)
+    _close(out, want_out, ATTN_TOL[dtype])
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, KV * G)
+    assert bool(torch.isneginf(lse[2]).all()) and bool(torch.isneginf(want_lse[2]).all())
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert float((lse[:2] - want_lse[:2]).abs().max()) <= tol
+    h = S // 2
+    parts = [decode_attention(q, k[:, sl].contiguous(), v[:, sl].contiguous(), valid[:, sl].contiguous(),
+                              return_lse=True) for sl in (slice(0, h), slice(h, S))]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(l - m) for _, l in parts]
+    num = sum(o.float() * wi[:, None, :, None] for (o, _), wi in zip(parts, w))
+    comb = num / (w[0] + w[1])[:, None, :, None]
+    _close(comb[:2].to(out.dtype), want_out[:2], ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,window,q_offset,hd", [(70, None, 0, 64), (128, 32, 0, 64), (40, None, 24, 64),
                                                   (200, None, 0, 128), (70, None, 16, 128)])
 def test_gpu_flash_attention(cuda, S, window, q_offset, hd, dtype):
